@@ -6,7 +6,8 @@
 // exactly volumerenderer_tpu_torch/ops/raycast.py::composite_march_steps on the
 // 8-bit volume: per ray, up to max_samples steps of
 //   pos += dir_step;  leave once pos is outside the open cube (0,1)^3;
-//   s = trilinear sample of the u8 volume (clamp-to-edge or repeat);
+//   s = trilinear sample of the u8 volume (clamp-to-edge or repeat,
+//       trilinear.cuh);
 //   pa = s - s*a;  c += pa*s;  a += pa*0.6;  leave once a > 0.99.
 //
 // What bounds it on this card: every step is a data-dependent 8-tap gather
@@ -34,22 +35,12 @@
 
 #include <cuda_runtime.h>
 
+#include "trilinear.cuh"
+
 namespace {
 
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
-
-__device__ __forceinline__ int wrap_index(int i, int n, bool repeat) {
-  if (repeat) {
-    const int r = i % n;
-    return r < 0 ? r + n : r;
-  }
-  return min(max(i, 0), n - 1);
-}
-
-__device__ __forceinline__ float tap(const uint8_t* __restrict__ vol, size_t offset) {
-  return static_cast<float>(__ldg(vol + offset)) * (1.0f / 255.0f);
-}
 
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 composite_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
@@ -70,62 +61,13 @@ composite_march_kernel(const float* __restrict__ entry_uv, const float* __restri
     const float d0 = dir_step[3 * ray + 0];
     const float d1 = dir_step[3 * ray + 1];
     const float d2 = dir_step[3 * ray + 2];
-    const float fX = static_cast<float>(X);
-    const float fY = static_cast<float>(Y);
-    const float fZ = static_cast<float>(Z);
-    // 64-bit flat offsets: z*Y*X overflows int32 for volumes past 2^31 voxels
-    const size_t stride_y = static_cast<size_t>(X);
-    const size_t stride_z = static_cast<size_t>(X) * static_cast<size_t>(Y);
-
     for (int i = 0; i < max_samples; ++i) {
       p0 = p0 + d0;
       p1 = p1 + d1;
       p2 = p2 + d2;
       if (!(p0 > 0.0f && p0 < 1.0f && p1 > 0.0f && p1 < 1.0f && p2 > 0.0f && p2 < 1.0f)) break;
 
-      float u = p0, v = p1, w = p2;
-      if (repeat) {
-        u = u - floorf(u);
-        v = v - floorf(v);
-        w = w - floorf(w);
-      }
-      const float tx = u * fX - 0.5f;
-      const float ty = v * fY - 0.5f;
-      const float tz = w * fZ - 0.5f;
-      const float ix = floorf(tx);
-      const float iy = floorf(ty);
-      const float iz = floorf(tz);
-      const float fx = tx - ix;
-      const float fy = ty - iy;
-      const float fz = tz - iz;
-      const int i0x = static_cast<int>(ix);
-      const int i0y = static_cast<int>(iy);
-      const int i0z = static_cast<int>(iz);
-
-      const size_t x0 = static_cast<size_t>(wrap_index(i0x, X, repeat));
-      const size_t x1 = static_cast<size_t>(wrap_index(i0x + 1, X, repeat));
-      const size_t y0 = static_cast<size_t>(wrap_index(i0y, Y, repeat)) * stride_y;
-      const size_t y1 = static_cast<size_t>(wrap_index(i0y + 1, Y, repeat)) * stride_y;
-      const size_t z0 = static_cast<size_t>(wrap_index(i0z, Z, repeat)) * stride_z;
-      const size_t z1 = static_cast<size_t>(wrap_index(i0z + 1, Z, repeat)) * stride_z;
-
-      const float c000 = tap(vol, z0 + y0 + x0);
-      const float c100 = tap(vol, z0 + y0 + x1);
-      const float c010 = tap(vol, z0 + y1 + x0);
-      const float c110 = tap(vol, z0 + y1 + x1);
-      const float c001 = tap(vol, z1 + y0 + x0);
-      const float c101 = tap(vol, z1 + y0 + x1);
-      const float c011 = tap(vol, z1 + y1 + x0);
-      const float c111 = tap(vol, z1 + y1 + x1);
-
-      const float c00 = c000 + (c100 - c000) * fx;
-      const float c10 = c010 + (c110 - c010) * fx;
-      const float c01 = c001 + (c101 - c001) * fx;
-      const float c11 = c011 + (c111 - c011) * fx;
-      const float c0 = c00 + (c10 - c00) * fy;
-      const float c1 = c01 + (c11 - c01) * fy;
-      const float s = c0 + (c1 - c0) * fz;
-
+      const float s = vrt::sample_trilinear(vol, p0, p1, p2, X, Y, Z, repeat);
       const float pa = s - s * a;
       c = c + pa * s;
       a = a + pa * 0.6f;

@@ -1,0 +1,84 @@
+// Trilinear sampling of the 8-bit volume with OpenGL texture semantics, shared
+// by the march and shade kernels (composite_march.cu, iso_march.cu,
+// iso_shade.cu).
+//
+// The device counterpart of volumerenderer_tpu_torch/ops/sampling.py::
+// sample_trilinear on the 8-bit grid: texel centers at (i + 0.5) / N, bytes
+// normalized by 255, clamp-to-edge or GL_REPEAT wrapping, and the seven lerps
+// in that function's order, each product and sum rounded on its own (the
+// including sources are built with --fmad=false).  The volume is indexed
+// [z][y][x], x fastest; a position is (u, v, w) = (x, y, z) in texture space.
+// Any position may be sampled: the fetched indices are wrapped, so taps
+// outside the cube read the edge (clamp) or the wrapped texel (repeat).
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace vrt {
+
+__device__ __forceinline__ int wrap_index(int i, int n, bool repeat) {
+  if (repeat) {
+    const int r = i % n;
+    return r < 0 ? r + n : r;
+  }
+  return min(max(i, 0), n - 1);
+}
+
+__device__ __forceinline__ float tap(const uint8_t* __restrict__ vol, size_t offset) {
+  return static_cast<float>(__ldg(vol + offset)) * (1.0f / 255.0f);
+}
+
+__device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vol, float u,
+                                                  float v, float w, int X, int Y, int Z,
+                                                  bool repeat) {
+  if (repeat) {
+    u = u - floorf(u);
+    v = v - floorf(v);
+    w = w - floorf(w);
+  }
+  const float tx = u * static_cast<float>(X) - 0.5f;
+  const float ty = v * static_cast<float>(Y) - 0.5f;
+  const float tz = w * static_cast<float>(Z) - 0.5f;
+  const float ix = floorf(tx);
+  const float iy = floorf(ty);
+  const float iz = floorf(tz);
+  const float fx = tx - ix;
+  const float fy = ty - iy;
+  const float fz = tz - iz;
+  const int i0x = static_cast<int>(ix);
+  const int i0y = static_cast<int>(iy);
+  const int i0z = static_cast<int>(iz);
+
+  // 64-bit flat offsets: z*Y*X overflows int32 for volumes past 2^31 voxels
+  const size_t stride_y = static_cast<size_t>(X);
+  const size_t stride_z = static_cast<size_t>(X) * static_cast<size_t>(Y);
+  const size_t x0 = static_cast<size_t>(wrap_index(i0x, X, repeat));
+  const size_t x1 = static_cast<size_t>(wrap_index(i0x + 1, X, repeat));
+  const size_t y0 = static_cast<size_t>(wrap_index(i0y, Y, repeat)) * stride_y;
+  const size_t y1 = static_cast<size_t>(wrap_index(i0y + 1, Y, repeat)) * stride_y;
+  const size_t z0 = static_cast<size_t>(wrap_index(i0z, Z, repeat)) * stride_z;
+  const size_t z1 = static_cast<size_t>(wrap_index(i0z + 1, Z, repeat)) * stride_z;
+
+  const float c000 = tap(vol, z0 + y0 + x0);
+  const float c100 = tap(vol, z0 + y0 + x1);
+  const float c010 = tap(vol, z0 + y1 + x0);
+  const float c110 = tap(vol, z0 + y1 + x1);
+  const float c001 = tap(vol, z1 + y0 + x0);
+  const float c101 = tap(vol, z1 + y0 + x1);
+  const float c011 = tap(vol, z1 + y1 + x0);
+  const float c111 = tap(vol, z1 + y1 + x1);
+
+  const float c00 = c000 + (c100 - c000) * fx;
+  const float c10 = c010 + (c110 - c010) * fx;
+  const float c01 = c001 + (c101 - c001) * fx;
+  const float c11 = c011 + (c111 - c011) * fx;
+  const float c0 = c00 + (c10 - c00) * fy;
+  const float c1 = c01 + (c11 - c01) * fy;
+  return c0 + (c1 - c0) * fz;
+}
+
+}  // namespace vrt

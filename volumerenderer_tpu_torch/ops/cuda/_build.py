@@ -1,14 +1,17 @@
 """Builds the package's CUDA sources with ``nvcc`` at first use.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own
-into ``build/lib<name>-<hash>.so`` inside the package, the hash covering the
-source and the compiler flags, then loaded with ``ctypes``.  Nothing is
+into ``build/lib<name>-<hash>.so`` inside the package, then loaded with
+``ctypes``.  The hash covers the source, every shared header ``csrc/*.cuh``
+(the sources include them) and the compiler flags, so an edit to any of them
+builds anew.  Nothing is
 compiled when a module is imported: machines without ``nvcc`` import the
 package and run the plain PyTorch versions on CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import dataclasses
 import hashlib
 import os
@@ -28,7 +31,8 @@ BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, "BuiltLibrary"] = {}
 
 
@@ -61,14 +65,29 @@ def find_nvcc() -> str:
         "the CUDA kernels of volumerenderer_tpu_torch are built with it at first use")
 
 
+def library_path(name: str, csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the build of ``csrc_dir/<name>.cu`` lives: named by a hash of the
+    source, of every header ``csrc_dir/*.cuh`` (name and bytes) and of the
+    flags."""
+    digest = hashlib.sha256()
+    for path in [csrc_dir / f"{name}.cu", *sorted(csrc_dir.glob("*.cuh"))]:
+        data = path.read_bytes()
+        digest.update(f"{path.name}\0{len(data)}\0".encode())
+        digest.update(data)
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def load(name: str) -> BuiltLibrary:
-    """Build ``csrc/<name>.cu`` if no build of this source exists, and load it."""
+    """Build ``csrc/<name>.cu`` if no build of this source and its headers
+    exists, and load it.  Different sources build concurrently."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _loaded:
             return _loaded[name]
         source = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(source.read_bytes() + "\0".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+        out = library_path(name)
         log_path = out.with_suffix(".log")
         seconds = 0.0
         if not out.exists():
@@ -80,7 +99,8 @@ def load(name: str) -> BuiltLibrary:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             try:
-                proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
+                proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
+                                       str(source)],
                                       capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed to build {source} "
@@ -95,3 +115,10 @@ def load(name: str) -> BuiltLibrary:
         built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
         _loaded[name] = built
         return built
+
+
+def load_many(names) -> dict[str, BuiltLibrary]:
+    """``load`` each name, one ``nvcc`` per source, all started together."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,0 +1,167 @@
+"""Phong-shaded isosurface ray march — plain PyTorch path.
+
+Counterpart of ``volumerenderer_tpu/ops/isosurface.py`` (the reference's
+``isosurface.frag:77-158``) and the plain version of the two CUDA kernels:
+
+* :func:`iso_march_steps` (kernel ``csrc/iso_march.cu``): the compositing
+  march's setup (entry at the cube, ``pos += dir_step`` before each sample,
+  300 steps, open-interval bounds exit) with the zero-crossing test
+  ``(s - iso) < 0 && (s2 - iso) >= 0`` between the sample at ``pos`` and the
+  lookahead at ``pos + dir_step``.  It returns ``found`` and ``t_hit = i - 1``
+  for a crossing at step ``i`` (-1 for a miss);
+* :func:`shade_hits` (kernel ``csrc/iso_shade.cu``): the bracket
+  ``[pos_i, pos_i + dir_step]`` rebuilt by ``t_hit + 1`` repeated additions,
+  a 4-step bisection, the ``DELTA = 0.01`` central-difference normal and the
+  headlight Phong term (specular power 250, diffuse (0.39, 0.58, 0.93)),
+  clipped to [0, 1]; missed rays are white.
+
+``render_isosurface`` is exactly the two composed.  As in ``ops/raycast.py``
+each product and sum is its own tensor operation, the three-term dot products
+add left to right, and the isovalue is rounded once to float32, so the
+kernels can be held bit for bit against these functions.  Vector lengths
+follow XLA's rounding of ``jnp.linalg.norm`` (see ``_norm``).
+"""
+from __future__ import annotations
+
+import torch
+
+from .raycast import step_sizes
+from .sampling import sample_trilinear
+
+__all__ = ["render_isosurface", "iso_march_steps", "shade_hits", "bisection_refine",
+           "gradient_normal", "phong", "MAX_SAMPLES", "DELTA", "SPEC_POWER", "DIFFUSE"]
+
+MAX_SAMPLES = 300       # isosurface.frag:15
+DELTA = 0.01            # isosurface.frag:18
+SPEC_POWER = 250.0      # isosurface.frag:155
+DIFFUSE = (0.39, 0.58, 0.93)  # isosurface.frag:155
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A python number or tensor as a float32 scalar tensor on ``device``
+    (rounded once, as ``jnp.asarray(x, float32)`` rounds it)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Three-term dot product over the last axis, added left to right."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean length over the last axis, rounded as XLA computes
+    ``jnp.linalg.norm``: ``v0*v0``, then the other two squares added by fused
+    multiply-adds, then the square root (``fmaf`` in the kernel).  Each
+    multiply-add runs in float64, where the product of two float32 values is
+    exact, and is then rounded to float32: the fused result, unless the
+    float64 sum rounds too (one term below 2^-29 of the other) and lands on a
+    float32 tie."""
+    v64 = v.to(torch.float64)
+    acc = v[..., 0] * v[..., 0]
+    acc = (v64[..., 1] * v64[..., 1] + acc.to(torch.float64)).to(torch.float32)
+    acc = (v64[..., 2] * v64[..., 2] + acc.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(acc)
+
+
+def bisection_refine(volume, left, right, iso, wrap: str = "clamp"):
+    """4-iteration bisection between ``left`` and ``right`` (``isosurface.frag:23-42``)."""
+    iso = _f32(iso, left.device)
+    for _ in range(4):
+        mid = (right + left) * 0.5
+        go_left = (sample_trilinear(volume, mid, wrap=wrap) < iso)[..., None]
+        left = torch.where(go_left, mid, left)
+        right = torch.where(go_left, right, mid)
+    return (right + left) * 0.5
+
+
+def gradient_normal(volume, uvw, wrap: str = "clamp"):
+    """Central-difference normal, ``normalize((s1 - s2) / 2)`` (``isosurface.frag:47-62``)."""
+    offsets = torch.eye(3, dtype=torch.float32, device=uvw.device) * DELTA
+    s1 = torch.stack([sample_trilinear(volume, uvw - offsets[i], wrap=wrap) for i in range(3)],
+                     dim=-1)
+    s2 = torch.stack([sample_trilinear(volume, uvw + offsets[i], wrap=wrap) for i in range(3)],
+                     dim=-1)
+    g = (s1 - s2) / 2.0
+    norm = _norm(g)[..., None]
+    return g / torch.where(norm > 0, norm, torch.ones_like(norm))
+
+
+def phong(L, N, V, spec_power: float = SPEC_POWER, diffuse_color=DIFFUSE):
+    """``PhongLighting`` (``isosurface.frag:69-75``)."""
+    diffuse = torch.clamp_min(_dot(L, N), 0.0)
+    half_vec = L + V
+    half_vec = half_vec / _norm(half_vec)[..., None]
+    spec = torch.pow(torch.maximum(_f32(1e-5, N.device), _dot(half_vec, N)), spec_power)
+    color = torch.tensor(diffuse_color, dtype=torch.float32, device=N.device)
+    return diffuse[..., None] * color + spec[..., None]
+
+
+def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
+                    hit: torch.Tensor, iso, max_samples: int = MAX_SAMPLES,
+                    wrap: str = "clamp"):
+    """March rays through ``volume`` (Z, Y, X float32 in [0,1]) to the first
+    upward crossing of ``iso``.
+
+    Args:
+      entry_uv: (..., 3) cube entry points in texture space.
+      dir_step: (..., 3) per-step position increment (direction / dims).
+      hit: (...) bool mask of rays that intersect the cube.
+
+    Returns (found (...) bool, t_hit (...) int32): a crossing at step ``i``
+    (1-based) gives ``t_hit = i - 1``; a miss gives -1.  Stops once every ray
+    has hit or left the cube (the result is the same as marching on).
+    """
+    iso = _f32(iso, entry_uv.device)
+    shape = entry_uv.shape[:-1]
+    found = torch.zeros(shape, dtype=torch.bool, device=entry_uv.device)
+    t_hit = torch.full(shape, -1, dtype=torch.int32, device=entry_uv.device)
+    alive = hit.to(torch.bool)
+    pos = entry_uv
+    s = None
+    for i in range(1, max_samples + 1):
+        if not bool(alive.any()):
+            break
+        pos = pos + dir_step
+        alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
+        if s is None:
+            s = sample_trilinear(volume, pos, wrap=wrap)
+        # the lookahead is the next step's sample: pos_{i+1} = pos_i + dir_step
+        s2 = sample_trilinear(volume, pos + dir_step, wrap=wrap)
+        crossing = alive & ((s - iso) < 0.0) & ((s2 - iso) >= 0.0)
+        t_hit = torch.where(crossing, i - 1, t_hit)
+        found = found | crossing
+        alive = alive & ~crossing
+        s = s2
+    return found, t_hit
+
+
+def shade_hits(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
+               direction: torch.Tensor, found: torch.Tensor, t_hit: torch.Tensor, iso,
+               wrap: str = "clamp"):
+    """Shade the rays the march found: bisection in the bracket
+    ``[near, near + dir_step]`` with ``near`` = ``t_hit + 1`` additions of
+    ``dir_step`` to ``entry_uv``, the central-difference normal and the
+    headlight Phong term with ``V = -direction``, clipped to [0, 1].  Returns
+    (..., 3) rgb; rays without ``found`` are white."""
+    found = found.to(torch.bool)
+    n_add = torch.where(found, t_hit.to(torch.int64) + 1, 0)
+    near = entry_uv
+    for k in range(1, int(n_add.max()) + 1 if n_add.numel() else 1):
+        near = torch.where((n_add >= k)[..., None], near + dir_step, near)
+    tc = bisection_refine(volume, near, near + dir_step, iso, wrap=wrap)
+    N = gradient_normal(volume, tc, wrap=wrap)
+    V = -direction
+    color = torch.clamp(phong(V, N, V), 0.0, 1.0)  # framebuffer saturation
+    return torch.where(found[..., None], color, torch.ones_like(color))
+
+
+def render_isosurface(volume: torch.Tensor, entry_uv: torch.Tensor, direction: torch.Tensor,
+                      hit: torch.Tensor, iso_value=40.0 / 255.0,
+                      max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
+    """Full reference pipeline: march + shade.  Returns (rgb (..., 3), found
+    (...) bool); non-hit pixels are white."""
+    Z, Y, X = volume.shape
+    dir_step = direction * step_sizes((X, Y, Z), direction.device)
+    found, t_hit = iso_march_steps(volume, entry_uv, dir_step, hit, iso_value, max_samples, wrap)
+    rgb = shade_hits(volume, entry_uv, dir_step, direction, found, t_hit, iso_value, wrap)
+    return rgb, found
