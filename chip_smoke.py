@@ -1,33 +1,41 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two render paths over a 1024x1024 image of a 256^3 8-bit
-volume, planned once per camera over a 16-frame orbit, through the entry
-points a user calls:
+Drives the port's render and gradient paths over a 1024x1024 image of a
+256^3 8-bit volume, planned once per camera, through the entry points a user
+calls:
 
-* compositing: ``generate_rays`` -> ``plan_compositing`` ->
-  ``CompositingPlan.render`` (kernel ``csrc/composite_march.cu``);
-* isosurface, at the volume's median: ``generate_rays`` -> ``IsosurfacePlan``
-  -> ``IsosurfacePlan.render`` (kernels ``csrc/iso_march.cu`` and
-  ``csrc/iso_shade.cu``).
+* compositing, over a 16-frame orbit: ``generate_rays`` ->
+  ``plan_compositing`` -> ``CompositingPlan.render`` (kernel
+  ``csrc/composite_march.cu``);
+* isosurface at the volume's median, over the same orbit: ``generate_rays``
+  -> ``IsosurfacePlan`` -> ``IsosurfacePlan.render`` (kernels
+  ``csrc/iso_march.cu`` and ``csrc/iso_shade.cu``);
+* gradients, on orbit frame 0: the config-4 TF fit, ``plan_compositing`` ->
+  ``make_render_tf_kernel`` -> ``tf_fit_step_fast`` x 5, and a voxel-grad
+  step, ``make_render_tf_voxel`` -> MSE loss -> ``torch.autograd.grad`` of
+  the TF params and the volume (kernels ``csrc/tf_march.cu`` and
+  ``csrc/voxel_grad.cu``), timed against one forward frame.
 
-On the way it builds the three kernels from ``volumerenderer_tpu_torch/csrc``
+On the way it builds the five kernels from ``volumerenderer_tpu_torch/csrc``
 (one ``nvcc`` each, all at once), holds each against its plain PyTorch
 version and the goldens, times both, and checks that each path launched its
-kernels once per render.
+kernels once per render, forward or backward.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
 Each phase prints one JSON line (device, build, goldens, parity, main_path,
 kernel_timing, layers, launch_count, then iso_goldens, iso_parity,
-iso_main_path, iso_timing, iso_layers, iso_launch_count).  Then come the
-kernels line, the card's ``nvidia-smi`` name and power limit, and, last,
-``{"ok": true, "device": {"platform": "gpu", ...}}``.  The kernels line's
-``max_abs_err`` is over the parity cases: |color|, |alpha| for the
-compositing march, |t_hit| in steps (-1 for a miss) for the isosurface
-march, |rgb| for the shade pass.  Without a CUDA device, or away from the
-repository's package, it exits non-zero and prints no result.  Any failed
-check raises.
+iso_main_path, iso_timing, iso_layers, iso_launch_count, then tf_parity,
+vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
+grad_launch_count).  Then come the kernels line, the card's ``nvidia-smi``
+name and power limit, and, last, ``{"ok": true, "device": {"platform":
+"gpu", ...}}``.  The kernels line's ``max_abs_err`` is over the parity
+cases: |color|, |alpha| for the compositing march, |t_hit| in steps (-1 for
+a miss) for the isosurface march, |rgb| for the shade pass, the largest
+|d| of the seven images for the TF march, |g_vol| for the voxel-gradient
+march.  Without a CUDA device, or away from the repository's package, it
+exits non-zero and prints no result.  Any failed check raises.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -60,6 +69,16 @@ ISO_SOURCES = {"iso_march": "volumerenderer_tpu_torch/csrc/iso_march.cu",
                "iso_shade": "volumerenderer_tpu_torch/csrc/iso_shade.cu"}
 ISO_REPLACES = {"iso_march": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:458",
                 "iso_shade": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:1501"}
+# B4 vs plain: color and alpha at the compositing bars above; the five sums
+# within 1e-6 relative to max(1, |plain|) on all but the same 4 px per Mpixel.
+# B5 vs plain: max |d| within 2e-5 of max |g| (the atomics add in no fixed
+# order); |sum(g_vol) - sum(g_s)| over the alive steps within 1e-5 of sum |g_s|.
+TF_SUMS_REL, VG_REL, VG_CONSERVATION = 1e-6, 2e-5, 1e-5
+FIT_STEPS, FIT_LR = 5, 0.05
+GRAD_SOURCES = {"tf_march": "volumerenderer_tpu_torch/csrc/tf_march.cu",
+                "voxel_grad": "volumerenderer_tpu_torch/csrc/voxel_grad.cu"}
+GRAD_REPLACES = {"tf_march": "volumerenderer_tpu/ops/pallas/tf_kernel.py:222",
+                 "voxel_grad": "volumerenderer_tpu/ops/pallas/voxel_grad_kernel.py:268"}
 
 
 def emit(obj) -> None:
@@ -285,6 +304,292 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
             for name in ("iso_march", "iso_shade")]
 
 
+def run_gradients(dev, smi: str, turb, sphere, cameras, bundles) -> list:
+    """The gradient phases; returns the kernels line's two entries."""
+    from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
+    from volumerenderer_tpu_torch.diff import closed_form as CF
+    from volumerenderer_tpu_torch.diff.vjp import render_tf_o1
+    from volumerenderer_tpu_torch.models import plan_compositing
+    from volumerenderer_tpu_torch.ops.cuda import _launch
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
+    from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    reference = TFParams.reference(dev)
+    # the non-reference params of tests/test_pallas_interpret.py:300-304
+    param_sets = {"reference": reference,
+                  "non_reference": TFParams(f32(0.45), f32(0.9), f32(0.05),
+                                            f32([-0.8, 0.6, 0.3]), f32([0.9, 0.2, 0.4]))}
+    cases = [("entry_sphere", sphere, Camera(width=W, height=H)),
+             ("orbit_frame0", turb, cameras[0]), ("orbit_frame15", turb, cameras[-1])]
+
+    # B4 vs its plain version: all seven images; at reference params color
+    # and alpha also equal B1's
+    err = {"tf_march": 0.0, "voxel_grad": 0.0}
+    vg_inputs = []
+    for name, v, cam in cases:
+        rays = generate_rays(cam, device=dev)
+        Z, Y, X = v.shape
+        plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z))
+        vol_u8 = RK.quantize_u8(v)
+        plain_vol = as_normalized_volume(vol_u8)
+        for pname, params in param_sets.items():
+            tf = CF.tf_scalars(params)
+            k = TK.tf_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf)
+            p = CF.tf_march_steps(plain_vol, plan.entry_uv, plan.dir_step, plan.hit.bool(), tf)
+            torch.cuda.synchronize()
+            res = compare(k[:2], p[:2], cam.width * cam.height)
+            rel = torch.stack([(a - b).abs() / torch.clamp(b.abs(), min=1.0)
+                               for a, b in zip(k[2:], p[2:])]).amax(dim=0)
+            sums_over = int((rel > TF_SUMS_REL).sum())
+            if sums_over > res["px_allowed"]:
+                raise AssertionError(f"tf {name} {pname}: {sums_over} px of the five sums beyond "
+                                     f"{TF_SUMS_REL} relative (allowed {res['px_allowed']:g})")
+            max_abs = max(float((a - b).abs().max()) for a, b in zip(k, p))
+            err["tf_march"] = max(err["tf_march"], max_abs)
+            line = {"phase": "tf_parity", "case": name, "params": pname,
+                    "hw": [cam.height, cam.width], **res, "max_abs_err_7": max_abs,
+                    "sums_max_rel_err": float(rel.max()), "sums_px_beyond": sums_over,
+                    "alpha_sum_kernel": float(k[1].sum()), "R_sum_kernel": float(k[2].sum())}
+            if pname == "reference":
+                c1, a1 = RK.composite_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit)
+                line["color_alpha_equal_b1"] = bool(torch.equal(c1, k[0]) and torch.equal(a1, k[1]))
+                if not line["color_alpha_equal_b1"]:
+                    raise AssertionError(f"tf {name}: at reference params B4's color/alpha "
+                                         f"differ from B1's")
+            emit(line)
+            vg_inputs.append((name, pname, params, plan, vol_u8, plain_vol, k))
+
+    # B5 vs its plain version on the same cases, seeded cotangents, fed B4's
+    # alpha_T and P_total; and the conservation check: the 8 trilinear
+    # weights sum to 1, so sum(g_vol) = sum of every alive step's g_s
+    for i, (name, pname, params, plan, vol_u8, plain_vol, k) in enumerate(vg_inputs):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(i)
+        g_rgb = torch.randn((H, W, 3), generator=gen, device=dev)
+        g_alpha = torch.randn((H, W), generator=gen, device=dev)
+        tf = CF.tf_scalars(params)
+        gc, gaT_term = CF.cotangent_images(params, g_rgb, g_alpha, k[1])
+        args = (plan.entry_uv, plan.dir_step)
+        g_k = VK.voxel_grad_cuda(vol_u8, *args, plan.hit, tf, gc, gaT_term, k[3])
+        g_p = CF.voxel_grad_steps(plain_vol, *args, plan.hit.bool(), tf, gc, gaT_term, k[3])
+        gs_sum = gs_abs = 0.0
+        for _, g_s in CF.step_cotangents(plain_vol, *args, plan.hit.bool(), tf, gc, gaT_term,
+                                         k[3]):
+            gs_sum += float(g_s.double().sum())
+            gs_abs += float(g_s.double().abs().sum())
+        torch.cuda.synchronize()
+        scale = float(g_p.abs().max())
+        max_abs = float((g_k - g_p).abs().max())
+        rel = max_abs / scale
+        conservation = abs(float(g_k.double().sum()) - gs_sum) / gs_abs
+        if not rel <= VG_REL or not conservation <= VG_CONSERVATION:
+            raise AssertionError(f"voxel_grad {name} {pname}: max |d| / max |g| {rel} (bar "
+                                 f"{VG_REL}), conservation {conservation} (bar "
+                                 f"{VG_CONSERVATION})")
+        err["voxel_grad"] = max(err["voxel_grad"], max_abs)
+        emit({"phase": "vg_parity", "case": name, "params": pname, "max_abs_err": max_abs,
+              "max_abs_g_plain": scale, "rel_err": rel, "bar": VG_REL,
+              "sum_g_vol_kernel": float(g_k.double().sum()), "sum_alive_g_s": gs_sum,
+              "sum_abs_alive_g_s": gs_abs, "conservation_rel": conservation})
+    del vg_inputs
+
+    # the whole kernel path on a small input vs the plain O(1) reverse march,
+    # on tests/test_pallas_interpret.py's scene: a random 8-bit (8, 16, 128)
+    # volume, 64x32 rays, 24 steps (short of the 0.99 early-out, where the
+    # reverse march's analytic positions could move a ray's last step)
+    rng = np.random.default_rng(7)
+    vol_s = as_normalized_volume(np.round(rng.random((8, 16, 128)) * 255.0).astype(np.uint8),
+                                 device=dev)
+    rays_s = generate_rays(Camera(width=64, height=32), device=dev)
+    plan_s = plan_compositing(rays_s.entry_uv, rays_s.direction, rays_s.hit, (128, 16, 8), 24)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    w_rgb = torch.randn((32, 64, 3), generator=gen, device=dev)
+    w_a = torch.randn((32, 64), generator=gen, device=dev)
+    grads = []
+    for f in (VK.make_render_tf_voxel(plan_s),
+              lambda p, v: render_tf_o1(p, v, rays_s.entry_uv, rays_s.direction, rays_s.hit,
+                                        24)):
+        leaves = TFParams(*(t.clone().requires_grad_(True) for t in param_sets["non_reference"]))
+        vt = vol_s.clone().requires_grad_(True)
+        rgb, a = f(leaves, vt)
+        grads.append(torch.autograd.grad(torch.sum(rgb * w_rgb) + torch.sum(a * w_a),
+                                         [*leaves, vt]))
+    (*gp_k, gv_k), (*gp_r, gv_r) = grads
+    gv_scale = max(1.0, float(gv_r.abs().max()))
+    gv_err = float((gv_k - gv_r).abs().max())
+    gp_err = {n: float(((k - r).abs() / (r.abs() + max(1.0, float(r.abs().max())))).max())
+              for n, k, r in zip(TFParams._fields, gp_k, gp_r)}
+    if gv_err > 2e-4 * gv_scale or max(gp_err.values()) > 2e-4:
+        raise AssertionError(f"kernel path vs render_tf_o1: g_vol max |d| {gv_err} (bar "
+                             f"{2e-4 * gv_scale}), params {gp_err} (bar 2e-4)")
+    emit({"phase": "grad_reference", "hw": [32, 64], "volume": [8, 16, 128], "max_samples": 24,
+          "g_vol_max_abs_err": gv_err, "g_vol_bar": 2e-4 * gv_scale,
+          "param_rel_err": gp_err, "param_bar": 2e-4})
+
+    # the main path on orbit frame 0: the config-4 TF fit, then the voxel
+    # grad step against one forward frame (bench.py's protocol).  The launch
+    # counts cover exactly this run.
+    TK.tf_march_cuda.launches = 0
+    VK.voxel_grad_cuda.launches = 0
+    forwards = backwards = 0
+    rays0 = bundles[0]
+    plan0 = plan_compositing(rays0.entry_uv, rays0.direction, rays0.hit, VOLUME[::-1])
+    target = torch.full((H, W, 3), 0.5, device=dev)
+    f_tf = TK.make_render_tf_kernel(plan0)
+    params = reference
+    losses, fit_step_ms = [], []
+    for _ in range(FIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = TK.tf_fit_step_fast(f_tf, params, turb, target, lr=FIT_LR)
+        torch.cuda.synchronize()
+        fit_step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        forwards += 1
+    losses = [float(x) for x in losses]
+    fit_params = {n: t.tolist() for n, t in zip(TFParams._fields, params)}
+
+    f_vox = VK.make_render_tf_voxel(plan0)
+    last = {}
+
+    def grad_step():
+        nonlocal forwards, backwards
+        leaves = TFParams(*(t.clone().requires_grad_(True) for t in reference))
+        vol = turb.detach().requires_grad_(True)
+        rgb, _ = f_vox(leaves, vol)
+        loss = torch.mean((rgb - target) ** 2)
+        *gp, gv = torch.autograd.grad(loss, [*leaves, vol])
+        forwards += 1
+        backwards += 1
+        last["gp"], last["gv"], last["loss"] = gp, gv, loss
+        return float(gp[0] + gv.sum())
+
+    def fwd_frame():
+        rgb, _ = plan0.render(turb)
+        return float(rgb.sum())
+
+    frame_s = sweep_seconds(fwd_frame)
+    step_s = sweep_seconds(grad_step)
+    launches = {"tf_march": TK.tf_march_cuda.launches, "voxel_grad": VK.voxel_grad_cuda.launches}
+    runs = {"forwards": forwards, "backwards": backwards}
+    gp, gv = last["gp"], last["gv"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"TF fit losses {losses}: not finite or not lowered")
+    if gv.shape != turb.shape or not bool(torch.isfinite(gv).all()) or not bool(gv.any()) \
+            or not all(bool(torch.isfinite(g).all()) for g in gp):
+        raise AssertionError(f"voxel grad step: g_vol {tuple(gv.shape)}, finite/nonzero check "
+                             f"failed, or a non-finite param gradient")
+
+    def plain_grad_step():
+        """The same step with each kernel's plain version on the card."""
+        vol_u8 = RK.quantize_u8(turb)
+        plain_vol = as_normalized_volume(vol_u8)
+        tf = CF.tf_scalars(reference)
+        partials = CF.tf_march_steps(plain_vol, plan0.entry_uv, plan0.dir_step,
+                                     plan0.hit.bool(), tf)
+        rgb = (reference.flip_sign * partials[0][..., None]
+               + reference.flip_bias).requires_grad_(True)
+        (g_rgb,) = torch.autograd.grad(torch.mean((rgb - target) ** 2), [rgb])
+        gc, gaT_term = CF.cotangent_images(reference, g_rgb, None, partials[1])
+        g_params = CF.tf_param_grads(reference, partials, g_rgb, gc, gaT_term)
+        g_vol = CF.voxel_grad_steps(plain_vol, plan0.entry_uv, plan0.dir_step, plan0.hit.bool(),
+                                    tf, gc, gaT_term, partials[3])
+        return float(g_params.alpha_scale + g_vol.sum())
+
+    plain_step_s = sweep_seconds(plain_grad_step)
+    emit({"phase": "grad_main_path", "metric": "voxelgrad_step_frames_1024sq_256cube",
+          "value": step_s / frame_s, "unit": "forward-frames/step",
+          "step_ms": 1e3 * step_s, "frame_ms": 1e3 * frame_s,
+          "plain_step_ms": 1e3 * plain_step_s, "plain_step_frames": plain_step_s / frame_s,
+          "loss": float(last["loss"].detach()), "g_alpha_scale": float(gp[0]),
+          "g_vol_abs_max": float(gv.abs().max()), "fit_losses": losses, "fit_lr": FIT_LR,
+          "fit_step_ms": fit_step_ms, "fit_params": fit_params, "reps": REPS, "gpu": smi})
+
+    # per-launch times of both kernels and their plain versions over the
+    # orbit, fed the main path's cotangents (MSE against 0.5 at reference
+    # params); the voxel_grad wrapper's time includes its zero fill
+    plans = [plan_compositing(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+    turb_u8 = RK.quantize_u8(turb)
+    turb_plain = as_normalized_volume(turb_u8)
+    tf = CF.tf_scalars(reference)
+    cots = []
+    for plan in plans:
+        k = TK.tf_march_cuda(turb_u8, plan.entry_uv, plan.dir_step, plan.hit, tf)
+        rgb = reference.flip_sign * k[0][..., None] + reference.flip_bias
+        g_rgb = (rgb - target) * (2.0 / rgb.numel())
+        cots.append((*CF.cotangent_images(reference, g_rgb, None, k[1]), k[3]))
+    ms = {
+        "tf_march": time_ms(lambda: [TK.tf_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, tf)
+                                     for p in plans]) / N_FRAMES,
+        "voxel_grad": time_ms(lambda: [VK.voxel_grad_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit,
+                                                          tf, *c)
+                                       for p, c in zip(plans, cots)]) / N_FRAMES}
+    plain_ms = {
+        "tf_march": time_ms(lambda: [CF.tf_march_steps(turb_plain, p.entry_uv, p.dir_step,
+                                                       p.hit.bool(), tf)
+                                     for p in plans]) / N_FRAMES,
+        "voxel_grad": time_ms(lambda: [CF.voxel_grad_steps(turb_plain, p.entry_uv, p.dir_step,
+                                                           p.hit.bool(), tf, *c)
+                                       for p, c in zip(plans, cots)]) / N_FRAMES}
+    emit({"phase": "grad_timing", "shape": [H, W], "volume": list(VOLUME), "frames": N_FRAMES,
+          "params": "reference", "kernel_ms_per_launch": ms, "plain_ms_per_launch": plain_ms,
+          "voxel_grad_includes_zero_fill": True, "gpu": smi})
+
+    # one voxel-grad step of orbit frame 0 split into its layers; the B5
+    # kernel alone runs into a buffer filled once, outside the timing
+    k0 = TK.tf_march_cuda(turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit, tf)
+    rgb0 = (reference.flip_sign * k0[0][..., None] + reference.flip_bias).requires_grad_(True)
+    (g_rgb0,) = torch.autograd.grad(torch.mean((rgb0 - target) ** 2), [rgb0])
+    gc0, gaT0 = CF.cotangent_images(reference, g_rgb0, None, k0[1])
+    g_buf = torch.zeros(turb.shape, dtype=torch.float32, device=dev)
+    Z, Y, X = turb.shape
+
+    def b5_alone():
+        _launch.launch(VK._launcher, "voxel_grad", dev, plan0.entry_uv.data_ptr(),
+                       plan0.dir_step.data_ptr(), plan0.hit.data_ptr(), turb_u8.data_ptr(),
+                       tf.data_ptr(), gc0.data_ptr(), gaT0.data_ptr(), k0[3].data_ptr(),
+                       H, W, X, Y, Z, plan0.max_samples, g_buf.data_ptr())
+
+    def loss_and_cotangent():
+        rgb = (reference.flip_sign * k0[0][..., None] + reference.flip_bias).requires_grad_(True)
+        return torch.autograd.grad(torch.mean((rgb - target) ** 2), [rgb])
+
+    def sgd_update():
+        return ([p - FIT_LR * g for p, g in zip(reference, gp)], turb - FIT_LR * gv)
+
+    layers = {
+        "quantize_u8": time_ms(lambda: RK.quantize_u8(turb)),
+        "tf_march_kernel": time_ms(lambda: TK.tf_march_cuda(turb_u8, plan0.entry_uv,
+                                                            plan0.dir_step, plan0.hit, tf)),
+        "transfer_loss_and_cotangent": time_ms(loss_and_cotangent),
+        "cotangent_images": time_ms(lambda: CF.cotangent_images(reference, g_rgb0, None, k0[1])),
+        "param_grad_reductions": time_ms(lambda: CF.tf_param_grads(reference, k0, g_rgb0, gc0,
+                                                                   gaT0)),
+        "zero_fill": time_ms(lambda: torch.zeros(turb.shape, dtype=torch.float32, device=dev)),
+        "voxel_grad_kernel": time_ms(b5_alone),
+        "sgd_update": time_ms(sgd_update),
+        "whole_step_events": time_ms(grad_step)}
+    emit({"phase": "grad_layers", "ms": layers,
+          "sum_of_layers": sum(v for n, v in layers.items() if n != "whole_step_events"),
+          "gpu": smi})
+
+    # the main path went through both kernels: B4 once per forward, B5 once
+    # per backward
+    if launches["tf_march"] != runs["forwards"] or launches["voxel_grad"] != runs["backwards"] \
+            or not runs["forwards"] or not runs["backwards"]:
+        raise AssertionError(f"gradient kernels launched {launches} times for {runs}")
+    emit({"phase": "grad_launch_count", **launches, **runs})
+    return [{"name": name, "route": "cuda", "source": GRAD_SOURCES[name],
+             "replaces": GRAD_REPLACES[name], "launches": launches[name],
+             "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name]}
+            for name in ("tf_march", "voxel_grad")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an "
@@ -301,6 +606,8 @@ def main() -> int:
     from volumerenderer_tpu_torch.ops.cuda import _build
     from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
     from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
+    from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
     from volumerenderer_tpu_torch.ops.raycast import composite_march_steps
 
     dev = torch.device("cuda", 0)
@@ -316,8 +623,9 @@ def main() -> int:
 
     # 2. build the kernels from the checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
-    _build.load_many(["composite_march", "iso_march", "iso_shade"])
-    libraries = {"composite_march": RK.load_kernel(), **IK.load_kernels()}
+    _build.load_many(["composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad"])
+    libraries = {"composite_march": RK.load_kernel(), **IK.load_kernels(),
+                 "tf_march": TK.load_kernel(), "voxel_grad": VK.load_kernel()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": {
         name: {"nvcc_seconds": built.build_seconds,
                "library": str(built.path.relative_to(HERE)),
@@ -429,11 +737,12 @@ def main() -> int:
     emit({"phase": "launch_count", "composite_march": launches, "renders": renders})
 
     iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles)
+    grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles)
 
     emit({"kernels": [{"name": "composite_march", "route": "cuda", "source": KERNEL_SOURCE,
                        "replaces": REPLACES, "launches": launches,
                        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms},
-                      *iso_kernels]})
+                      *iso_kernels, *grad_kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

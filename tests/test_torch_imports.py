@@ -15,8 +15,10 @@ PACKAGE = REPO / "volumerenderer_tpu_torch"
 def test_port_imports_without_jax():
     code = ("import sys, volumerenderer_tpu_torch, volumerenderer_tpu_torch.models, "
             "volumerenderer_tpu_torch.interop; "
-            "from volumerenderer_tpu_torch.ops.cuda import raycast_kernel, isosurface_kernel; "
+            "from volumerenderer_tpu_torch.ops.cuda import raycast_kernel, isosurface_kernel, "
+            "tf_kernel, voxel_grad_kernel; "
             "from volumerenderer_tpu_torch.ops import isosurface; "
+            "from volumerenderer_tpu_torch.diff import transfer, vjp, closed_form; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'volumerenderer_tpu' or m.startswith('volumerenderer_tpu.')); "
             "assert not bad, bad")

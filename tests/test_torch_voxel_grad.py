@@ -1,0 +1,294 @@
+"""The port's voxel-gradient march: its plain version
+(``diff/closed_form.py::voxel_grad_steps``), its wrapper
+(``ops/cuda/voxel_grad_kernel.py::voxel_grad_cuda``) and
+``make_render_tf_voxel``.
+
+On CPU tensors the wrapper runs the plain version.  The differentiable
+render's voxel gradient is held against the JAX package's ``render_tf_o1``
+(itself checked by finite differences) within
+tests/test_pallas_interpret.py:417-427's bars, and the plain version against
+the JAX voxel-gradient kernel run in interpret mode.  The kernel itself runs
+only where there is a CUDA device: the ``cuda``-marked tests hold it against
+the plain version there.
+
+The machine with the card has no JAX, so this file imports JAX only inside
+the tests that compare with it; there the card's tests run alone:
+``python3 -m pytest --noconftest -m cuda tests/test_torch_voxel_grad.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
+from volumerenderer_tpu_torch.diff.closed_form import (cotangent_images, step_cotangents,
+                                                       tf_march_steps, tf_scalars,
+                                                       voxel_grad_steps)
+from volumerenderer_tpu_torch.diff.vjp import render_tf_o1
+from volumerenderer_tpu_torch.interop import rays_from_numpy, tf_params_from_numpy
+from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
+from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
+from volumerenderer_tpu_torch.ops.raycast import step_sizes
+
+VOL_SHAPE = (8, 16, 128)  # (Z, Y, X), the interpret-mode tests' volume
+NON_REFERENCE = dict(alpha_scale=0.45, color_gain=0.9, color_bias=0.05,
+                     flip_sign=[-0.8, 0.6, 0.3], flip_bias=[0.9, 0.2, 0.4])
+
+
+def _volume_u8():
+    rng = np.random.default_rng(7)
+    return np.round(rng.random(VOL_SHAPE) * 255.0).astype(np.uint8)
+
+
+def _params(device="cpu"):
+    return tf_params_from_numpy(device=device, **NON_REFERENCE)
+
+
+def _jax_params():
+    import jax.numpy as jnp
+    from volumerenderer_tpu.diff.transfer import TFParams as JTFParams
+
+    return JTFParams(**{k: jnp.asarray(v, jnp.float32) for k, v in NON_REFERENCE.items()})
+
+
+def _jax_rays(width=64, height=32):
+    import volumerenderer_tpu as J
+
+    rays = J.generate_rays(J.Camera(width=width, height=height))
+    return tuple(np.asarray(a) for a in (rays.entry_uv, rays.direction, rays.hit))
+
+
+def _plan(rays_np, max_samples=24):
+    rays = rays_from_numpy(*rays_np)
+    Z, Y, X = VOL_SHAPE
+    return RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
+                              max_samples=max_samples)
+
+
+def _cotangents(seed, shape):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape + (3,)).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def test_render_tf_voxel_on_cpu_matches_jax_o1():
+    """``make_render_tf_voxel`` on CPU tensors vs JAX ``render_tf_o1`` on the
+    8-bit grid's volume, general cotangents on both outputs: g_vol within
+    2e-4 * max(1, max |g|), params within rtol 2e-4 and atol 2e-4 * max(1,
+    |g|) (test_pallas_interpret.py:417-427)."""
+    import jax
+    import jax.numpy as jnp
+
+    import volumerenderer_tpu as J
+    from volumerenderer_tpu.diff.vjp import render_tf_o1 as render_tf_o1_jax
+
+    vol_u8 = _volume_u8()
+    e, d, h = rays_np = _jax_rays()
+    w_rgb, w_a = _cotangents(5, (32, 64))
+
+    def loss_ref(p, v):
+        rgb, a = render_tf_o1_jax(p, v, e, d, h, 24, True)
+        return jnp.sum(rgb * w_rgb) + jnp.sum(a * w_a)
+
+    gp_ref, gv_ref = jax.grad(loss_ref, argnums=(0, 1))(_jax_params(),
+                                                        J.as_normalized_volume(vol_u8))
+
+    before = VK.voxel_grad_cuda.launches
+    f = VK.make_render_tf_voxel(_plan(rays_np))
+    params = TFParams(*(t.requires_grad_(True) for t in _params()))
+    vt = as_normalized_volume(vol_u8).requires_grad_(True)
+    rgb, a = f(params, vt)
+    loss = torch.sum(rgb * torch.tensor(w_rgb)) + torch.sum(a * torch.tensor(w_a))
+    *gp, gv = torch.autograd.grad(loss, [*params, vt])
+    gv_ref = np.asarray(gv_ref)
+    assert gv.shape == vt.shape and np.abs(gv_ref).max() > 0.5
+    np.testing.assert_allclose(gv.numpy(), gv_ref, rtol=0,
+                               atol=2e-4 * max(1.0, np.abs(gv_ref).max()))
+    for name, g_t, g_r in zip(TFParams._fields, gp, gp_ref):
+        g_r = np.asarray(g_r)
+        np.testing.assert_allclose(g_t.numpy(), g_r, rtol=2e-4,
+                                   atol=2e-4 * max(1.0, np.abs(g_r).max()), err_msg=name)
+    assert VK.voxel_grad_cuda.launches == before  # no kernel launched on CPU
+
+
+def test_voxel_grad_steps_matches_jax_voxel_grad_kernel():
+    """The plain version vs the TPU kernel (``voxel_grad_pallas``, interpret
+    mode, dense word table) on the same cotangents and the TPU forward's
+    (alpha_T, P_total): within 1e-5 * max(1, max |g|) (the TPU kernel
+    lerps on the 0..255 scale and sums its MXU scatter in another order)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    import volumerenderer_tpu as J
+    from volumerenderer_tpu.ops.pallas import raycast_kernel as JRK
+    from volumerenderer_tpu.ops.pallas.tf_kernel import render_tf_grads_pallas
+    from volumerenderer_tpu.ops.pallas.voxel_grad_kernel import voxel_grad_pallas
+    from conftest import EAGER_INTERPRET
+
+    vol_u8 = _volume_u8()
+    rays_np = _jax_rays()
+    Z, Y, X = VOL_SHAPE
+    g_rgb, g_a = _cotangents(5, (32, 64))
+    vol_j = J.as_normalized_volume(vol_u8)
+    with pltpu.force_tpu_interpret_mode(EAGER_INTERPRET):
+        plan_j = JRK.CompositingPlan(*rays_np, (X, Y, Z), max_samples=24, lane_groups=1)
+        assert plan_j.use_kernel and plan_j.group > 1
+        _, _, parts = render_tf_grads_pallas(_jax_params(), vol_j, plan_j)
+        gv_j = np.asarray(voxel_grad_pallas(_jax_params(), vol_j, plan_j, jnp.asarray(g_rgb),
+                                            jnp.asarray(g_a), parts[1], parts[3]))
+    plan = _plan(rays_np)
+    params = _params()
+    alpha_T, P_tot = (torch.tensor(np.asarray(parts[i])) for i in (1, 3))
+    gc, gaT_term = cotangent_images(params, torch.tensor(g_rgb), torch.tensor(g_a), alpha_T)
+    gv = voxel_grad_steps(as_normalized_volume(vol_u8), plan.entry_uv, plan.dir_step,
+                          plan.hit.bool(), tf_scalars(params), gc, gaT_term, P_tot,
+                          plan.max_samples)
+    assert np.abs(gv_j).max() > 0.5
+    np.testing.assert_allclose(gv.numpy(), gv_j, rtol=0, atol=1e-5 * max(1.0, np.abs(gv_j).max()))
+
+
+def _wrapper_inputs():
+    rays = generate_rays(Camera(width=16, height=8))
+    Z, Y, X = VOL_SHAPE
+    vol_u8 = torch.from_numpy(_volume_u8())
+    dir_step = (rays.direction * step_sizes((X, Y, Z), "cpu")).contiguous()
+    hit = rays.hit.to(torch.uint8)
+    tf = tf_scalars(_params())
+    partials = tf_march_steps(as_normalized_volume(vol_u8), rays.entry_uv, dir_step, rays.hit,
+                              tf, 32)
+    g_rgb, g_a = (torch.tensor(x) for x in _cotangents(9, (8, 16)))
+    gc, gaT_term = cotangent_images(_params(), g_rgb, g_a, partials[1])
+    return dict(vol_u8=vol_u8, entry_uv=rays.entry_uv, dir_step=dir_step, hit=hit,
+                tf_scalars=tf, gc=gc, gaT_term=gaT_term, P_tot=partials[3])
+
+
+def test_wrapper_cpu_runs_plain_version_and_conserves_cotangent():
+    """On CPU the wrapper is the plain version.  The trilinear weights of a
+    sample sum to 1, so the gradient volume's sum equals the sum of every
+    alive step's g_s (to float32 rounding, 1e-5 of sum |g_s|)."""
+    before = VK.voxel_grad_cuda.launches
+    kw = _wrapper_inputs()
+    got = VK.voxel_grad_cuda(**kw, max_samples=32)
+    args = (as_normalized_volume(kw["vol_u8"]), kw["entry_uv"], kw["dir_step"],
+            kw["hit"].bool(), kw["tf_scalars"], kw["gc"], kw["gaT_term"], kw["P_tot"], 32)
+    assert torch.equal(got, voxel_grad_steps(*args))
+    assert VK.voxel_grad_cuda.launches == before  # no kernel launched on CPU
+    steps = [g_s.double() for _, g_s in step_cotangents(*args)]
+    total = float(sum(g.sum() for g in steps))
+    scale = float(sum(g.abs().sum() for g in steps))
+    assert scale > 1.0
+    assert abs(float(got.double().sum()) - total) <= 1e-5 * scale
+
+
+def test_voxel_grad_kernel_counts_none_cotangents_as_zero():
+    vol = as_normalized_volume(_volume_u8())
+    plan = _plan(_jax_rays(32, 16))
+    params = _params()
+    from volumerenderer_tpu_torch.ops.cuda.tf_kernel import render_tf_grads_kernel
+
+    _, alpha, partials = render_tf_grads_kernel(params, vol, plan)
+    g_rgb = torch.tensor(_cotangents(3, (16, 32))[0])
+    a = VK.voxel_grad_kernel(params, vol, plan, g_rgb, None, alpha, partials[3])
+    b = VK.voxel_grad_kernel(params, vol, plan, g_rgb, torch.zeros_like(alpha), alpha,
+                             partials[3])
+    assert torch.equal(a, b) and float(a.abs().max()) > 0
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("gc", lambda kw: kw["gc"].double(), "float32"),
+    ("gaT_term", lambda kw: kw["gaT_term"][:-1].contiguous(), "float32"),
+    ("P_tot", lambda kw: kw["P_tot"].reshape(-1), "float32"),
+    ("P_tot", lambda kw: kw["P_tot"].t(), "contiguous"),
+    ("tf_scalars", lambda kw: kw["tf_scalars"][:2], "float32"),
+    ("hit", lambda kw: kw["hit"].bool(), "uint8"),
+    ("vol_u8", lambda kw: kw["vol_u8"][0], "uint8"),
+])
+def test_wrapper_rejects_bad_inputs(field, value, match):
+    kw = _wrapper_inputs()
+    kw[field] = value(kw)
+    with pytest.raises((ValueError, TypeError), match=match):
+        VK.voxel_grad_cuda(**kw)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(max_samples=-1), "max_samples"),
+    (dict(wrap="repeat"), "clamp-only"),
+])
+def test_wrapper_rejects_bad_arguments(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        VK.voxel_grad_cuda(**_wrapper_inputs(), **kwargs)
+
+
+def test_repeat_plan_is_refused():
+    rays = rays_from_numpy(*_jax_rays(32, 16))
+    Z, Y, X = VOL_SHAPE
+    plan = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z), wrap="repeat")
+    with pytest.raises(ValueError, match="clamp-only"):
+        VK.make_render_tf_voxel(plan)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["reference", "non_reference"])
+def test_kernel_matches_plain_on_cuda(cuda_device, kind):
+    """The CUDA kernel vs the plain version on the same card and inputs,
+    seeded cotangents.  The atomics add in no fixed order, so the bar is
+    2e-5 of max |g|, ten times inside test_pallas_interpret.py's 2e-4."""
+    vol_u8 = torch.from_numpy(turbulence_volume((64, 48, 96), seed=1)).to(cuda_device)
+    rays = generate_rays(Camera(width=96, height=64, position=(0.3, 0.1, -0.7),
+                                front=(-0.3, -0.1, 0.7)), device=cuda_device)
+    Z, Y, X = vol_u8.shape
+    dir_step = (rays.direction * step_sizes((X, Y, Z), cuda_device)).contiguous()
+    params = TFParams.reference(cuda_device) if kind == "reference" else _params(cuda_device)
+    tf = tf_scalars(params)
+    vol = as_normalized_volume(vol_u8)
+    partials = tf_march_steps(vol, rays.entry_uv, dir_step, rays.hit, tf)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    g_rgb = torch.randn((64, 96, 3), generator=gen, device=cuda_device)
+    g_a = torch.randn((64, 96), generator=gen, device=cuda_device)
+    gc, gaT_term = cotangent_images(params, g_rgb, g_a, partials[1])
+    before = VK.voxel_grad_cuda.launches
+    got = VK.voxel_grad_cuda(vol_u8, rays.entry_uv, dir_step, rays.hit.to(torch.uint8), tf, gc,
+                             gaT_term, partials[3])
+    torch.cuda.synchronize()
+    assert VK.voxel_grad_cuda.launches == before + 1
+    ref = voxel_grad_steps(vol, rays.entry_uv, dir_step, rays.hit, tf, gc, gaT_term, partials[3])
+    scale = float(ref.abs().max())
+    assert scale > 0.5
+    assert float((got - ref).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+def test_render_tf_voxel_matches_o1_on_cuda(cuda_device):
+    """The whole kernel path on the card (B4 forward, B5 backward) vs the
+    plain O(1) VJP on the same card, on test_pallas_interpret.py's scene
+    (24 steps) and bars."""
+    vol = as_normalized_volume(_volume_u8(), device=cuda_device)
+    rays = generate_rays(Camera(width=64, height=32), device=cuda_device)
+    Z, Y, X = VOL_SHAPE
+    plan = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z), 24)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    w_rgb = torch.randn((32, 64, 3), generator=gen, device=cuda_device)
+    w_a = torch.randn((32, 64), generator=gen, device=cuda_device)
+    grads = []
+    for f in (VK.make_render_tf_voxel(plan),
+              lambda p, v: render_tf_o1(p, v, rays.entry_uv, rays.direction, rays.hit, 24)):
+        params = TFParams(*(t.requires_grad_(True) for t in _params(cuda_device)))
+        vt = vol.clone().requires_grad_(True)
+        rgb, a = f(params, vt)
+        grads.append(torch.autograd.grad(torch.sum(rgb * w_rgb) + torch.sum(a * w_a),
+                                         [*params, vt]))
+    (*gp_k, gv_k), (*gp_r, gv_r) = grads
+    scale = max(1.0, float(gv_r.abs().max()))
+    assert float((gv_k - gv_r).abs().max()) <= 2e-4 * scale
+    for name, k, r in zip(TFParams._fields, gp_k, gp_r):
+        bar = 2e-4 * r.abs() + 2e-4 * max(1.0, float(r.abs().max()))
+        assert bool(((k - r).abs() <= bar).all()), name

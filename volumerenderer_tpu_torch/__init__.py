@@ -2,9 +2,10 @@
 
 The package beside ``volumerenderer_tpu`` (JAX), which stays the reference it
 is held against.  Plain PyTorch carries ray generation, sampling and the
-reference compositing and isosurface renders; the compositing march and the
-isosurface march and shade also run as hand-written CUDA kernels for Hopper
-(``ops/cuda``, ``csrc/``), built with ``nvcc`` at first use.
+reference compositing and isosurface renders and the differentiable TF render
+(``diff``); the compositing march, the isosurface march and shade, and the
+TF-gradient and voxel-gradient marches also run as hand-written CUDA kernels
+for Hopper (``ops/cuda``, ``csrc/``), built with ``nvcc`` at first use.
 It imports neither jax nor ``volumerenderer_tpu``.
 """
 
@@ -12,6 +13,7 @@ from .camera import Camera, RayBundle, generate_rays
 from .ops.sampling import sample_trilinear, as_normalized_volume
 from .ops.raycast import composite_march, render_compositing
 from .ops.isosurface import render_isosurface
+from .diff.transfer import TFParams, render_tf
 
 __version__ = "0.1.0"
 
@@ -24,4 +26,6 @@ __all__ = [
     "composite_march",
     "render_compositing",
     "render_isosurface",
+    "TFParams",
+    "render_tf",
 ]

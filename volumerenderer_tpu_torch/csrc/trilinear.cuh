@@ -1,6 +1,7 @@
 // Trilinear sampling of the 8-bit volume with OpenGL texture semantics, shared
-// by the march and shade kernels (composite_march.cu, iso_march.cu,
-// iso_shade.cu).
+// by the march, shade and gradient kernels (composite_march.cu, iso_march.cu,
+// iso_shade.cu, tf_march.cu, voxel_grad.cu), and its adjoint for the voxel
+// gradient.
 //
 // The device counterpart of volumerenderer_tpu_torch/ops/sampling.py::
 // sample_trilinear on the 8-bit grid: texel centers at (i + 0.5) / N, bytes
@@ -79,6 +80,53 @@ __device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vo
   const float c0 = c00 + (c10 - c00) * fy;
   const float c1 = c01 + (c11 - c01) * fy;
   return c0 + (c1 - c0) * fz;
+}
+
+// The adjoint of clamp-mode sample_trilinear at (u, v, w): the flat offsets
+// of the 8 taps and the cotangent g times each tap's weight, g*wz*wy*wx in
+// that order, z outermost and x innermost (the order of
+// volumerenderer_tpu_torch/ops/sampling.py::trilinear_scatter_add_ and of
+// the JAX package's diff/vjp.py::_trilinear_scatter).  Two taps clamped onto
+// one voxel keep their own entries, so both add.  The index arithmetic is
+// sample_trilinear's, which stays as it is.
+__device__ __forceinline__ void trilinear_adjoint(float u, float v, float w, int X, int Y, int Z,
+                                                  float g, size_t offset[8], float weight[8]) {
+  const float tx = u * static_cast<float>(X) - 0.5f;
+  const float ty = v * static_cast<float>(Y) - 0.5f;
+  const float tz = w * static_cast<float>(Z) - 0.5f;
+  const float ix = floorf(tx);
+  const float iy = floorf(ty);
+  const float iz = floorf(tz);
+  const float fx = tx - ix;
+  const float fy = ty - iy;
+  const float fz = tz - iz;
+  const int i0x = static_cast<int>(ix);
+  const int i0y = static_cast<int>(iy);
+  const int i0z = static_cast<int>(iz);
+
+  const size_t stride_y = static_cast<size_t>(X);
+  const size_t stride_z = static_cast<size_t>(X) * static_cast<size_t>(Y);
+  const size_t xs[2] = {static_cast<size_t>(wrap_index(i0x, X, false)),
+                        static_cast<size_t>(wrap_index(i0x + 1, X, false))};
+  const size_t ys[2] = {static_cast<size_t>(wrap_index(i0y, Y, false)) * stride_y,
+                        static_cast<size_t>(wrap_index(i0y + 1, Y, false)) * stride_y};
+  const size_t zs[2] = {static_cast<size_t>(wrap_index(i0z, Z, false)) * stride_z,
+                        static_cast<size_t>(wrap_index(i0z + 1, Z, false)) * stride_z};
+  const float wxs[2] = {1.0f - fx, fx};
+  const float wys[2] = {1.0f - fy, fy};
+  const float wzs[2] = {1.0f - fz, fz};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int k = 4 * a + 2 * b + c;
+        offset[k] = zs[a] + ys[b] + xs[c];
+        weight[k] = g * wzs[a] * wys[b] * wxs[c];
+      }
+    }
+  }
 }
 
 }  // namespace vrt

@@ -1,9 +1,10 @@
 """Bringing a JAX run's state into the port.
 
-The renderer's inputs play the part of a model's weights: a volume and a ray
-bundle.  A JAX run hands them over as numpy arrays (``np.asarray`` of its
-jax arrays) and its camera as the fields of its ``Camera`` dataclass; these
-functions turn them into the port's tensors and ``Camera`` on a device.
+The renderer's inputs play the part of a model's weights: a volume, a ray
+bundle and the transfer-function parameters.  A JAX run hands them over as
+numpy arrays (``np.asarray`` of its jax arrays) and its camera as the fields
+of its ``Camera`` dataclass; these functions turn them into the port's
+tensors, ``Camera`` and ``TFParams`` on a device.
 """
 from __future__ import annotations
 
@@ -11,9 +12,11 @@ import numpy as np
 import torch
 
 from .camera import Camera, RayBundle
+from .diff.transfer import TFParams
 from .ops.sampling import as_normalized_volume
 
-__all__ = ["volume_from_numpy", "rays_from_numpy", "camera_from_jax_fields"]
+__all__ = ["volume_from_numpy", "rays_from_numpy", "camera_from_jax_fields",
+           "tf_params_from_numpy"]
 
 
 def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cpu") -> torch.Tensor:
@@ -48,3 +51,21 @@ def camera_from_jax_fields(**fields) -> Camera:
     vectors = {k: tuple(float(x) for x in v) for k, v in fields.items()
                if k in ("position", "front", "up")}
     return Camera(**{**fields, **vectors})
+
+
+def tf_params_from_numpy(device: torch.device | str = "cpu", **fields) -> TFParams:
+    """``tf_params_from_numpy(**{k: np.asarray(v) for k, v in
+    jax_params._asdict().items()})``: the JAX ``TFParams`` as the port's, in
+    float32 on ``device``.  Every field is required; an unknown or
+    misshapen one raises."""
+    if set(fields) != set(TFParams._fields):
+        raise TypeError(f"expected the fields {TFParams._fields}, got {tuple(fields)}")
+    shapes = {"alpha_scale": (), "color_gain": (), "color_bias": (), "flip_sign": (3,),
+              "flip_bias": (3,)}
+    out = {}
+    for name, want in shapes.items():
+        arr = np.asarray(fields[name], dtype=np.float32)
+        if arr.shape != want:
+            raise ValueError(f"{name} must have shape {want}, got {arr.shape}")
+        out[name] = torch.tensor(arr, device=device)
+    return TFParams(**out)

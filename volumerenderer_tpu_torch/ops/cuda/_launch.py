@@ -1,0 +1,80 @@
+"""What every kernel wrapper of this package does around a launch: bind the
+library's C entry point, check the tensors it is handed, and launch on the
+current stream, raising on a CUDA error code."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+INT32_MAX = 2**31 - 1
+
+
+def bind(name: str, n_pointers_before: int, n_ints: int, tail):
+    """Build and load ``csrc/<name>.cu`` and declare ``<name>_launch``'s
+    arguments: pointers, then ints, then ``tail`` (ctypes types, ending with
+    the stream).  Returns (launch function, BuiltLibrary)."""
+    built = _build.load(name)
+    fn = getattr(built.lib, f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_pointers_before + [ctypes.c_int] * n_ints + list(tail)
+    fn.restype = ctypes.c_int
+    err = getattr(built.lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, built
+
+
+def launch(launcher, name: str, device: torch.device, *args) -> None:
+    """Call ``launcher()``'s function with ``args`` and the current stream of
+    ``device``; raise if it returns a CUDA error."""
+    fn, built = launcher()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = getattr(built.lib, f"{name}_error_string")(err).decode(errors="replace")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def check_tensors(tensors: dict, ref: str):
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    device = tensors[ref].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device} but {ref} is on {device}")
+
+
+def check_volume(vol_u8):
+    if vol_u8.dtype != torch.uint8 or vol_u8.dim() != 3 or min(vol_u8.shape) < 1:
+        raise ValueError(f"vol_u8 must be a non-empty (Z, Y, X) uint8 tensor, got "
+                         f"{tuple(vol_u8.shape)} {vol_u8.dtype}")
+    if max(vol_u8.shape) > INT32_MAX:
+        raise ValueError(f"volume extent {tuple(vol_u8.shape)} exceeds int32")
+
+
+def check_image(tensors: dict, shape, dtype, names, suffix=()):
+    want = tuple(shape) + tuple(suffix)
+    for name in names:
+        t = tensors[name]
+        if t.dtype != dtype or tuple(t.shape) != want:
+            raise ValueError(f"{name} must be an {want} {dtype} tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def check_hit(hit):
+    if hit.dtype != torch.uint8 or hit.dim() != 2:
+        raise ValueError(f"hit must be an (H, W) uint8 tensor, got {tuple(hit.shape)} {hit.dtype}")
+
+
+def check_max_samples(max_samples):
+    if isinstance(max_samples, bool) or not isinstance(max_samples, int) \
+            or not 0 <= max_samples <= INT32_MAX:
+        raise ValueError(f"max_samples must be a non-negative int, got {max_samples!r}")

@@ -28,35 +28,24 @@ from ..isosurface import MAX_SAMPLES, iso_march_steps, shade_hits
 from ..raycast import step_sizes
 from ..sampling import WRAP_MODES, as_normalized_volume
 from . import _build
+from ._launch import (bind, check_hit, check_image, check_max_samples,
+                      check_tensors, check_volume, launch)
 from .raycast_kernel import quantize_u8
 
 __all__ = ["iso_march_cuda", "iso_shade_cuda", "IsosurfacePlan", "render_isosurface_kernel",
            "volume_median", "load_kernels"]
 
-_INT32_MAX = 2**31 - 1
-
-
-def _bind(name: str, n_pointers_before: int, n_ints: int, tail):
-    built = _build.load(name)
-    fn = getattr(built.lib, f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_pointers_before + [ctypes.c_int] * n_ints + list(tail)
-    fn.restype = ctypes.c_int
-    err = getattr(built.lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, built
-
 
 @functools.cache
 def _march_launcher():
     # entry_uv, dir_step, hit, vol; H, W, X, Y, Z, max_samples, repeat; iso; found, t_hit, stream
-    return _bind("iso_march", 4, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3)
+    return bind("iso_march", 4, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3)
 
 
 @functools.cache
 def _shade_launcher():
     # entry_uv, dir_step, direction, found, t_hit, vol; H, W, X, Y, Z, repeat; iso; rgb, stream
-    return _bind("iso_shade", 6, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2)
+    return bind("iso_shade", 6, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
 def load_kernels() -> dict[str, _build.BuiltLibrary]:
@@ -64,47 +53,6 @@ def load_kernels() -> dict[str, _build.BuiltLibrary]:
     shade kernels' libraries."""
     _build.load_many(["iso_march", "iso_shade"])
     return {"iso_march": _march_launcher()[1], "iso_shade": _shade_launcher()[1]}
-
-
-def _launch(launcher, name: str, device: torch.device, *args) -> None:
-    fn, built = launcher()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        msg = getattr(built.lib, f"{name}_error_string")(err).decode(errors="replace")
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-
-
-def _check_tensors(tensors: dict, ref: str):
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    device = tensors[ref].device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device} but {ref} is on {device}")
-
-
-def _check_volume(vol_u8):
-    if vol_u8.dtype != torch.uint8 or vol_u8.dim() != 3 or min(vol_u8.shape) < 1:
-        raise ValueError(f"vol_u8 must be a non-empty (Z, Y, X) uint8 tensor, got "
-                         f"{tuple(vol_u8.shape)} {vol_u8.dtype}")
-    if max(vol_u8.shape) > _INT32_MAX:
-        raise ValueError(f"volume extent {tuple(vol_u8.shape)} exceeds int32")
-
-
-def _check_image(tensors: dict, shape, dtype, names, suffix=()):
-    want = tuple(shape) + tuple(suffix)
-    for name in names:
-        t = tensors[name]
-        if t.dtype != dtype or tuple(t.shape) != want:
-            raise ValueError(f"{name} must be an {want} {dtype} tensor, got "
-                             f"{tuple(t.shape)} {t.dtype}")
 
 
 def _check_scalars(iso, wrap):
@@ -132,14 +80,11 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
     tensors run the plain version.
     """
     tensors = {"vol_u8": vol_u8, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit}
-    _check_tensors(tensors, "vol_u8")
-    _check_volume(vol_u8)
-    if hit.dtype != torch.uint8 or hit.dim() != 2:
-        raise ValueError(f"hit must be an (H, W) uint8 tensor, got {tuple(hit.shape)} {hit.dtype}")
-    _check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
-    if isinstance(max_samples, bool) or not isinstance(max_samples, int) \
-            or not 0 <= max_samples <= _INT32_MAX:
-        raise ValueError(f"max_samples must be a non-negative int, got {max_samples!r}")
+    check_tensors(tensors, "vol_u8")
+    check_volume(vol_u8)
+    check_hit(hit)
+    check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
+    check_max_samples(max_samples)
     _check_scalars(iso, wrap)
     if vol_u8.device.type == "cpu":
         return iso_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
@@ -150,10 +95,10 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
     t_hit = torch.empty((H, W), dtype=torch.int32, device=vol_u8.device)
     if H * W == 0:
         return found.view(torch.bool), t_hit
-    _launch(_march_launcher, "iso_march", vol_u8.device,
-            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), vol_u8.data_ptr(),
-            H, W, X, Y, Z, max_samples, int(wrap == "repeat"), float(iso),
-            found.data_ptr(), t_hit.data_ptr())
+    launch(_march_launcher, "iso_march", vol_u8.device,
+           entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), vol_u8.data_ptr(),
+           H, W, X, Y, Z, max_samples, int(wrap == "repeat"), float(iso),
+           found.data_ptr(), t_hit.data_ptr())
     iso_march_cuda.launches += 1
     return found.view(torch.bool), t_hit
 
@@ -178,14 +123,14 @@ def iso_shade_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
     """
     tensors = {"vol_u8": vol_u8, "entry_uv": entry_uv, "dir_step": dir_step,
                "direction": direction, "found": found, "t_hit": t_hit}
-    _check_tensors(tensors, "vol_u8")
-    _check_volume(vol_u8)
+    check_tensors(tensors, "vol_u8")
+    check_volume(vol_u8)
     if found.dtype != torch.bool or found.dim() != 2:
         raise ValueError(f"found must be an (H, W) bool tensor, got "
                          f"{tuple(found.shape)} {found.dtype}")
-    _check_image(tensors, found.shape, torch.int32, ("t_hit",))
-    _check_image(tensors, found.shape, torch.float32, ("entry_uv", "dir_step", "direction"),
-                 (3,))
+    check_image(tensors, found.shape, torch.int32, ("t_hit",))
+    check_image(tensors, found.shape, torch.float32, ("entry_uv", "dir_step", "direction"),
+                (3,))
     _check_scalars(iso, wrap)
     if vol_u8.device.type == "cpu":
         return shade_hits(as_normalized_volume(vol_u8), entry_uv, dir_step, direction, found,
@@ -195,10 +140,10 @@ def iso_shade_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
     rgb = torch.empty((H, W, 3), dtype=torch.float32, device=vol_u8.device)
     if H * W == 0:
         return rgb
-    _launch(_shade_launcher, "iso_shade", vol_u8.device,
-            entry_uv.data_ptr(), dir_step.data_ptr(), direction.data_ptr(),
-            found.view(torch.uint8).data_ptr(), t_hit.data_ptr(), vol_u8.data_ptr(),
-            H, W, X, Y, Z, int(wrap == "repeat"), float(iso), rgb.data_ptr())
+    launch(_shade_launcher, "iso_shade", vol_u8.device,
+           entry_uv.data_ptr(), dir_step.data_ptr(), direction.data_ptr(),
+           found.view(torch.uint8).data_ptr(), t_hit.data_ptr(), vol_u8.data_ptr(),
+           H, W, X, Y, Z, int(wrap == "repeat"), float(iso), rgb.data_ptr())
     iso_shade_cuda.launches += 1
     return rgb
 

@@ -153,14 +153,18 @@ class CompositingPlan:
                          * step_sizes(self.dims, direction.device)).contiguous()
         self.hit = hit.to(torch.uint8).contiguous()
 
-    def render(self, volume: torch.Tensor):
-        """volume: (Z, Y, X) float32 in [0, 1], on the plan's device.  It is
-        quantized to 8 bits, marched, and passed through the reference
-        transfer.  Returns (rgb (H, W, 3), alpha (H, W))."""
+    def check_volume(self, volume: torch.Tensor) -> None:
+        """Raise ValueError unless ``volume`` has the plan's (Z, Y, X) shape."""
         X, Y, Z = self.dims
         if tuple(volume.shape) != (Z, Y, X):
             raise ValueError(f"volume shape {tuple(volume.shape)} does not match the "
                              f"plan's (Z, Y, X) = {(Z, Y, X)}")
+
+    def render(self, volume: torch.Tensor):
+        """volume: (Z, Y, X) float32 in [0, 1], on the plan's device.  It is
+        quantized to 8 bits, marched, and passed through the reference
+        transfer.  Returns (rgb (H, W, 3), alpha (H, W))."""
+        self.check_volume(volume)
         color, alpha = composite_march_cuda(quantize_u8(volume), self.entry_uv, self.dir_step,
                                             self.hit, self.max_samples, self.wrap)
         return apply_reference_transfer(color, alpha), alpha

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sample_trilinear", "as_normalized_volume", "WRAP_MODES"]
+__all__ = ["sample_trilinear", "trilinear_scatter_add_", "as_normalized_volume", "WRAP_MODES"]
 
 WRAP_MODES = ("clamp", "repeat")
 
@@ -84,3 +84,32 @@ def sample_trilinear(volume: torch.Tensor, uvw: torch.Tensor, wrap: str = "clamp
     c0 = c00 + (c10 - c00) * fy
     c1 = c01 + (c11 - c01) * fy
     return c0 + (c1 - c0) * fz
+
+
+def trilinear_scatter_add_(grad: torch.Tensor, uvw: torch.Tensor, g: torch.Tensor) -> None:
+    """Adjoint of clamp-mode :func:`sample_trilinear`: add ``g * w`` into the
+    8 taps of each position, in place in ``grad`` (Z, Y, X) float32.
+
+    ``uvw`` is (N, 3) and ``g`` (N,).  The weights are ``g*wz*wy*wx`` in that
+    order, z outermost and x innermost, as the JAX package's
+    ``diff/vjp.py::_trilinear_scatter`` forms them.  Two taps clamped onto
+    the same voxel both add.
+    """
+    Z, Y, X = grad.shape
+    dims = torch.tensor([X, Y, Z], dtype=torch.float32, device=uvw.device)
+    t = uvw * dims - 0.5
+    i0f = torch.floor(t)
+    frac = t - i0f
+    i0 = i0f.to(torch.int64)
+    xs = (torch.clamp(i0[:, 0], 0, X - 1), torch.clamp(i0[:, 0] + 1, 0, X - 1))
+    ys = (torch.clamp(i0[:, 1], 0, Y - 1) * X, torch.clamp(i0[:, 1] + 1, 0, Y - 1) * X)
+    zs = (torch.clamp(i0[:, 2], 0, Z - 1) * (X * Y),
+          torch.clamp(i0[:, 2] + 1, 0, Z - 1) * (X * Y))
+    fx, fy, fz = frac[:, 0], frac[:, 1], frac[:, 2]
+    offsets, values = [], []
+    for zi, wz in ((zs[0], 1.0 - fz), (zs[1], fz)):
+        for yi, wy in ((ys[0], 1.0 - fy), (ys[1], fy)):
+            for xi, wx in ((xs[0], 1.0 - fx), (xs[1], fx)):
+                offsets.append(zi + yi + xi)
+                values.append(g * wz * wy * wx)
+    grad.view(-1).index_add_(0, torch.cat(offsets), torch.cat(values))
