@@ -15,10 +15,18 @@ calls:
   ``make_render_tf_kernel`` -> ``tf_fit_step_fast`` x 5, and a voxel-grad
   step, ``make_render_tf_voxel`` -> MSE loss -> ``torch.autograd.grad`` of
   the TF params and the volume (kernels ``csrc/tf_march.cu`` and
-  ``csrc/voxel_grad.cu``), timed against one forward frame.
+  ``csrc/voxel_grad.cu``), timed against one forward frame;
+* the compressed domain, over the same orbit: ``codecs.kdtree.build`` of the
+  256^3 turbulence on the host (tolerance 4, 2 epochs; the Δ seeding in
+  ``csrc/kdtree_seed.cu``) -> ``CompressedRenderer(tree, device)`` ->
+  ``make_plan(rays, mode=..., pooled=True)`` -> render: the packed tree on
+  the card, one chunked level-cut decode, the sparse slab pools, and the
+  pooled marches (B7 compositing; B8 and the pooled shade for the
+  isosurface), plus ``render_pooled`` on the dense turbulence's pools for
+  the pooled metrics (B6, B7, B8, B9).
 
-On the way it builds the five kernels from ``volumerenderer_tpu_torch/csrc``
-(one ``nvcc`` each, all at once), holds each against its plain PyTorch
+On the way it builds the kernels from ``volumerenderer_tpu_torch/csrc`` (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
 version and the goldens, times both, and checks that each path launched its
 kernels once per render, forward or backward.
 
@@ -28,13 +36,15 @@ Each phase prints one JSON line (device, build, goldens, parity, main_path,
 kernel_timing, layers, launch_count, then iso_goldens, iso_parity,
 iso_main_path, iso_timing, iso_layers, iso_launch_count, then tf_parity,
 vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
-grad_launch_count).  Then come the kernels line, the card's ``nvidia-smi``
-name and power limit, and, last, ``{"ok": true, "device": {"platform":
-"gpu", ...}}``.  The kernels line's ``max_abs_err`` is over the parity
-cases: |color|, |alpha| for the compositing march, |t_hit| in steps (-1 for
-a miss) for the isosurface march, |rgb| for the shade pass, the largest
-|d| of the seven images for the TF march, |g_vol| for the voxel-gradient
-march.  Without a CUDA device, or away from the repository's package, it
+grad_launch_count, then codec, decode, pools, pooled_parity,
+pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count).
+Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
+and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
+kernels line's ``max_abs_err`` is over the parity cases, kernel against
+plain version: |color|, |alpha| for the compositing marches, |t_hit| in
+steps (-1 for a miss) for the isosurface marches, |rgb| for the shade
+passes, the largest |d| of the seven images for the TF march, |g_vol| for
+the voxel-gradient march.  Without a CUDA device, or away from the repository's package, it
 exits non-zero and prints no result.  Any failed check raises.
 """
 from __future__ import annotations
@@ -79,6 +89,21 @@ GRAD_SOURCES = {"tf_march": "volumerenderer_tpu_torch/csrc/tf_march.cu",
                 "voxel_grad": "volumerenderer_tpu_torch/csrc/voxel_grad.cu"}
 GRAD_REPLACES = {"tf_march": "volumerenderer_tpu/ops/pallas/tf_kernel.py:222",
                  "voxel_grad": "volumerenderer_tpu/ops/pallas/voxel_grad_kernel.py:268"}
+# the compressed domain: config 3's middle tolerance (scripts/run_configs.py)
+TREE_TOLERANCE, TREE_EPOCHS = 4, 2
+POOLED_SOURCES = {"composite_march_pooled_narrow": KERNEL_SOURCE,
+                  "composite_march_pooled_pair16": KERNEL_SOURCE,
+                  "iso_march_pooled_narrow": ISO_SOURCES["iso_march"],
+                  "iso_march_pooled_pair16": ISO_SOURCES["iso_march"],
+                  "iso_shade_pooled": ISO_SOURCES["iso_shade"]}
+POOLED_REPLACES = {
+    "composite_march_pooled_narrow": "volumerenderer_tpu/ops/pallas/raycast_kernel.py:779",
+    "composite_march_pooled_pair16": "volumerenderer_tpu/ops/pallas/raycast_kernel.py:891",
+    "iso_march_pooled_narrow": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:531",
+    "iso_march_pooled_pair16": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:731",
+    # B3's body on the pool; the JAX pooled render shades in jnp
+    # (isosurface_kernel.py:1242, _shade_pooled)
+    "iso_shade_pooled": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:1501"}
 
 
 def emit(obj) -> None:
@@ -590,6 +615,286 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles) -> list:
             for name in ("tf_march", "voxel_grad")]
 
 
+def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense_ms: dict) -> list:
+    """The compressed-domain phases; returns the kernels line's five entries."""
+    from volumerenderer_tpu_torch import Camera, generate_rays
+    from volumerenderer_tpu_torch.codecs import device as CD
+    from volumerenderer_tpu_torch.codecs import kdtree as KT
+    from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
+    from volumerenderer_tpu_torch.models import CompressedRenderer
+    from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.isosurface import iso_march_steps, shade_hits
+    from volumerenderer_tpu_torch.ops.raycast import composite_march_steps
+    from volumerenderer_tpu_torch.ops.sampling import slab_pool_sampler
+
+    # 1. the tree, built on the host from the 256^3 turbulence
+    source = turbulence_volume(VOLUME, seed=0)
+    t0 = time.perf_counter()
+    tree = KT.build(source, tolerance=TREE_TOLERANCE, max_epochs=TREE_EPOCHS)
+    build_s = time.perf_counter() - t0
+    host_cut = KT.level_cut(tree)
+    max_err = KT.measure_max_error(host_cut, source)
+    if tree.orig_depth < CD.CHUNKED_DECODE_MIN_DEPTH or max_err > TREE_TOLERANCE:
+        raise AssertionError(f"tree: orig_depth {tree.orig_depth}, max error {max_err} (bar "
+                             f"{TREE_TOLERANCE})")
+    preorder_bytes = (tree.num_active_nodes + 3) // 4
+    emit({"phase": "codec", "volume": list(VOLUME), "tolerance": TREE_TOLERANCE,
+          "max_epochs": TREE_EPOCHS, "build_s": build_s, "orig_depth": tree.orig_depth,
+          "max_depth": tree.max_depth, "num_active_nodes": tree.num_active_nodes,
+          "bits_per_voxel": 2 * tree.num_active_nodes / source.size, "max_err": max_err,
+          "mean_err": KT.measure_mean_error(host_cut, source), "seed": "csrc/kdtree_seed.cu"})
+
+    # 2. the packed tree on the card, one chunked decode of the full cut
+    t0 = time.perf_counter()
+    dtree, spec = CD.to_device(tree, dev)
+    torch.cuda.synchronize()
+    to_device_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cut = CD.level_cut_device(dtree, spec)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    warm_ms = 1e3 * sweep_seconds(lambda: int(CD.level_cut_device(dtree, spec)[0, 0, 0]))
+    if not np.array_equal(cut.cpu().numpy(), host_cut):
+        raise AssertionError("device level cut differs from the host level_cut")
+    mip8 = CD.tree_occupancy_mip8(dtree, spec)
+    if not torch.equal(mip8, RK.block_max8(cut)):
+        raise AssertionError("tree_occupancy_mip8 differs from block_max8 of the decoded cut")
+    mip8_ms = time_ms(lambda: CD.tree_occupancy_mip8(dtree, spec))
+    device_tree_bytes = sum(t.numel() for t in (*dtree.packed_levels, dtree.packed_chains,
+                                                dtree.distance_map))
+    emit({"phase": "decode", "to_device_ms": to_device_ms, "level_cut_first_ms": first_ms,
+          "level_cut_warm_ms": warm_ms, "chunk_leaf_bits": CD.CHUNK_LEAF_BITS,
+          "equal_to_host_level_cut": True, "mip8_ms": mip8_ms, "mip8_equal_block_max8": True,
+          "device_tree_bytes": device_tree_bytes, "gpu": smi})
+
+    # 3. the slab pools: of the tree's cut (residency from the tree's mip8),
+    # and of the dense turbulence and sphere (from their own block maxima)
+    dense_u8 = {"turbulence": RK.quantize_u8(turb), "sphere": RK.quantize_u8(sphere)}
+    pools = {}
+    for name, vol, m8, tree_bytes in (("tree_cut", cut, mip8, preorder_bytes),
+                                      ("turbulence", dense_u8["turbulence"], None, 0),
+                                      ("sphere", dense_u8["sphere"], None, 0)):
+        line = {"phase": "pools", "source": name, "packed_tree_bytes": tree_bytes}
+        for fmt, build in (("pair16", RK.build_slab_pool), ("narrow", RK.build_slab_pool_narrow)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool, smap = build(vol, mip8=m8)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            pools[name, fmt] = (pool, smap)
+            nbytes = pool.numel() * pool.element_size() + smap.numel() * smap.element_size()
+            line[fmt] = {"slots": int(pool.shape[0]), "occupied_slabs": int((smap > 0).sum()),
+                         "bytes": nbytes, "build_ms": ms,
+                         "resident_vs_dense_u8": (tree_bytes + nbytes) / vol.numel()}
+        emit({**line, "gpu": smi})
+
+    # 4. every pooled kernel vs its plain version (the pool sampler through
+    # the plain marches) and vs its dense kernel, bit for bit, on the same
+    # u8 volume: orbit frames 0 and 15 on the turbulence, the default
+    # camera on the sphere (mostly slot-0 reads)
+    iso_med = IK.volume_median(turb)
+    marches = {"narrow": (RK.composite_march_pooled_narrow_cuda, IK.iso_march_pooled_narrow_cuda),
+               "pair16": (RK.composite_march_pooled_pair16_cuda, IK.iso_march_pooled_pair16_cuda)}
+    err = {name: 0.0 for name in POOLED_SOURCES}
+    plain_inputs = []
+    for case, vname, cam, iso in (("orbit_frame0", "turbulence", cameras[0], iso_med),
+                                  ("orbit_frame15", "turbulence", cameras[-1], iso_med),
+                                  ("entry_sphere", "sphere", Camera(width=W, height=H), 0.5)):
+        rays = generate_rays(cam, device=dev)
+        plan = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, VOLUME[::-1])
+        vol_u8 = dense_u8[vname]
+        args = (plan.entry_uv, plan.dir_step)
+        c_d, a_d = RK.composite_march_cuda(vol_u8, *args, plan.hit)
+        f_d, t_d = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso)
+        for fmt, (comp, isom) in marches.items():
+            pool, smap = pools[vname, fmt]
+            sampler = slab_pool_sampler(pool, smap, VOLUME[::-1])
+            c_k, a_k = comp(pool, smap, *args, plan.hit)
+            f_k, t_k = isom(pool, smap, *args, plan.hit, iso)
+            rgb_k = IK.iso_shade_pooled_cuda(pool, smap, *args, plan.direction, f_k, t_k, iso)
+            rgb_d = IK.iso_shade_cuda(vol_u8, *args, plan.direction, f_k, t_k, iso)
+            c_p, a_p = composite_march_steps(sampler, *args, plan.hit.bool())
+            f_p, t_p = iso_march_steps(sampler, *args, plan.hit.bool(), iso)
+            rgb_p = shade_hits(sampler, *args, plan.direction, f_k, t_k, iso)
+            torch.cuda.synchronize()
+            dense_equal = bool(torch.equal(c_k, c_d) and torch.equal(a_k, a_d)
+                               and torch.equal(f_k, f_d) and torch.equal(t_k, t_d)
+                               and torch.equal(rgb_k, rgb_d))
+            res = compare((c_k, a_k), (c_p, a_p), W * H)
+            px_differ = int(((f_k != f_p) | (t_k != t_p)).sum())
+            t_err = float((t_k - t_p).abs().max())
+            rgb_err = float((rgb_k - rgb_p).abs().max())
+            if not dense_equal or px_differ > res["px_allowed"] or rgb_err > ISO_RGB_TOL:
+                raise AssertionError(f"pooled {case} {fmt}: equal to the dense kernels "
+                                     f"{dense_equal}; vs plain {px_differ} px differ in "
+                                     f"found/t_hit (allowed {res['px_allowed']:g}), rgb max "
+                                     f"|d| {rgb_err} (bar {ISO_RGB_TOL})")
+            err[f"composite_march_pooled_{fmt}"] = max(err[f"composite_march_pooled_{fmt}"],
+                                                      res["max_abs_err"])
+            err[f"iso_march_pooled_{fmt}"] = max(err[f"iso_march_pooled_{fmt}"], t_err)
+            err["iso_shade_pooled"] = max(err["iso_shade_pooled"], rgb_err)
+            emit({"phase": "pooled_parity", "case": case, "pool": fmt, "iso": iso,
+                  "equal_to_dense_kernels": dense_equal, **res,
+                  "iso_px_differ_found_t_hit": px_differ, "t_hit_max_abs_err": t_err,
+                  "rgb_max_abs_err": rgb_err, "hits_kernel": int(f_k.sum()),
+                  "alpha_sum_kernel": float(a_k.sum())})
+            if case != "entry_sphere":
+                plain_inputs.append((fmt, sampler, plan, f_k, t_k))
+
+    # 5. the pooled metrics, bench.py's protocol on the dense turbulence's
+    # pools: plan once per camera, min of REPS sweeps after a warm one.  The
+    # launch counts cover exactly this run.
+    pooled = [RK.composite_march_pooled_narrow_cuda, RK.composite_march_pooled_pair16_cuda,
+              IK.iso_march_pooled_narrow_cuda, IK.iso_march_pooled_pair16_cuda,
+              IK.iso_shade_pooled_cuda]
+    names = list(POOLED_SOURCES)
+    for f in pooled:
+        f.launches = 0
+    renders = dict.fromkeys(names, 0)
+    cplans = [RK.CompositingPlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+    iplans = [IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+
+    def sweep(fmt, mode):
+        pool, smap = pools["turbulence", fmt]
+        acc = torch.zeros((), device=dev)
+        for cp, ip in zip(cplans, iplans):
+            if mode == "compositing":
+                rgb, _ = cp.render_pooled(pool, smap)
+                renders[f"composite_march_pooled_{fmt}"] += 1
+            else:
+                rgb, _ = ip.render_pooled(pool, smap, iso_med)
+                renders[f"iso_march_pooled_{fmt}"] += 1
+                renders["iso_shade_pooled"] += 1
+            acc = acc + rgb.sum()
+        return float(acc)
+
+    sweep_s = {(fmt, mode): sweep_seconds(lambda: sweep(fmt, mode))
+               for mode in ("compositing", "isosurface") for fmt in ("narrow", "pair16")}
+    main_launches = {n: f.launches for n, f in zip(names, pooled)}
+    if any(main_launches[n] != renders[n] or not renders[n] for n in names):
+        raise AssertionError(f"pooled main path: launches {main_launches}, renders {renders}")
+    rate = {k: W * H / (v / N_FRAMES) for k, v in sweep_s.items()}
+    emit({"phase": "pooled_main_path", "volume": list(VOLUME), "frames": N_FRAMES, "reps": REPS,
+          "pooled_rays_per_s_per_chip_1024sq_256cube": rate["narrow", "compositing"],
+          "pooled_pair16_rays_per_s_per_chip_1024sq_256cube": rate["pair16", "compositing"],
+          "pooled_iso_rays_per_s_per_chip_1024sq_256cube": rate["narrow", "isosurface"],
+          "pooled_pair16_iso_rays_per_s_per_chip_1024sq_256cube": rate["pair16", "isosurface"],
+          "ms_per_frame": {f"{mode}_{fmt}": 1e3 * v / N_FRAMES
+                           for (fmt, mode), v in sweep_s.items()},
+          "iso": iso_med, "launches": main_launches, "renders": dict(renders), "gpu": smi})
+
+    # 6. the user's path: CompressedRenderer.make_plan(pooled=True) over the
+    # orbit, compositing (B7) and the isosurface at the cut's median (B8,
+    # pooled shade); every frame equal to make_plan(pooled=False) on the
+    # same cut, rendered by a second renderer so that the first keeps no
+    # dense volume.  The launch counts cover the sweeps.
+    ren = CompressedRenderer(tree, dev)
+    ref = CompressedRenderer(tree, dev)
+    iso_cut = IK.volume_median(ref.volume_at())
+    for f in pooled:
+        f.launches = 0
+    comp_renders = dict.fromkeys(names, 0)
+    t0 = time.perf_counter()
+    frames = {mode: [ren.make_plan(r, mode=mode, iso_value=iso_cut, pooled=True)
+                     for r in bundles] for mode in ("compositing", "isosurface")}
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+
+    def user_sweep(mode):
+        acc = torch.zeros((), device=dev)
+        for render in frames[mode]:
+            rgb, _ = render()
+            acc = acc + rgb.sum()
+            if mode == "compositing":
+                comp_renders["composite_march_pooled_pair16"] += 1
+            else:
+                comp_renders["iso_march_pooled_narrow"] += 1
+                comp_renders["iso_shade_pooled"] += 1
+        return float(acc)
+
+    user_s = {mode: sweep_seconds(lambda: user_sweep(mode)) for mode in frames}
+    comp_launches = {n: f.launches for n, f in zip(names, pooled)}
+    if any(comp_launches[n] != comp_renders[n] for n in names) \
+            or not comp_renders["composite_march_pooled_pair16"] \
+            or not comp_renders["iso_march_pooled_narrow"]:
+        raise AssertionError(f"compressed main path: launches {comp_launches}, renders "
+                             f"{comp_renders}")
+    if ren._cache:
+        raise AssertionError("the pooled renderer kept a dense volume")
+    n_equal = 0
+    for mode in frames:
+        for render, r in zip(frames[mode], bundles):
+            out = render()
+            want = ref.make_plan(r, mode=mode, iso_value=iso_cut)()
+            if not all(torch.equal(a, b) for a, b in zip(out, want)):
+                raise AssertionError(f"compressed {mode} frame differs from the dense plan")
+            if not bool(torch.isfinite(out[0]).all()) or out[0].shape != (H, W, 3):
+                raise AssertionError(f"compressed {mode} frame: not finite or misshapen")
+            n_equal += 1
+    pool16, _ = ren.slab_pool_at(fmt="pair16")
+    pooln, _ = ren.slab_pool_at(fmt="narrowf32")
+    emit({"phase": "compressed_main_path", "frames": N_FRAMES, "reps": REPS,
+          "ms_per_frame": {m: 1e3 * v / N_FRAMES for m, v in user_s.items()},
+          "rays_per_s": {m: W * H / (v / N_FRAMES) for m, v in user_s.items()},
+          "plan_and_pools_s": plan_s, "iso_cut_median": iso_cut,
+          "frames_equal_to_dense_plan": n_equal,
+          "resident_pool_bytes": {"pair16": pool16.numel() * 4, "narrowf32": pooln.numel() * 4},
+          "dense_volume_kept": False, "launches": comp_launches, "renders": comp_renders,
+          "gpu": smi})
+
+    # 7. per-launch times over the orbit on the dense turbulence's pools, and
+    # the plain versions on frames 0 and 15 only (a plain iso march takes
+    # ~0.25 s a frame); the dense kernels' times of this run beside them
+    pool_n, smap_n = pools["turbulence", "narrow"]
+    pool_16, smap_16 = pools["turbulence", "pair16"]
+    hits = [IK.iso_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv, p.dir_step, p.hit,
+                                            iso_med) for p in iplans]
+
+    def per_frame(fn, plans):
+        return time_ms(lambda: [fn(p) for p in plans]) / len(plans)
+
+    ms = {
+        "composite_march_pooled_narrow": per_frame(
+            lambda p: RK.composite_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv,
+                                                            p.dir_step, p.hit), cplans),
+        "composite_march_pooled_pair16": per_frame(
+            lambda p: RK.composite_march_pooled_pair16_cuda(pool_16, smap_16, p.entry_uv,
+                                                            p.dir_step, p.hit), cplans),
+        "iso_march_pooled_narrow": per_frame(
+            lambda p: IK.iso_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv, p.dir_step,
+                                                      p.hit, iso_med), iplans),
+        "iso_march_pooled_pair16": per_frame(
+            lambda p: IK.iso_march_pooled_pair16_cuda(pool_16, smap_16, p.entry_uv,
+                                                      p.dir_step, p.hit, iso_med), iplans),
+        "iso_shade_pooled": time_ms(lambda: [
+            IK.iso_shade_pooled_cuda(pool_n, smap_n, p.entry_uv, p.dir_step, p.direction, f, t,
+                                     iso_med) for p, (f, t) in zip(iplans, hits)]) / N_FRAMES}
+    plain_ms = dict.fromkeys(names, 0.0)
+    for fmt, sampler, plan, f_k, t_k in plain_inputs:
+        args = (plan.entry_uv, plan.dir_step)
+        plain_ms[f"composite_march_pooled_{fmt}"] += time_ms(
+            lambda: composite_march_steps(sampler, *args, plan.hit.bool()), reps=1) / 2
+        plain_ms[f"iso_march_pooled_{fmt}"] += time_ms(
+            lambda: iso_march_steps(sampler, *args, plan.hit.bool(), iso_med), reps=1) / 2
+        if fmt == "narrow":
+            plain_ms["iso_shade_pooled"] += time_ms(
+                lambda: shade_hits(sampler, *args, plan.direction, f_k, t_k, iso_med),
+                reps=1) / 2
+    emit({"phase": "pooled_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
+          "frames": N_FRAMES, "plain_frames": [0, N_FRAMES - 1],
+          "kernel_ms_per_launch": ms, "plain_ms_per_launch": plain_ms,
+          "dense_kernel_ms_per_launch": dense_ms, "gpu": smi})
+
+    launches = {n: main_launches[n] + comp_launches[n] for n in names}
+    emit({"phase": "pooled_launch_count", "pooled_main_path": main_launches,
+          "compressed_main_path": comp_launches, "renders": {
+              n: renders[n] + comp_renders[n] for n in names}})
+    return [{"name": n, "route": "cuda", "source": POOLED_SOURCES[n],
+             "replaces": POOLED_REPLACES[n], "launches": launches[n], "max_abs_err": err[n],
+             "ms": ms[n], "plain_ms": plain_ms[n]} for n in names]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an "
@@ -623,9 +928,11 @@ def main() -> int:
 
     # 2. build the kernels from the checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
-    _build.load_many(["composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad"])
+    _build.load_many(["composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad",
+                      "kdtree_seed"])
     libraries = {"composite_march": RK.load_kernel(), **IK.load_kernels(),
-                 "tf_march": TK.load_kernel(), "voxel_grad": VK.load_kernel()}
+                 "tf_march": TK.load_kernel(), "voxel_grad": VK.load_kernel(),
+                 "kdtree_seed": _build.load("kdtree_seed")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": {
         name: {"nvcc_seconds": built.build_seconds,
                "library": str(built.path.relative_to(HERE)),
@@ -738,11 +1045,14 @@ def main() -> int:
 
     iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles)
     grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles)
+    pooled_kernels = run_compressed(dev, smi, turb, sphere, cameras, bundles,
+                                    {"composite_march": kernel_ms,
+                                     **{k["name"]: k["ms"] for k in iso_kernels}})
 
     emit({"kernels": [{"name": "composite_march", "route": "cuda", "source": KERNEL_SOURCE,
                        "replaces": REPLACES, "launches": launches,
                        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms},
-                      *iso_kernels, *grad_kernels]})
+                      *iso_kernels, *grad_kernels, *pooled_kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

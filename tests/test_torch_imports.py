@@ -19,6 +19,9 @@ def test_port_imports_without_jax():
             "tf_kernel, voxel_grad_kernel; "
             "from volumerenderer_tpu_torch.ops import isosurface; "
             "from volumerenderer_tpu_torch.diff import transfer, vjp, closed_form; "
+            "from volumerenderer_tpu_torch.codecs import kdtree, device; "
+            "from volumerenderer_tpu_torch.models import compressed; "
+            "from volumerenderer_tpu_torch.utils import bitarray; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'volumerenderer_tpu' or m.startswith('volumerenderer_tpu.')); "
             "assert not bad, bad")

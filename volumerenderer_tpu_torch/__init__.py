@@ -6,7 +6,10 @@ reference compositing and isosurface renders and the differentiable TF render
 (``diff``); the compositing march, the isosurface march and shade, and the
 TF-gradient and voxel-gradient marches also run as hand-written CUDA kernels
 for Hopper (``ops/cuda``, ``csrc/``), built with ``nvcc`` at first use.
-It imports neither jax nor ``volumerenderer_tpu``.
+The compressed domain (``codecs``: the kd-tree built on the host, decoded on
+the device) renders through ``CompressedRenderer`` from sparse slab pools,
+with pooled variants of the same kernels.  It imports neither jax nor
+``volumerenderer_tpu``.
 """
 
 from .camera import Camera, RayBundle, generate_rays
@@ -14,6 +17,8 @@ from .ops.sampling import sample_trilinear, as_normalized_volume
 from .ops.raycast import composite_march, render_compositing
 from .ops.isosurface import render_isosurface
 from .diff.transfer import TFParams, render_tf
+from .codecs.kdtree import KdTree
+from .models.compressed import CompressedRenderer
 
 __version__ = "0.1.0"
 
@@ -28,4 +33,6 @@ __all__ = [
     "render_isosurface",
     "TFParams",
     "render_tf",
+    "KdTree",
+    "CompressedRenderer",
 ]

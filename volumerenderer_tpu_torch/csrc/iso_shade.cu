@@ -1,7 +1,7 @@
 // Isosurface shading for Hopper (sm_90a), one thread per ray.
 //
 // Replaces the TPU shade pass: volumerenderer_tpu/ops/pallas/
-// isosurface_kernel.py::_launch_shade (body _shade_one_tile).  It computes
+// isosurface_kernel.py::_launch_shade (body _shade_one_tile) (B3).  It computes
 // exactly volumerenderer_tpu_torch/ops/isosurface.py::shade_hits on the 8-bit
 // volume, with the arithmetic of the reference (isosurface.frag:23-75).  For
 // each ray with found set:
@@ -28,6 +28,13 @@
 // shade windows, their pads and word tables (_shade_pads, build_shade_words,
 // build_shade_xwords) are not carried over.  Left for later: compacting the
 // hit rays so that warps are not idled by misses.
+//
+// The pooled shade is the same body with the slab-pool sampler
+// (trilinear.cuh, sample_trilinear_pool), reading the pool the pooled march
+// read.  The JAX package shades pooled renders from a second, packed-
+// neighbourhood pool (sampling.py::build_shade_pool) because its shade taps
+// overrun the TPU march windows; here every tap reads rows z0 and z0 + 1 of
+// one slot through the map, so one pool serves both passes.  Clamp only.
 //
 // Rounding: build with --fmad=false; dot products add left to right
 // ((a0*b0 + a1*b1) + a2*b2), and lengths take XLA's fused rounding of
@@ -64,11 +71,11 @@ __device__ __forceinline__ float norm3(float a0, float a1, float a2) {
 
 __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
+template <class Sampler>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 iso_shade_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
                  const float* __restrict__ direction, const uint8_t* __restrict__ found,
-                 const int32_t* __restrict__ t_hit, const uint8_t* __restrict__ vol,
-                 int H, int W, int X, int Y, int Z, bool repeat, float iso,
+                 const int32_t* __restrict__ t_hit, Sampler sample, int H, int W, float iso,
                  float* __restrict__ rgb) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
@@ -96,7 +103,7 @@ iso_shade_kernel(const float* __restrict__ entry_uv, const float* __restrict__ d
       const float m0 = (r0 + l0) * 0.5f;
       const float m1 = (r1 + l1) * 0.5f;
       const float m2 = (r2 + l2) * 0.5f;
-      if (vrt::sample_trilinear(vol, m0, m1, m2, X, Y, Z, repeat) < iso) {
+      if (sample(m0, m1, m2) < iso) {
         l0 = m0; l1 = m1; l2 = m2;
       } else {
         r0 = m0; r1 = m1; r2 = m2;
@@ -106,12 +113,9 @@ iso_shade_kernel(const float* __restrict__ entry_uv, const float* __restrict__ d
     const float t1 = (r1 + l1) * 0.5f;
     const float t2 = (r2 + l2) * 0.5f;
 
-    const float g0 = (vrt::sample_trilinear(vol, t0 - kDelta, t1, t2, X, Y, Z, repeat)
-                      - vrt::sample_trilinear(vol, t0 + kDelta, t1, t2, X, Y, Z, repeat)) / 2.0f;
-    const float g1 = (vrt::sample_trilinear(vol, t0, t1 - kDelta, t2, X, Y, Z, repeat)
-                      - vrt::sample_trilinear(vol, t0, t1 + kDelta, t2, X, Y, Z, repeat)) / 2.0f;
-    const float g2 = (vrt::sample_trilinear(vol, t0, t1, t2 - kDelta, X, Y, Z, repeat)
-                      - vrt::sample_trilinear(vol, t0, t1, t2 + kDelta, X, Y, Z, repeat)) / 2.0f;
+    const float g0 = (sample(t0 - kDelta, t1, t2) - sample(t0 + kDelta, t1, t2)) / 2.0f;
+    const float g1 = (sample(t0, t1 - kDelta, t2) - sample(t0, t1 + kDelta, t2)) / 2.0f;
+    const float g2 = (sample(t0, t1, t2 - kDelta) - sample(t0, t1, t2 + kDelta)) / 2.0f;
     const float gn = norm3(g0, g1, g2);
     const float gd = gn > 0.0f ? gn : 1.0f;
     const float n0 = g0 / gd;
@@ -139,25 +143,66 @@ iso_shade_kernel(const float* __restrict__ entry_uv, const float* __restrict__ d
   rgb[3 * ray + 2] = b;
 }
 
-}  // namespace
-
-// Launches the shade pass on `stream` for an H x W ray image and returns
-// cudaGetLastError() (0 on success).  Pointers are device pointers:
-// entry_uv, dir_step and direction (H*W*3 f32), found (H*W u8), t_hit (H*W
-// i32), vol (Z*Y*X u8, x fastest) and rgb (H*W*3 f32).  repeat != 0 selects
-// GL_REPEAT wrapping.
-extern "C" int iso_shade_launch(const void* entry_uv, const void* dir_step, const void* direction,
-                                const void* found, const void* t_hit, const void* vol, int H,
-                                int W, int X, int Y, int Z, int repeat, float iso, void* rgb,
-                                void* stream) {
+template <class Sampler>
+int launch(const void* entry_uv, const void* dir_step, const void* direction, const void* found,
+           const void* t_hit, Sampler sample, int H, int W, float iso, void* rgb, void* stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
   iso_shade_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
       static_cast<const float*>(direction), static_cast<const uint8_t*>(found),
-      static_cast<const int32_t*>(t_hit), static_cast<const uint8_t*>(vol), H, W, X, Y, Z,
-      repeat != 0, iso, static_cast<float*>(rgb));
+      static_cast<const int32_t*>(t_hit), sample, H, W, iso, static_cast<float*>(rgb));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <vrt::PoolFormat F>
+int launch_pooled(const void* entry_uv, const void* dir_step, const void* direction,
+                  const void* found, const void* t_hit, const void* pool, const void* slab_map,
+                  int H, int W, int X, int Y, int Z, int n_slots, float iso, void* rgb,
+                  void* stream) {
+  const vrt::PoolSampler<F> sample{pool, static_cast<const int32_t*>(slab_map), n_slots, X, Y, Z};
+  return launch(entry_uv, dir_step, direction, found, t_hit, sample, H, W, iso, rgb, stream);
+}
+
+}  // namespace
+
+// Each launch runs the shade pass on `stream` for an H x W ray image and
+// returns cudaGetLastError() (0 on success).  Pointers are device pointers:
+// entry_uv, dir_step and direction (H*W*3 f32), found (H*W u8), t_hit (H*W
+// i32) and rgb (H*W*3 f32).
+
+// B3: vol (Z*Y*X u8, x fastest); repeat != 0 selects GL_REPEAT wrapping.
+extern "C" int iso_shade_launch(const void* entry_uv, const void* dir_step, const void* direction,
+                                const void* found, const void* t_hit, const void* vol, int H,
+                                int W, int X, int Y, int Z, int repeat, float iso, void* rgb,
+                                void* stream) {
+  const vrt::DenseSampler sample{static_cast<const uint8_t*>(vol), X, Y, Z, repeat != 0};
+  return launch(entry_uv, dir_step, direction, found, t_hit, sample, H, W, iso, rgb, stream);
+}
+
+// The pooled shade on the narrow f32 pool (n_slots*16*Y*X) and slab_map (Z/8
+// i32), clamp.
+extern "C" int iso_shade_pooled_narrow_launch(const void* entry_uv, const void* dir_step,
+                                              const void* direction, const void* found,
+                                              const void* t_hit, const void* pool,
+                                              const void* slab_map, int H, int W, int X, int Y,
+                                              int Z, int n_slots, float iso, void* rgb,
+                                              void* stream) {
+  return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, direction, found, t_hit,
+                                                    pool, slab_map, H, W, X, Y, Z, n_slots, iso,
+                                                    rgb, stream);
+}
+
+// The pooled shade on the pair16 pool (n_slots*16*Y*(X/2) i32), clamp.
+extern "C" int iso_shade_pooled_pair16_launch(const void* entry_uv, const void* dir_step,
+                                              const void* direction, const void* found,
+                                              const void* t_hit, const void* pool,
+                                              const void* slab_map, int H, int W, int X, int Y,
+                                              int Z, int n_slots, float iso, void* rgb,
+                                              void* stream) {
+  return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, direction, found, t_hit,
+                                                 pool, slab_map, H, W, X, Y, Z, n_slots, iso,
+                                                 rgb, stream);
 }
 
 extern "C" const char* iso_shade_error_string(int code) {

@@ -1,7 +1,8 @@
 // Trilinear sampling of the 8-bit volume with OpenGL texture semantics, shared
 // by the march, shade and gradient kernels (composite_march.cu, iso_march.cu,
-// iso_shade.cu, tf_march.cu, voxel_grad.cu), and its adjoint for the voxel
-// gradient.
+// iso_shade.cu, tf_march.cu, voxel_grad.cu), its adjoint for the voxel
+// gradient, and the same sampler fetching from a sparse z-slab pool
+// (sample_trilinear_pool, for the pooled marches and shade).
 //
 // The device counterpart of volumerenderer_tpu_torch/ops/sampling.py::
 // sample_trilinear on the 8-bit grid: texel centers at (i + 0.5) / N, bytes
@@ -81,6 +82,109 @@ __device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vo
   const float c1 = c01 + (c11 - c01) * fy;
   return c0 + (c1 - c0) * fz;
 }
+
+// The dense volume as a sampler object: the march and shade bodies are
+// templates on their sampler (DenseSampler, PoolSampler below).
+struct DenseSampler {
+  const uint8_t* vol;
+  int X, Y, Z;
+  bool repeat;
+  __device__ __forceinline__ float operator()(float u, float v, float w) const {
+    return sample_trilinear(vol, u, v, w, X, Y, Z, repeat);
+  }
+};
+
+// The two slab-pool layouts of volumerenderer_tpu_torch/ops/cuda/
+// raycast_kernel.py: slot s holds z rows [8b, 8b + 16) of the z-block b that
+// maps to it, as 16-bit pairs p16[x] = s[x] * 256 + s[x + 1] (x + 1 clamped
+// to the edge).
+//   kPair16:    (n_slots, 16, Y, X / 2) int32, pairs x and x + 1 (x even)
+//               in the low and high halves of one word;
+//   kNarrowF32: (n_slots, 16, Y, X) float32 pair values.
+enum class PoolFormat { kPair16, kNarrowF32 };
+
+template <PoolFormat F>
+__device__ __forceinline__ int pool_pair(const void* pool, size_t row, int x, int X) {
+  if constexpr (F == PoolFormat::kPair16) {
+    const int32_t word =
+        __ldg(static_cast<const int32_t*>(pool) + row * static_cast<size_t>(X / 2) + (x >> 1));
+    return (x & 1) ? static_cast<int>(static_cast<uint32_t>(word) >> 16) : (word & 0xFFFF);
+  } else {
+    return static_cast<int>(
+        __ldg(static_cast<const float*>(pool) + row * static_cast<size_t>(X) + x));
+  }
+}
+
+// Clamp-mode sample_trilinear of the 8-bit volume the pool was built from,
+// bit for bit: the same index math, taps byte * (1/255), the same lerps.
+// z-block b = z0 >> 3 reads slot slab_map[b] (clamped into [0, n_slots) so
+// a bad map cannot read outside the pool); both z taps lie in that slot's
+// rows z0 - 8b <= 7 and z1 - 8b <= 8 < 16.  One pair fetch gives both x taps
+// of a (z, y) row, except at the low x face: where i0x < 0 both x indices
+// clamp to 0 and the high byte s[0] serves both (the low byte is s[1]).
+template <PoolFormat F>
+__device__ __forceinline__ float sample_trilinear_pool(const void* pool,
+                                                       const int32_t* __restrict__ slab_map,
+                                                       int n_slots, float u, float v, float w,
+                                                       int X, int Y, int Z) {
+  const float tx = u * static_cast<float>(X) - 0.5f;
+  const float ty = v * static_cast<float>(Y) - 0.5f;
+  const float tz = w * static_cast<float>(Z) - 0.5f;
+  const float ix = floorf(tx);
+  const float iy = floorf(ty);
+  const float iz = floorf(tz);
+  const float fx = tx - ix;
+  const float fy = ty - iy;
+  const float fz = tz - iz;
+  const int i0x = static_cast<int>(ix);
+  const int i0y = static_cast<int>(iy);
+  const int i0z = static_cast<int>(iz);
+
+  const int x0 = wrap_index(i0x, X, false);
+  const size_t y0 = static_cast<size_t>(wrap_index(i0y, Y, false));
+  const size_t y1 = static_cast<size_t>(wrap_index(i0y + 1, Y, false));
+  const int z0 = wrap_index(i0z, Z, false);
+  const int z1 = wrap_index(i0z + 1, Z, false);
+  const int block = z0 >> 3;
+  const int slot = min(max(__ldg(slab_map + block), 0), n_slots - 1);
+  const size_t first = static_cast<size_t>(slot) * 16;
+  const size_t row0 = (first + static_cast<size_t>(z0 - 8 * block)) * static_cast<size_t>(Y);
+  const size_t row1 = (first + static_cast<size_t>(z1 - 8 * block)) * static_cast<size_t>(Y);
+  const bool low_edge = i0x < 0;
+
+  const int p00 = pool_pair<F>(pool, row0 + y0, x0, X);
+  const int p10 = pool_pair<F>(pool, row0 + y1, x0, X);
+  const int p01 = pool_pair<F>(pool, row1 + y0, x0, X);
+  const int p11 = pool_pair<F>(pool, row1 + y1, x0, X);
+  constexpr float kInv255 = 1.0f / 255.0f;
+  const float c000 = static_cast<float>(p00 >> 8) * kInv255;
+  const float c010 = static_cast<float>(p10 >> 8) * kInv255;
+  const float c001 = static_cast<float>(p01 >> 8) * kInv255;
+  const float c011 = static_cast<float>(p11 >> 8) * kInv255;
+  const float c100 = low_edge ? c000 : static_cast<float>(p00 & 255) * kInv255;
+  const float c110 = low_edge ? c010 : static_cast<float>(p10 & 255) * kInv255;
+  const float c101 = low_edge ? c001 : static_cast<float>(p01 & 255) * kInv255;
+  const float c111 = low_edge ? c011 : static_cast<float>(p11 & 255) * kInv255;
+
+  const float c00 = c000 + (c100 - c000) * fx;
+  const float c10 = c010 + (c110 - c010) * fx;
+  const float c01 = c001 + (c101 - c001) * fx;
+  const float c11 = c011 + (c111 - c011) * fx;
+  const float c0 = c00 + (c10 - c00) * fy;
+  const float c1 = c01 + (c11 - c01) * fy;
+  return c0 + (c1 - c0) * fz;
+}
+
+template <PoolFormat F>
+struct PoolSampler {
+  const void* pool;
+  const int32_t* slab_map;
+  int n_slots;
+  int X, Y, Z;
+  __device__ __forceinline__ float operator()(float u, float v, float w) const {
+    return sample_trilinear_pool<F>(pool, slab_map, n_slots, u, v, w, X, Y, Z);
+  }
+};
 
 // The adjoint of clamp-mode sample_trilinear at (u, v, w): the flat offsets
 // of the 8 taps and the cotangent g times each tap's weight, g*wz*wy*wx in

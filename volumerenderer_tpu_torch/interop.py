@@ -1,22 +1,25 @@
 """Bringing a JAX run's state into the port.
 
 The renderer's inputs play the part of a model's weights: a volume, a ray
-bundle and the transfer-function parameters.  A JAX run hands them over as
-numpy arrays (``np.asarray`` of its jax arrays) and its camera as the fields
-of its ``Camera`` dataclass; these functions turn them into the port's
-tensors, ``Camera`` and ``TFParams`` on a device.
+bundle, the transfer-function parameters and a compressed kd-tree.  A JAX
+run hands them over as numpy arrays (``np.asarray`` of its jax arrays) and
+its camera and tree as the fields of their dataclasses; these functions turn
+them into the port's tensors, ``Camera``, ``TFParams`` and ``KdTree``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+import dataclasses
+
 from .camera import Camera, RayBundle
+from .codecs.kdtree import KdTree
 from .diff.transfer import TFParams
 from .ops.sampling import as_normalized_volume
 
 __all__ = ["volume_from_numpy", "rays_from_numpy", "camera_from_jax_fields",
-           "tf_params_from_numpy"]
+           "tf_params_from_numpy", "kdtree_from_numpy"]
 
 
 def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cpu") -> torch.Tensor:
@@ -69,3 +72,27 @@ def tf_params_from_numpy(device: torch.device | str = "cpu", **fields) -> TFPara
             raise ValueError(f"{name} must have shape {want}, got {arr.shape}")
         out[name] = torch.tensor(arr, device=device)
     return TFParams(**out)
+
+
+def kdtree_from_numpy(**fields) -> KdTree:
+    """``kdtree_from_numpy(**dataclasses.asdict(jax_tree))``: a JAX-built
+    ``KdTree`` as the port's, its arrays copied.  Every field is required;
+    an unknown one raises ``TypeError``."""
+    names = {f.name for f in dataclasses.fields(KdTree)}
+    if set(fields) != names:
+        raise TypeError(f"expected the fields {sorted(names)}, got {sorted(fields)}")
+
+    def copy(a, dtype):
+        return None if a is None else np.array(a, dtype=dtype)
+
+    return KdTree(
+        dims=tuple(int(d) for d in fields["dims"]), orig_depth=int(fields["orig_depth"]),
+        max_depth=int(fields["max_depth"]),
+        distance_map=copy(fields["distance_map"], np.uint8),
+        level_codes=[copy(c, np.uint8) for c in fields["level_codes"]],
+        chain_codes=copy(fields["chain_codes"], np.uint8),
+        schedule=[int(s) for s in fields["schedule"]], tolerance=int(fields["tolerance"]),
+        max_epochs=int(fields["max_epochs"]),
+        num_active_nodes=int(fields["num_active_nodes"]),
+        leaf_recon=copy(fields["leaf_recon"], np.int32),
+        leaf_truth=copy(fields["leaf_truth"], np.uint8))

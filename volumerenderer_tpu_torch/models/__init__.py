@@ -6,7 +6,9 @@ reference arithmetic; ``best_renderer()`` returns a renderer that runs the
 CUDA march kernel for inputs on a CUDA device and the plain renderer for CPU
 inputs; ``plan_compositing`` builds the plan-once / render-many API.
 ``best_isosurface_renderer()`` does the same for the isosurface render, with
-the CUDA march and shade kernels.
+the CUDA march and shade kernels.  ``CompressedRenderer`` renders straight
+from a compressed kd-tree (``compressed.py``); ``DenseRenderer`` is its API
+over a plain volume.
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ from ..ops.cuda.isosurface_kernel import render_isosurface_kernel
 from ..ops.cuda.raycast_kernel import CompositingPlan, render_compositing_kernel
 from ..ops.isosurface import render_isosurface
 from ..ops.raycast import MAX_SAMPLES, render_compositing
+from .compressed import CompressedRenderer, DenseRenderer
 
 __all__ = ["reference_renderer", "best_renderer", "plan_compositing",
-           "best_isosurface_renderer"]
+           "best_isosurface_renderer", "CompressedRenderer", "DenseRenderer"]
 
 
 def reference_renderer():

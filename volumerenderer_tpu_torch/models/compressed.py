@@ -1,0 +1,162 @@
+"""Rendering straight from the compressed kd-tree.
+
+Counterpart of ``volumerenderer_tpu/models/compressed.py``.  The packed tree
+lives on the device; a level cut decodes there (``codecs/device.py``), once
+per cut; and the render reads either the dense cut (``render``,
+``make_plan(pooled=False)``) or only the sparse, deduplicated z-slab pool
+built from it (``make_plan(pooled=True)``: the pooled kernels B6–B9 and the
+pooled shade, ``ops/cuda/``).
+
+Departures from the JAX class, on purpose:
+
+* ``_decoded`` has no host fallback (and so no per-tree ``_spec_key`` memo
+  of failed decodes).  The JAX class takes every ``XlaRuntimeError`` for an
+  out-of-memory compile and quietly decodes on the host instead.  Here deep
+  trees decode in chunks from the start, so the compile-temp blow-up that
+  fallback worked around cannot happen, and a ``torch.cuda.OutOfMemoryError``,
+  or any other error, propagates.
+* ``make_plan`` has no ``skip_empty`` argument: the exact empty-space skip
+  (``CompositingPlan.bind`` / ``IsosurfacePlan.bind``) is not ported, and a
+  pooled march reads slot 0 for an empty slab, which is exact.
+* Not ported yet: ``diff_decoder`` and the ``MidRangeTree`` input.  The
+  isosurface plan shades from the slab pool it marched, so there is no
+  ``shade_pool_at``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..codecs.device import level_cut_device, to_device, tree_occupancy_mip8
+from ..codecs.kdtree import KdTree
+from ..ops.cuda.isosurface_kernel import IsosurfacePlan, render_isosurface_kernel
+from ..ops.cuda.raycast_kernel import (CompositingPlan, build_slab_pool,
+                                       build_slab_pool_narrow, render_compositing_kernel)
+from ..ops.isosurface import render_isosurface
+from ..ops.raycast import MAX_SAMPLES, render_compositing
+from ..ops.sampling import as_normalized_volume
+
+__all__ = ["CompressedRenderer", "DenseRenderer"]
+
+_POOL_BUILDERS = {"pair16": build_slab_pool, "narrowf32": build_slab_pool_narrow}
+
+
+def _render(vol, rays, mode, fast, **kwargs):
+    if mode == "compositing":
+        render = render_compositing_kernel if fast else render_compositing
+    elif mode == "isosurface":
+        render = render_isosurface_kernel if fast else render_isosurface
+    else:
+        raise ValueError(f"unknown mode {mode}")
+    return render(vol, rays.entry_uv, rays.direction, rays.hit, **kwargs)
+
+
+class DenseRenderer:
+    """The render API over an uncompressed (Z, Y, X) volume (uint8, or
+    float in [0, 1]), on the volume's device."""
+
+    def __init__(self, volume):
+        self._vol = as_normalized_volume(volume)
+
+    def volume_at(self, cut_depth=None) -> torch.Tensor:
+        return self._vol
+
+    def render(self, rays, cut_depth=None, mode: str = "compositing", **kwargs):
+        """``render_compositing`` / ``render_isosurface`` of the volume."""
+        return _render(self._vol, rays, mode, False, **kwargs)
+
+
+class CompressedRenderer:
+    """Render directly from a compressed :class:`~..codecs.kdtree.KdTree`.
+
+    ``device`` holds the packed tree and everything decoded from it.  A
+    decoded cut (``volume_at``), its block maxima (``mip8_at``) and its slab
+    pools (``slab_pool_at``) are cached per cut depth; progressive
+    refinement is rendering coarser cuts first."""
+
+    def __init__(self, tree: KdTree, device: torch.device | str = "cpu"):
+        if not isinstance(tree, KdTree):
+            raise TypeError(f"expected a KdTree, got {type(tree).__name__} (the MidRangeTree "
+                            f"input is not ported yet)")
+        self.tree = tree
+        self.device = torch.device(device)
+        self.dtree, self.spec = to_device(tree, self.device)
+        self._cache: dict[int, torch.Tensor] = {}
+        self._pool_cache: dict[tuple, tuple] = {}
+        self._mip_cache: dict[int, torch.Tensor] = {}
+
+    def _cut(self, cut_depth) -> int:
+        return self.spec["max_depth"] if cut_depth is None else int(cut_depth)
+
+    def _decoded(self, cut: int) -> torch.Tensor:
+        """The level cut as (Z, Y, X) uint8 on the device: the device decode,
+        chunked for deep trees.  No host fallback: every error propagates."""
+        return level_cut_device(self.dtree, self.spec, cut)
+
+    def volume_at(self, cut_depth: int | None = None) -> torch.Tensor:
+        """The decoded cut as a float32 volume in [0, 1], cached."""
+        cut = self._cut(cut_depth)
+        if cut not in self._cache:
+            self._cache[cut] = as_normalized_volume(self._decoded(cut))
+        return self._cache[cut]
+
+    def mip8_at(self, cut_depth: int | None = None) -> torch.Tensor:
+        """Per-8³-block maxima of the cut (``tree_occupancy_mip8``), cached."""
+        cut = self._cut(cut_depth)
+        if cut not in self._mip_cache:
+            self._mip_cache[cut] = tree_occupancy_mip8(self.dtree, self.spec, cut)
+        return self._mip_cache[cut]
+
+    def slab_pool_at(self, cut_depth: int | None = None, fmt: str = "pair16"):
+        """(pool, slab_map) of the cut: only the z-slabs the tree's block
+        maxima call occupied stay resident, deduplicated by content.  The
+        dense decode is transient and is not kept.  ``fmt``: "pair16"
+        (``build_slab_pool``, 2 B per pooled voxel) or "narrowf32"
+        (``build_slab_pool_narrow``, 4 B per pooled voxel)."""
+        if fmt not in _POOL_BUILDERS:
+            raise ValueError(f"unknown pool format {fmt!r}; expected one of "
+                             f"{tuple(_POOL_BUILDERS)}")
+        cut = self._cut(cut_depth)
+        key = (cut, fmt)
+        if key not in self._pool_cache:
+            self._pool_cache[key] = _POOL_BUILDERS[fmt](self._decoded(cut),
+                                                        mip8=self.mip8_at(cut))
+        return self._pool_cache[key]
+
+    def render(self, rays, cut_depth: int | None = None, mode: str = "compositing",
+               fast: bool = False, **kwargs):
+        """Render the dense cut: the plain renders, or with ``fast=True``
+        the kernels' entry points (B1, B2 and B3 on a CUDA device)."""
+        return _render(self.volume_at(cut_depth), rays, mode, fast, **kwargs)
+
+    def make_plan(self, rays, cut_depth: int | None = None, mode: str = "compositing",
+                  iso_value: float = 40.0 / 255.0, max_samples: int = MAX_SAMPLES,
+                  pooled: bool = False):
+        """Plan once, render many over this tree's cut: returns a
+        zero-argument callable giving (rgb, alpha) for compositing or (rgb,
+        found) for the isosurface.
+
+        ``pooled=True`` is the compressed-domain render: the resident state
+        is the packed tree and the slab pool, and no dense volume is kept.
+        Compositing marches the pair16 pool (B7), the isosurface the narrow
+        f32 pool (B8, then the pooled shade), as the JAX package's grouped
+        plans choose.  Outputs equal the dense plan's bit for bit.
+        ``pooled=False`` renders the cached dense cut through B1 (B2 and B3)."""
+        X, Y, Z = self.spec["dims"]
+        cut = self._cut(cut_depth)
+        if mode == "compositing":
+            plan = CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
+                                   max_samples)
+            if pooled:
+                pool, smap = self.slab_pool_at(cut, "pair16")
+                return lambda: plan.render_pooled(pool, smap)
+            vol = self.volume_at(cut)
+            return lambda: plan.render(vol)
+        if mode == "isosurface":
+            plan = IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
+                                  max_samples)
+            if pooled:
+                pool, smap = self.slab_pool_at(cut, "narrowf32")
+                return lambda: plan.render_pooled(pool, smap, iso_value)
+            vol = self.volume_at(cut)
+            return lambda: plan.render(vol, iso_value)
+        raise ValueError(f"unknown mode {mode}")

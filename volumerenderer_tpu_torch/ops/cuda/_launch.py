@@ -7,17 +7,19 @@ import ctypes
 
 import torch
 
+from ..sampling import WRAP_MODES
 from . import _build
 
 INT32_MAX = 2**31 - 1
 
 
-def bind(name: str, n_pointers_before: int, n_ints: int, tail):
-    """Build and load ``csrc/<name>.cu`` and declare ``<name>_launch``'s
-    arguments: pointers, then ints, then ``tail`` (ctypes types, ending with
-    the stream).  Returns (launch function, BuiltLibrary)."""
+def bind(name: str, n_pointers_before: int, n_ints: int, tail, entry: str | None = None):
+    """Build and load ``csrc/<name>.cu`` and declare ``<entry>_launch``'s
+    arguments (``entry`` defaults to ``name``): pointers, then ints, then
+    ``tail`` (ctypes types, ending with the stream).  Returns (launch
+    function, BuiltLibrary)."""
     built = _build.load(name)
-    fn = getattr(built.lib, f"{name}_launch")
+    fn = getattr(built.lib, f"{entry or name}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_pointers_before + [ctypes.c_int] * n_ints + list(tail)
     fn.restype = ctypes.c_int
     err = getattr(built.lib, f"{name}_error_string")
@@ -78,3 +80,12 @@ def check_max_samples(max_samples):
     if isinstance(max_samples, bool) or not isinstance(max_samples, int) \
             or not 0 <= max_samples <= INT32_MAX:
         raise ValueError(f"max_samples must be a non-negative int, got {max_samples!r}")
+
+
+def check_clamp(wrap: str, what: str) -> None:
+    """Raise ValueError unless ``wrap`` is "clamp": ``what`` (e.g. "the
+    pooled marches") are clamp-only."""
+    if wrap not in WRAP_MODES:
+        raise ValueError(f"unknown wrap mode: {wrap}")
+    if wrap != "clamp":
+        raise ValueError(f"{what} are clamp-only, got wrap={wrap!r}")

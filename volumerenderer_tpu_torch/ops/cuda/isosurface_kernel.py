@@ -10,9 +10,17 @@ memory.  A plan here is the ray tensors on the device plus the per-step
 increment; ``render`` quantizes the volume to 8 bits once and runs the march
 and then the shade pass on it.
 
+The pooled render (``IsosurfacePlan.render_pooled``) marches a slab pool
+(``raycast_kernel.py::build_slab_pool_narrow`` for B8,
+``build_slab_pool`` for B9) and shades from the same pool.  The JAX package
+shades pooled renders from a second, packed-neighbourhood pool because its
+shade taps overrun the TPU march windows; the GPU kernels have no windows,
+so there is no second pool.
+
 Each wrapper dispatches on where its tensors lie: CUDA tensors launch the
 kernel, CPU tensors run the plain PyTorch version
-(``ops/isosurface.py::iso_march_steps`` and ``::shade_hits``).  There is no
+(``ops/isosurface.py::iso_march_steps`` and ``::shade_hits``, with
+``ops/sampling.py::slab_pool_sampler`` for the pooled ones).  There is no
 fallback from one to the other: a CUDA input the kernel cannot take raises.
 """
 from __future__ import annotations
@@ -26,14 +34,15 @@ import torch
 
 from ..isosurface import MAX_SAMPLES, iso_march_steps, shade_hits
 from ..raycast import step_sizes
-from ..sampling import WRAP_MODES, as_normalized_volume
+from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
-from ._launch import (bind, check_hit, check_image, check_max_samples,
+from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
                       check_tensors, check_volume, launch)
-from .raycast_kernel import quantize_u8
+from .raycast_kernel import pool_dims, quantize_u8
 
-__all__ = ["iso_march_cuda", "iso_shade_cuda", "IsosurfacePlan", "render_isosurface_kernel",
-           "volume_median", "load_kernels"]
+__all__ = ["iso_march_cuda", "iso_shade_cuda", "iso_march_pooled_narrow_cuda",
+           "iso_march_pooled_pair16_cuda", "iso_shade_pooled_cuda", "IsosurfacePlan",
+           "render_isosurface_kernel", "volume_median", "load_kernels"]
 
 
 @functools.cache
@@ -46,6 +55,22 @@ def _march_launcher():
 def _shade_launcher():
     # entry_uv, dir_step, direction, found, t_hit, vol; H, W, X, Y, Z, repeat; iso; rgb, stream
     return bind("iso_shade", 6, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2)
+
+
+@functools.cache
+def _pooled_march_launcher(fmt: str):
+    # entry_uv, dir_step, hit, pool, slab_map; H, W, X, Y, Z, n_slots,
+    # max_samples; iso; found, t_hit, stream
+    return bind("iso_march", 5, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3,
+                entry=f"iso_march_pooled_{fmt}")
+
+
+@functools.cache
+def _pooled_shade_launcher(fmt: str):
+    # entry_uv, dir_step, direction, found, t_hit, pool, slab_map; H, W, X, Y,
+    # Z, n_slots; iso; rgb, stream
+    return bind("iso_shade", 7, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2,
+                entry=f"iso_shade_pooled_{fmt}")
 
 
 def load_kernels() -> dict[str, _build.BuiltLibrary]:
@@ -151,6 +176,105 @@ def iso_shade_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
 iso_shade_cuda.launches = 0
 
 
+def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso,
+                      max_samples, wrap):
+    tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv,
+               "dir_step": dir_step, "hit": hit}
+    check_tensors(tensors, "pool")
+    dims = pool_dims(pool, slab_map, fmt)
+    check_hit(hit)
+    check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
+    check_max_samples(max_samples)
+    _check_scalars(iso, wrap)
+    check_clamp(wrap, "the pooled marches")
+    if pool.device.type == "cpu":
+        return iso_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv, dir_step,
+                               hit.to(torch.bool), iso, max_samples)
+    H, W = hit.shape
+    X, Y, Z = dims
+    found = torch.empty((H, W), dtype=torch.uint8, device=pool.device)
+    t_hit = torch.empty((H, W), dtype=torch.int32, device=pool.device)
+    if H * W == 0:
+        return found.view(torch.bool), t_hit
+    launch(lambda: _pooled_march_launcher(fmt), "iso_march", pool.device,
+           entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), pool.data_ptr(),
+           slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), max_samples, float(iso),
+           found.data_ptr(), t_hit.data_ptr())
+    wrapper.launches += 1
+    return found.view(torch.bool), t_hit
+
+
+def iso_march_pooled_narrow_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
+                                 entry_uv: torch.Tensor, dir_step: torch.Tensor,
+                                 hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
+                                 wrap: str = "clamp"):
+    """B8: :func:`iso_march_cuda`'s march, sampling the narrow f32 slab pool
+    (``build_slab_pool_narrow``) through its slab map.  Equal bit for bit to
+    the dense march on the volume the pool was built from.  ``wrap`` must be
+    "clamp".  Returns (found (H, W) bool, t_hit (H, W) int32).  CUDA tensors
+    run the kernel and add one to ``iso_march_pooled_narrow_cuda.launches``;
+    CPU tensors run the plain version."""
+    return _iso_march_pooled(iso_march_pooled_narrow_cuda, "narrow", pool, slab_map, entry_uv,
+                             dir_step, hit, iso, max_samples, wrap)
+
+
+iso_march_pooled_narrow_cuda.launches = 0
+
+
+def iso_march_pooled_pair16_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
+                                 entry_uv: torch.Tensor, dir_step: torch.Tensor,
+                                 hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
+                                 wrap: str = "clamp"):
+    """B9: as :func:`iso_march_pooled_narrow_cuda`, on the pair16 pool
+    (``build_slab_pool``); adds one to ``iso_march_pooled_pair16_cuda.launches``
+    per kernel launch."""
+    return _iso_march_pooled(iso_march_pooled_pair16_cuda, "pair16", pool, slab_map, entry_uv,
+                             dir_step, hit, iso, max_samples, wrap)
+
+
+iso_march_pooled_pair16_cuda.launches = 0
+
+
+def iso_shade_pooled_cuda(pool: torch.Tensor, slab_map: torch.Tensor, entry_uv: torch.Tensor,
+                          dir_step: torch.Tensor, direction: torch.Tensor, found: torch.Tensor,
+                          t_hit: torch.Tensor, iso: float, wrap: str = "clamp"):
+    """:func:`iso_shade_cuda`'s shade pass, sampling a slab pool of either
+    format (the pool the pooled march read) through its slab map.  Equal
+    bit for bit to the dense shade on the volume the pool was built from.
+    ``wrap`` must be "clamp".  CUDA tensors run the kernel and add one to
+    ``iso_shade_pooled_cuda.launches``; CPU tensors run the plain version."""
+    tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv, "dir_step": dir_step,
+               "direction": direction, "found": found, "t_hit": t_hit}
+    check_tensors(tensors, "pool")
+    dims = pool_dims(pool, slab_map)
+    if found.dtype != torch.bool or found.dim() != 2:
+        raise ValueError(f"found must be an (H, W) bool tensor, got "
+                         f"{tuple(found.shape)} {found.dtype}")
+    check_image(tensors, found.shape, torch.int32, ("t_hit",))
+    check_image(tensors, found.shape, torch.float32, ("entry_uv", "dir_step", "direction"),
+                (3,))
+    _check_scalars(iso, wrap)
+    check_clamp(wrap, "the pooled marches")
+    if pool.device.type == "cpu":
+        return shade_hits(slab_pool_sampler(pool, slab_map, dims), entry_uv, dir_step,
+                          direction, found, t_hit, iso)
+    H, W = found.shape
+    X, Y, Z = dims
+    rgb = torch.empty((H, W, 3), dtype=torch.float32, device=pool.device)
+    if H * W == 0:
+        return rgb
+    fmt = "pair16" if pool.dtype == torch.int32 else "narrow"
+    launch(lambda: _pooled_shade_launcher(fmt), "iso_shade", pool.device,
+           entry_uv.data_ptr(), dir_step.data_ptr(), direction.data_ptr(),
+           found.view(torch.uint8).data_ptr(), t_hit.data_ptr(), pool.data_ptr(),
+           slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), float(iso), rgb.data_ptr())
+    iso_shade_pooled_cuda.launches += 1
+    return rgb
+
+
+iso_shade_pooled_cuda.launches = 0
+
+
 def volume_median(volume: torch.Tensor) -> float:
     """The median of all samples, the mean of the two middle ones for an even
     count (as ``np.median`` and ``jnp.median`` take it; ``torch.median``
@@ -200,6 +324,27 @@ class IsosurfacePlan:
                                       iso_value, self.max_samples, self.wrap)
         rgb = iso_shade_cuda(vol_u8, self.entry_uv, self.dir_step, self.direction, found, t_hit,
                              iso_value, self.wrap)
+        return rgb, found
+
+    def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
+                      iso_value: float = 40.0 / 255.0):
+        """Compressed-domain isosurface render from a slab pool on the
+        plan's device: B8 marches a float32 narrow pool
+        (``build_slab_pool_narrow``), B9 an int32 pair16 pool
+        (``build_slab_pool``), and the pooled shade reads the same pool.
+        Equal bit for bit to :meth:`render` of the volume the pool was built
+        from.  Clamp-only: a plan with ``wrap="repeat"`` raises.  Returns
+        (rgb (H, W, 3), found (H, W) bool)."""
+        dims = pool_dims(pool, slab_map)
+        if dims != self.dims:
+            raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's is "
+                             f"{self.dims}")
+        march = (iso_march_pooled_pair16_cuda if pool.dtype == torch.int32
+                 else iso_march_pooled_narrow_cuda)
+        found, t_hit = march(pool, slab_map, self.entry_uv, self.dir_step, self.hit, iso_value,
+                             self.max_samples, self.wrap)
+        rgb = iso_shade_pooled_cuda(pool, slab_map, self.entry_uv, self.dir_step,
+                                    self.direction, found, t_hit, iso_value, self.wrap)
         return rgb, found
 
 

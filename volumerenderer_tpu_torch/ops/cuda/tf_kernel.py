@@ -25,8 +25,8 @@ from ...diff.closed_form import (cotangent_images, tf_march_steps, tf_param_grad
                                  tf_scalars as _tf_scalars)
 from ...diff.transfer import TFParams
 from ..raycast import MAX_SAMPLES
-from ..sampling import WRAP_MODES, as_normalized_volume
-from . import _build
+from ..sampling import as_normalized_volume
+from . import _build, _launch
 from ._launch import (bind, check_hit, check_image, check_max_samples, check_tensors,
                       check_volume, launch)
 from .raycast_kernel import CompositingPlan, quantize_u8
@@ -48,10 +48,7 @@ def load_kernel() -> _build.BuiltLibrary:
 
 def check_clamp(wrap: str) -> None:
     """The gradient kernels and their plain versions are clamp-only."""
-    if wrap not in WRAP_MODES:
-        raise ValueError(f"unknown wrap mode: {wrap}")
-    if wrap != "clamp":
-        raise ValueError(f"the TF and voxel-gradient marches are clamp-only, got wrap={wrap!r}")
+    _launch.check_clamp(wrap, "the TF and voxel-gradient marches")
 
 
 def check_march_inputs(tensors: dict, max_samples, wrap) -> None:

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .raycast import step_sizes
-from .sampling import sample_trilinear
+from .sampling import as_sampler
 
 __all__ = ["render_isosurface", "iso_march_steps", "shade_hits", "bisection_refine",
            "gradient_normal", "phong", "MAX_SAMPLES", "DELTA", "SPEC_POWER", "DIFFUSE"]
@@ -64,23 +64,25 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 
 def bisection_refine(volume, left, right, iso, wrap: str = "clamp"):
-    """4-iteration bisection between ``left`` and ``right`` (``isosurface.frag:23-42``)."""
+    """4-iteration bisection between ``left`` and ``right`` (``isosurface.frag:23-42``).
+    ``volume`` is a volume tensor or a sampler (``ops/sampling.py::as_sampler``)."""
     iso = _f32(iso, left.device)
+    sample = as_sampler(volume, wrap)
     for _ in range(4):
         mid = (right + left) * 0.5
-        go_left = (sample_trilinear(volume, mid, wrap=wrap) < iso)[..., None]
+        go_left = (sample(mid) < iso)[..., None]
         left = torch.where(go_left, mid, left)
         right = torch.where(go_left, right, mid)
     return (right + left) * 0.5
 
 
 def gradient_normal(volume, uvw, wrap: str = "clamp"):
-    """Central-difference normal, ``normalize((s1 - s2) / 2)`` (``isosurface.frag:47-62``)."""
+    """Central-difference normal, ``normalize((s1 - s2) / 2)`` (``isosurface.frag:47-62``).
+    ``volume`` is a volume tensor or a sampler (``ops/sampling.py::as_sampler``)."""
     offsets = torch.eye(3, dtype=torch.float32, device=uvw.device) * DELTA
-    s1 = torch.stack([sample_trilinear(volume, uvw - offsets[i], wrap=wrap) for i in range(3)],
-                     dim=-1)
-    s2 = torch.stack([sample_trilinear(volume, uvw + offsets[i], wrap=wrap) for i in range(3)],
-                     dim=-1)
+    sample = as_sampler(volume, wrap)
+    s1 = torch.stack([sample(uvw - offsets[i]) for i in range(3)], dim=-1)
+    s2 = torch.stack([sample(uvw + offsets[i]) for i in range(3)], dim=-1)
     g = (s1 - s2) / 2.0
     norm = _norm(g)[..., None]
     return g / torch.where(norm > 0, norm, torch.ones_like(norm))
@@ -100,7 +102,8 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
                     hit: torch.Tensor, iso, max_samples: int = MAX_SAMPLES,
                     wrap: str = "clamp"):
     """March rays through ``volume`` (Z, Y, X float32 in [0,1]) to the first
-    upward crossing of ``iso``.
+    upward crossing of ``iso``.  ``volume`` may also be a sampler
+    (``ops/sampling.py::as_sampler``); ``wrap`` then does not apply.
 
     Args:
       entry_uv: (..., 3) cube entry points in texture space.
@@ -116,6 +119,7 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
     found = torch.zeros(shape, dtype=torch.bool, device=entry_uv.device)
     t_hit = torch.full(shape, -1, dtype=torch.int32, device=entry_uv.device)
     alive = hit.to(torch.bool)
+    sample = as_sampler(volume, wrap)
     pos = entry_uv
     s = None
     for i in range(1, max_samples + 1):
@@ -124,9 +128,9 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
         pos = pos + dir_step
         alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
         if s is None:
-            s = sample_trilinear(volume, pos, wrap=wrap)
+            s = sample(pos)
         # the lookahead is the next step's sample: pos_{i+1} = pos_i + dir_step
-        s2 = sample_trilinear(volume, pos + dir_step, wrap=wrap)
+        s2 = sample(pos + dir_step)
         crossing = alive & ((s - iso) < 0.0) & ((s2 - iso) >= 0.0)
         t_hit = torch.where(crossing, i - 1, t_hit)
         found = found | crossing
@@ -142,7 +146,9 @@ def shade_hits(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Ten
     ``[near, near + dir_step]`` with ``near`` = ``t_hit + 1`` additions of
     ``dir_step`` to ``entry_uv``, the central-difference normal and the
     headlight Phong term with ``V = -direction``, clipped to [0, 1].  Returns
-    (..., 3) rgb; rays without ``found`` are white."""
+    (..., 3) rgb; rays without ``found`` are white.  ``volume`` is a volume
+    tensor or a sampler (``ops/sampling.py::as_sampler``), as JAX's
+    ``_shade_impl`` is generic in its sampler."""
     found = found.to(torch.bool)
     n_add = torch.where(found, t_hit.to(torch.int64) + 1, 0)
     near = entry_uv

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .sampling import sample_trilinear
+from .sampling import as_sampler
 
 __all__ = ["composite_march", "composite_march_early_exit", "composite_march_steps",
            "apply_reference_transfer", "render_compositing", "step_sizes",
@@ -42,6 +42,10 @@ def composite_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step
                           wrap: str = "clamp", early_exit: bool = True):
     """March rays through ``volume`` (Z, Y, X float32 in [0,1]) by ``dir_step``.
 
+    ``volume`` may also be a sampler (``ops/sampling.py::as_sampler``), e.g.
+    ``slab_pool_sampler`` for the pooled march's plain version; ``wrap``
+    then does not apply.
+
     Args:
       entry_uv: (..., 3) cube entry points in texture space.
       dir_step: (..., 3) per-step position increment (direction / dims).
@@ -57,13 +61,14 @@ def composite_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step
     color = torch.zeros(shape, dtype=torch.float32, device=entry_uv.device)
     alpha = torch.zeros(shape, dtype=torch.float32, device=entry_uv.device)
     alive = hit.to(torch.bool)
+    sample = as_sampler(volume, wrap)
     for _ in range(max_samples):
         if early_exit and not bool(alive.any()):
             break
         pos = pos + dir_step
         inside = ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
         alive = alive & inside
-        s = sample_trilinear(volume, pos, wrap=wrap)
+        s = sample(pos)
         prev_alpha = s - s * alpha
         color = torch.where(alive, color + prev_alpha * s, color)
         alpha = torch.where(alive, alpha + prev_alpha * ALPHA_SCALE, alpha)

@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sample_trilinear", "trilinear_scatter_add_", "as_normalized_volume", "WRAP_MODES"]
+__all__ = ["sample_trilinear", "sample_trilinear_slab_pool", "slab_pool_sampler", "as_sampler",
+           "trilinear_scatter_add_", "as_normalized_volume", "WRAP_MODES"]
 
 WRAP_MODES = ("clamp", "repeat")
 
@@ -84,6 +85,89 @@ def sample_trilinear(volume: torch.Tensor, uvw: torch.Tensor, wrap: str = "clamp
     c0 = c00 + (c10 - c00) * fy
     c1 = c01 + (c11 - c01) * fy
     return c0 + (c1 - c0) * fz
+
+
+def as_sampler(volume, wrap: str = "clamp"):
+    """The marches' sampler: a callable ``uvw (..., 3) -> samples (...)``.
+    A (Z, Y, X) float32 volume tensor becomes :func:`sample_trilinear` on it
+    with ``wrap``; a callable (e.g. :func:`slab_pool_sampler`) is returned
+    as it is and samples by its own rules."""
+    if isinstance(volume, torch.Tensor):
+        if wrap not in WRAP_MODES:
+            raise ValueError(f"unknown wrap mode: {wrap}")
+        return lambda uvw: sample_trilinear(volume, uvw, wrap=wrap)
+    if not callable(volume):
+        raise TypeError(f"expected a volume tensor or a sampler, got {type(volume).__name__}")
+    return volume
+
+
+def sample_trilinear_slab_pool(pool: torch.Tensor, slab_map: torch.Tensor, dims,
+                               uvw: torch.Tensor) -> torch.Tensor:
+    """Clamp-mode :func:`sample_trilinear` of the 8-bit volume a slab pool
+    (``ops/cuda/raycast_kernel.py::build_slab_pool`` or
+    ``build_slab_pool_narrow``) was built from, fetched from the pool.
+
+    Bit for bit what ``sample_trilinear(as_normalized_volume(vol_u8), uvw,
+    "clamp")`` returns: the same index math, taps ``byte * (1/255)`` and the
+    same lerps; only the fetch differs.  z-block ``b = z0 >> 3`` reads slot
+    ``slab_map[0, b]``, whose 16 rows start at z = 8b, so the rows of both z
+    taps are ``z - 8b <= 8``.  A pair holds ``s[x]`` (high byte) and
+    ``s[x + 1]`` (low byte, the last x edge-clamped); where the x index
+    ``i0x`` is below 0 both x taps clamp to 0, and the high byte serves both.
+    ``dims`` is (X, Y, Z).  The pool is (n_slots, 16, Y, X // 2) int32
+    pair16 words (two pairs per word, x even in the low half) or
+    (n_slots, 16, Y, X) float32 pair values ``s[x]*256 + s[x+1]``.
+    """
+    X, Y, Z = (int(d) for d in dims)
+    fdims = torch.tensor([X, Y, Z], dtype=torch.float32, device=uvw.device)
+    t = uvw * fdims - 0.5
+    i0f = torch.floor(t)
+    frac = t - i0f
+    i0 = i0f.to(torch.int64)
+    ix = i0[..., 0]
+    x0 = torch.clamp(ix, 0, X - 1)
+    y0 = torch.clamp(i0[..., 1], 0, Y - 1)
+    y1 = torch.clamp(i0[..., 1] + 1, 0, Y - 1)
+    z0 = torch.clamp(i0[..., 2], 0, Z - 1)
+    z1 = torch.clamp(i0[..., 2] + 1, 0, Z - 1)
+    block = z0 >> 3
+    slot = slab_map.reshape(-1).to(torch.int64)[block]
+    base0 = (slot * 16 + (z0 - 8 * block)) * Y
+    base1 = (slot * 16 + (z1 - 8 * block)) * Y
+    flat = pool.reshape(-1)
+    low_edge = ix < 0
+
+    def taps(row):  # (s[x0], s[x1]) of one (z, y) row
+        if pool.dtype == torch.int32:
+            word = flat[row * (X // 2) + (x0 >> 1)]
+            p16 = torch.where((x0 & 1) == 1, (word >> 16) & 0xFFFF, word & 0xFFFF)
+        else:
+            p16 = flat[row * X + x0].to(torch.int32)
+        c0 = (p16 >> 8).to(torch.float32) * (1.0 / 255.0)
+        c1 = (p16 & 255).to(torch.float32) * (1.0 / 255.0)
+        return c0, torch.where(low_edge, c0, c1)
+
+    c000, c100 = taps(base0 + y0)
+    c010, c110 = taps(base0 + y1)
+    c001, c101 = taps(base1 + y0)
+    c011, c111 = taps(base1 + y1)
+
+    fx = frac[..., 0]
+    fy = frac[..., 1]
+    fz = frac[..., 2]
+    c00 = c000 + (c100 - c000) * fx
+    c10 = c010 + (c110 - c010) * fx
+    c01 = c001 + (c101 - c001) * fx
+    c11 = c011 + (c111 - c011) * fx
+    c0 = c00 + (c10 - c00) * fy
+    c1 = c01 + (c11 - c01) * fy
+    return c0 + (c1 - c0) * fz
+
+
+def slab_pool_sampler(pool: torch.Tensor, slab_map: torch.Tensor, dims):
+    """:func:`sample_trilinear_slab_pool` on one pool, as a sampler for the
+    marches (``ops/raycast.py``, ``ops/isosurface.py``)."""
+    return lambda uvw: sample_trilinear_slab_pool(pool, slab_map, dims, uvw)
 
 
 def trilinear_scatter_add_(grad: torch.Tensor, uvw: torch.Tensor, g: torch.Tensor) -> None:
