@@ -23,7 +23,15 @@ calls:
   the card, one chunked level-cut decode, the sparse slab pools, and the
   pooled marches (B7 compositing; B8 and the pooled shade for the
   isosurface), plus ``render_pooled`` on the dense turbulence's pools for
-  the pooled metrics (B6, B7, B8, B9).
+  the pooled metrics (B6, B7, B8, B9);
+* the sharded layouts, over the same orbit, the shards spread round-robin
+  over the host's cards: ``make_z_mesh(4)`` / ``make_brick_mesh((2, 2, 1))``
+  -> ``shard_volume`` -> ``render_zsharded_kernel`` /
+  ``render_bricksharded_kernel`` per frame (the segment march
+  ``csrc/seg_march.cu`` B10 once per shard), ``tf_fit_step_bricksharded``
+  x 5 (B11 once per brick), and the row-sharded ``render_planned_sharded``,
+  ``tf_fit_step_kernel`` and ``voxel_fit_step_kernel`` on ``make_mesh(4)``
+  (B1, B4 and B5 once per row shard).
 
 On the way it builds the kernels from ``volumerenderer_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -37,7 +45,9 @@ kernel_timing, layers, launch_count, then iso_goldens, iso_parity,
 iso_main_path, iso_timing, iso_layers, iso_launch_count, then tf_parity,
 vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
 grad_launch_count, then codec, decode, pools, pooled_parity,
-pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count).
+pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
+then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
+sharded_timing, sharded_layers, sharded_launch_count).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
 kernels line's ``max_abs_err`` is over the parity cases, kernel against
@@ -104,6 +114,27 @@ POOLED_REPLACES = {
     # B3's body on the pool; the JAX pooled render shades in jnp
     # (isosurface_kernel.py:1242, _shade_pooled)
     "iso_shade_pooled": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:1501"}
+# the volume-sharded layouts: z-slabs (n = 4) and (bz, by, bx) = (2, 2, 1) bricks
+SEG_SOURCE = "volumerenderer_tpu_torch/csrc/seg_march.cu"
+SEG_REPLACES = {"seg_march": "volumerenderer_tpu/ops/pallas/seg_kernel.py:235",
+                "seg_tf_march": "volumerenderer_tpu/ops/pallas/seg_kernel.py:469"}
+Z_SHARDS, BRICKS = 4, (2, 2, 1)
+NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
+
+# The bound of a launch: the larger of its bytes (each input read once, each
+# output written once) over the card's memory rate and its float32
+# operations over the peak rate outside the tensor cores (NVIDIA's H100 SXM
+# data sheet, at 700 W).  Operations per step, from each kernel's arithmetic:
+# a trilinear sample 41 (texel coordinates 6, floors 3, fractions 3, byte
+# scales 8, seven lerps 21); a position step 3; compositing 6; the TF sums
+# 16 more; the iso crossing test and lookahead step 5; the segment anchor
+# test 6; the voxel gradient's replayed step, cotangent, tap weights and 8
+# atomic adds 94 in all; the shade 3 per rebuilt step and per hit 4
+# bisections (47), 6 normal taps (44) and 60 for the Phong terms.
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+OPS_PER_STEP = {"composite": 50, "tf": 66, "voxel_grad": 94, "iso": 49, "seg_walk": 9,
+                "seg_owned": 47, "seg_tf_owned": 63}
+SHADE_OPS_PER_HIT, SHADE_OPS_PER_STEP = 4 * 47 + 6 * 44 + 60, 3
 
 
 def emit(obj) -> None:
@@ -168,6 +199,71 @@ def time_ms(fn, reps: int = REPS) -> float:
     return best
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, samples: float, rays: int) -> dict:
+    """The kernels line's bound of one launch moving ``n_bytes`` and doing
+    ``ops`` float32 operations over ``samples`` samples; no single PyTorch
+    call computes a ray march, so there is no library time."""
+    b_ms, o_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None, "bytes": n_bytes, "ops": ops, "samples_per_ray": samples / rays}
+
+
+def composite_samples(plan, vol_plain, K: float = 0.6) -> torch.Tensor:
+    """Per-ray samples of the compositing march with its a > 0.99 early-out
+    (B1; B4 and B5 at alpha scale ``K``), counted by its plain arithmetic."""
+    from volumerenderer_tpu_torch.ops.sampling import sample_trilinear
+
+    pos, alive = plan.entry_uv, plan.hit.bool()
+    alpha = torch.zeros(plan.shape, device=pos.device)
+    n = torch.zeros_like(alpha)
+    for _ in range(plan.max_samples):
+        if not bool(alive.any()):
+            break
+        pos = pos + plan.dir_step
+        alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
+        s = sample_trilinear(vol_plain, pos)
+        alpha = torch.where(alive, alpha + (s - s * alpha) * K, alpha)
+        n = n + alive
+        alive = alive & (alpha <= 0.99)
+    return n
+
+
+def march_steps(plan, boxes=None):
+    """Per-ray steps inside the cube, up to max_samples; with ``boxes``
+    ((N, 4) owned boxes z_lo, z_hi, y_lo, y_hi) the segment march's
+    (walked, owned) steps per box, (N, H, W) each: a ray walks until it
+    leaves the cube or its owned interval ends."""
+    from volumerenderer_tpu_torch.ops.raycast import shard_owned
+
+    pos, alive = plan.entry_uv, plan.hit.bool()
+    n = torch.zeros(plan.shape, device=pos.device)
+    if boxes is not None:
+        b = torch.tensor(boxes, dtype=torch.float32, device=pos.device)[:, :, None, None]
+        walking = alive.expand(len(boxes), *plan.shape).clone()
+        was = torch.zeros_like(walking)
+        walked = torch.zeros(walking.shape, device=pos.device)
+        owned = torch.zeros_like(walked)
+    for _ in range(plan.max_samples):
+        if not bool(alive.any()):
+            break
+        pos = pos + plan.dir_step
+        alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
+        n = n + alive
+        if boxes is not None:
+            own = shard_owned(pos, plan.dims, b.unbind(1))
+            walking = walking & alive
+            walked = walked + walking
+            own = own & walking
+            owned = owned + own
+            walking = walking & ~(was & ~own)
+            was = was | own
+    return n if boxes is None else (walked, owned)
+
+
 def sweep_seconds(fn) -> float:
     """Min over REPS of one call of ``fn`` after a warm call, in seconds
     (host clock; ``fn`` ends in a host read of a device sum)."""
@@ -179,6 +275,37 @@ def sweep_seconds(fn) -> float:
         fn()
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+def device_profile(fn, top: int = 6) -> dict:
+    """One call of ``fn`` (after a warm call) under torch.profiler: the
+    device time of its ``top`` most costly kernels and copies by name, their
+    total, the host wall time and the device's idle share of it (1 - device
+    time / wall; the profiler's own host cost is inside the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:  # host ops: their kernels are listed apart
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    device_ms = sum(by_name.values())
+    worst = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ms": device_ms, "wall_ms": wall_ms,
+            "idle_share": 1.0 - device_ms / wall_ms if wall_ms > 0 else None,
+            "top_device_ms": {k[:60]: v for k, v in worst}}
 
 
 def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
@@ -323,14 +450,34 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
         raise AssertionError(f"isosurface kernels launched {launches} times for {renders} "
                              f"renders")
     emit({"phase": "iso_launch_count", **launches, "renders": renders})
+
+    # the bounds, per launch over the orbit: a hit samples at steps 0..t_hit
+    # and once before, a miss once per step inside the cube and once before
+    samples, shade_ops = 0.0, 0.0
+    io = {"iso_march": 0, "iso_shade": 0}
+    for p, (f, t) in zip(plans, hits):
+        found = f.bool()
+        steps = torch.where(found, t.float() + 2.0, march_steps(p) + 1.0) * p.hit
+        samples += float(steps.sum())
+        shade_ops += float((SHADE_OPS_PER_STEP * (t.float() + 2.0) + SHADE_OPS_PER_HIT)[found].sum())
+        io["iso_march"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.hit, f, t)
+        io["iso_shade"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.direction, f, t) + 12 * W * H
+    bounds = {"iso_march": bound(io["iso_march"] / N_FRAMES,
+                                 OPS_PER_STEP["iso"] * samples / N_FRAMES, samples / N_FRAMES,
+                                 W * H),
+              "iso_shade": bound(io["iso_shade"] / N_FRAMES, shade_ops / N_FRAMES,
+                                 10.0 * sum(float(f.sum()) for f, _ in hits) / N_FRAMES, W * H)}
     return [{"name": name, "route": "cuda", "source": ISO_SOURCES[name],
              "replaces": ISO_REPLACES[name], "launches": launches[name],
-             "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name]}
+             "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
+             **bounds[name]}
             for name in ("iso_march", "iso_shade")]
 
 
-def run_gradients(dev, smi: str, turb, sphere, cameras, bundles) -> list:
-    """The gradient phases; returns the kernels line's two entries."""
+def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float) -> list:
+    """The gradient phases; returns the kernels line's two entries.
+    ``samples`` is B1's per launch over the orbit: at reference params B4
+    and B5 take the same steps."""
     from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
     from volumerenderer_tpu_torch.diff import closed_form as CF
     from volumerenderer_tpu_torch.diff.vjp import render_tf_o1
@@ -609,14 +756,22 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles) -> list:
             or not runs["forwards"] or not runs["backwards"]:
         raise AssertionError(f"gradient kernels launched {launches} times for {runs}")
     emit({"phase": "grad_launch_count", **launches, **runs})
+    rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
+    bounds = {"tf_march": bound(nbytes(turb_u8, tf) + rays_io + 7 * 4 * W * H,
+                                OPS_PER_STEP["tf"] * samples, samples, W * H),
+              "voxel_grad": bound(nbytes(turb_u8, tf, *cots[0]) + rays_io + 4 * turb.numel(),
+                                  OPS_PER_STEP["voxel_grad"] * samples, samples, W * H)}
     return [{"name": name, "route": "cuda", "source": GRAD_SOURCES[name],
              "replaces": GRAD_REPLACES[name], "launches": launches[name],
-             "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name]}
+             "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
+             **bounds[name]}
             for name in ("tf_march", "voxel_grad")]
 
 
-def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense_ms: dict) -> list:
-    """The compressed-domain phases; returns the kernels line's five entries."""
+def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -> list:
+    """The compressed-domain phases; returns the kernels line's five entries.
+    ``dense`` holds the kernels line's entries of B1, B2 and B3: each pooled
+    kernel's output, and so its samples, are its dense kernel's."""
     from volumerenderer_tpu_torch import Camera, generate_rays
     from volumerenderer_tpu_torch.codecs import device as CD
     from volumerenderer_tpu_torch.codecs import kdtree as KT
@@ -683,10 +838,10 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense_ms: dict
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
             pools[name, fmt] = (pool, smap)
-            nbytes = pool.numel() * pool.element_size() + smap.numel() * smap.element_size()
+            pool_bytes = nbytes(pool, smap)
             line[fmt] = {"slots": int(pool.shape[0]), "occupied_slabs": int((smap > 0).sum()),
-                         "bytes": nbytes, "build_ms": ms,
-                         "resident_vs_dense_u8": (tree_bytes + nbytes) / vol.numel()}
+                         "bytes": pool_bytes, "build_ms": ms,
+                         "resident_vs_dense_u8": (tree_bytes + pool_bytes) / vol.numel()}
         emit({**line, "gpu": smi})
 
     # 4. every pooled kernel vs its plain version (the pool sampler through
@@ -884,15 +1039,337 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense_ms: dict
     emit({"phase": "pooled_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
           "frames": N_FRAMES, "plain_frames": [0, N_FRAMES - 1],
           "kernel_ms_per_launch": ms, "plain_ms_per_launch": plain_ms,
-          "dense_kernel_ms_per_launch": dense_ms, "gpu": smi})
+          "dense_kernel_ms_per_launch": {n: e["ms"] for n, e in dense.items()}, "gpu": smi})
 
     launches = {n: main_launches[n] + comp_launches[n] for n in names}
     emit({"phase": "pooled_launch_count", "pooled_main_path": main_launches,
           "compressed_main_path": comp_launches, "renders": {
               n: renders[n] + comp_renders[n] for n in names}})
+    # the bounds: the pool and map in place of the volume, the dense kernels'
+    # samples and operations
+    pool_io = {fmt: nbytes(*pools["turbulence", fmt]) for fmt in ("narrow", "pair16")}
+    rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in iplans) / N_FRAMES
+    comp, iso, shade = dense["composite_march"], dense["iso_march"], dense["iso_shade"]
+    hit_io = sum(nbytes(f, t) for f, t in hits) / N_FRAMES
+
+    def like(entry, n_bytes):
+        return bound(n_bytes, entry["ops"], entry["samples_per_ray"] * W * H, W * H)
+
+    bounds = {f"composite_march_pooled_{fmt}": like(comp, pool_io[fmt] + rays_io + 8 * W * H)
+              for fmt in pool_io}
+    bounds.update({f"iso_march_pooled_{fmt}": like(iso, pool_io[fmt] + rays_io + hit_io)
+                   for fmt in pool_io})
+    shade_io = sum(nbytes(p.entry_uv, p.dir_step, p.direction) for p in iplans) / N_FRAMES
+    bounds["iso_shade_pooled"] = like(shade, pool_io["narrow"] + shade_io + hit_io + 12 * W * H)
     return [{"name": n, "route": "cuda", "source": POOLED_SOURCES[n],
              "replaces": POOLED_REPLACES[n], "launches": launches[n], "max_abs_err": err[n],
-             "ms": ms[n], "plain_ms": plain_ms[n]} for n in names]
+             "ms": ms[n], "plain_ms": plain_ms[n], **bounds[n]} for n in names]
+
+
+def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
+    """The volume-sharded phases; returns the kernels line's two entries."""
+    from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
+    from volumerenderer_tpu_torch.diff.closed_form import seg_tf_march_steps, tf_scalars
+    from volumerenderer_tpu_torch.models import plan_compositing
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK
+    from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
+    from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
+    from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import quantize_u8
+    from volumerenderer_tpu_torch.ops.raycast import (ALPHA_SCALE, EARLY_OUT_ALPHA,
+                                                      apply_reference_transfer, seg_march_steps)
+    from volumerenderer_tpu_torch.ops.sampling import shard_sampler
+    from volumerenderer_tpu_torch.parallel import bricks as PB
+    from volumerenderer_tpu_torch.parallel import context as PC
+    from volumerenderer_tpu_torch.parallel import kernel_sharded as KS
+    from volumerenderer_tpu_torch.parallel import sharding as PS
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    # the layouts over the host's cards (round-robin: all four shards share
+    # the card of a one-card host), each volume split once
+    meshes = {"z4": PC.make_z_mesh(Z_SHARDS), "bricks221": PB.make_brick_mesh(BRICKS)}
+    render = {"z4": KS.render_zsharded_kernel, "bricks221": KS.render_bricksharded_kernel}
+    volumes = {name: PB.shard_volume(mesh, turb) for name, mesh in meshes.items()}
+    shard_devices = {name: [str(b.device) for b in sv.bricks.flat] for name, sv in volumes.items()}
+    non_reference = TFParams(*(f32(v) for v in NON_REFERENCE_TF))
+    tf = tf_scalars(non_reference)
+
+    def box(kw):
+        return kw["z_lo"], kw["z_lo"] + kw["n_z"], kw["y_lo"], kw["y_lo"] + kw["n_y"]
+
+    def rays_on(plan, device):
+        return [t.to(device) for t in (plan.entry_uv, plan.dir_step, plan.hit)]
+
+    def plain(slab, plan, kw, tf_scalars=None):
+        e, d, h = rays_on(plan, slab.device)
+        sample = shard_sampler(as_normalized_volume(slab), kw["dims"], kw["z_lo"], kw["y_lo"])
+        if tf_scalars is None:
+            return seg_march_steps(sample, e, d, h.bool(), kw["dims"], box(kw), kw["max_samples"])
+        return seg_tf_march_steps(sample, e, d, h.bool(), tf_scalars.to(slab.device), kw["dims"],
+                                  box(kw), kw["max_samples"])
+
+    # 1. every shard's B10 and B11 against their plain versions on the same
+    # inputs, both layouts: orbit frames 0 and 15 and the sphere; B11 at
+    # non-reference params, its five sums at B4's bar
+    err = {"seg_march": 0.0, "seg_tf_march": 0.0}
+    allowed = KNIFE_PER_MPX * W * H / 2**20
+    for case, v, cam in (("orbit_frame0", turb, cameras[0]),
+                         ("orbit_frame15", turb, cameras[-1]),
+                         ("entry_sphere", sphere, Camera(width=W, height=H))):
+        rays = generate_rays(cam, device=dev)
+        plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, VOLUME[::-1])
+        for layout, mesh in meshes.items():
+            for shard, (slab, kw) in enumerate(KS.seg_shards(mesh, plan, v)):
+                k = SK.seg_march_cuda(slab, *rays_on(plan, slab.device), **kw)
+                p = plain(slab, plan, kw)
+                kt = SK.seg_tf_march_cuda(slab, *rays_on(plan, slab.device), tf.to(slab.device),
+                                          **kw)
+                pt = plain(slab, plan, kw, tf)
+                torch.cuda.synchronize()
+                res = compare(k[:2], p[:2], W * H)
+                res_tf = compare(kt[:2], pt[:2], W * H)
+                rel = torch.stack([(a - b).abs() / torch.clamp(b.abs(), min=1.0)
+                                   for a, b in zip(kt[3:], pt[3:])]).amax(dim=0)
+                t_px, t_px_tf = int((k[2] != p[2]).sum()), int((kt[2] != pt[2]).sum())
+                sums_over = int((rel > TF_SUMS_REL).sum())
+                if max(t_px, t_px_tf, sums_over) > allowed:
+                    raise AssertionError(f"sharded {case} {layout} shard {shard}: t_first differs "
+                                         f"on {t_px} / {t_px_tf} px, TF sums on {sums_over} "
+                                         f"(allowed {allowed:g})")
+                b10 = {n: {"max_abs_err": float((a - b).abs().max()), "px_differ": int((a != b).sum())}
+                       for n, a, b in zip(("C", "alpha", "t_first"), k, p)}
+                b11_err = max(float((a - b).abs().max()) for i, (a, b) in enumerate(zip(kt, pt))
+                              if i != 2)
+                err["seg_march"] = max(err["seg_march"], res["max_abs_err"])
+                err["seg_tf_march"] = max(err["seg_tf_march"], b11_err, res_tf["max_abs_err"])
+                emit({"phase": "sharded_parity", "case": case, "layout": layout, "shard": shard,
+                      "box": list(box(kw)), "slab": list(slab.shape), "device": str(slab.device),
+                      "b10": b10, "b11_max_abs_err_8": b11_err, "b11_t_first_px_differ": t_px_tf,
+                      "b11_sums_max_rel_err": float(rel.max()), "b11_sums_px_beyond": sums_over,
+                      "px_allowed": allowed, "owned_rays": int((k[2] < 1e9).sum())})
+
+    # 2. the main path, as a user drives it: camera -> rays -> plan (once per
+    # camera) -> render per frame, both layouts, beside the dense plan's
+    # frame; min of REPS sweeps after a warm sweep.  The launch count covers
+    # the sweeps and the checks after them.
+    plans = [plan_compositing(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+    SK.seg_march_cuda.launches = 0
+    renders = dict.fromkeys(meshes, 0)
+
+    def sweep(layout):
+        acc = torch.zeros((), device=dev)
+        for plan in plans:
+            rgb, _ = render[layout](meshes[layout], plan, volumes[layout])
+            renders[layout] += 1
+            acc = acc + rgb.sum()
+        return float(acc)
+
+    def dense_sweep():
+        acc = torch.zeros((), device=dev)
+        for plan in plans:
+            acc = acc + plan.render(turb)[0].sum()
+        return float(acc)
+
+    sweep_s = {layout: sweep_seconds(lambda: sweep(layout)) for layout in meshes}
+    dense_s = sweep_seconds(dense_sweep)
+    tau0 = 1.0 - EARLY_OUT_ALPHA
+    bars = {"rgb": tau0 / ALPHA_SCALE + 1e-5, "alpha": tau0 + 1e-5, "layouts": 1e-5}
+    worst = {"rgb": 0.0, "alpha": 0.0, "layouts": 0.0}
+    for plan in plans:
+        rgb_d, a_d = plan.render(turb)
+        frames = {}
+        for layout in meshes:
+            frames[layout] = render[layout](meshes[layout], plan, volumes[layout])
+            renders[layout] += 1
+            rgb, a = frames[layout]
+            if rgb.shape != (H, W, 3) or not bool(torch.isfinite(rgb).all()):
+                raise AssertionError(f"sharded {layout} frame: misshapen or not finite")
+            worst["rgb"] = max(worst["rgb"], float((rgb - rgb_d).abs().max()))
+            worst["alpha"] = max(worst["alpha"], float((a - a_d).abs().max()))
+        worst["layouts"] = max(worst["layouts"], *(float((x - y).abs().max()) for x, y in
+                                                   zip(frames["z4"], frames["bricks221"])))
+    if any(worst[n] > bars[n] for n in bars):
+        raise AssertionError(f"sharded frames: max |d| {worst}, bars {bars}")
+    main_launches, main_renders = SK.seg_march_cuda.launches, dict(renders)
+    want_launches = sum(renders[n] * meshes[n].size for n in meshes)
+    emit({"phase": "sharded_main_path", "volume": list(VOLUME), "frames": N_FRAMES, "reps": REPS,
+          "ms_per_frame": {n: 1e3 * s / N_FRAMES for n, s in sweep_s.items()},
+          "rays_per_s": {n: W * H / (s / N_FRAMES) for n, s in sweep_s.items()},
+          "dense_plan_ms_per_frame": 1e3 * dense_s / N_FRAMES,
+          "dense_plan_rays_per_s": W * H / (dense_s / N_FRAMES),
+          "max_abs_vs_dense_and_between_layouts": worst, "bars": bars,
+          "device_count": torch.cuda.device_count(), "shard_devices": shard_devices,
+          "gpu": smi})
+
+    # 3. the brick-sharded TF fit at orbit frame 0 (B11): the loss falls over
+    # FIT_STEPS; one step at non-reference params matches the single-device
+    # fit step on the volume dimmed until that render's max alpha stays at
+    # or below 0.99 (no early-out to lose).
+    SK.seg_tf_march_cuda.launches = 0
+    fit_steps = 0
+    plan0, bmesh = plans[0], meshes["bricks221"]
+    target = torch.full((H, W, 3), 0.5, device=dev)
+    params, losses = TFParams.reference(dev), []
+    for _ in range(FIT_STEPS):
+        params, loss = KS.tf_fit_step_bricksharded(bmesh, plan0, params, volumes["bricks221"],
+                                                   target, lr=FIT_LR)
+        fit_steps += 1
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"brick-sharded TF fit losses {losses}: not finite or not lowered")
+    scale = 1.0
+    while True:
+        dim = turb * scale
+        max_alpha = float(TK.render_tf_grads_kernel(non_reference, dim, plan0)[1].max())
+        if max_alpha <= EARLY_OUT_ALPHA:
+            break
+        scale *= 0.5
+    new_s, loss_s = KS.tf_fit_step_bricksharded(bmesh, plan0, non_reference,
+                                                PB.shard_volume(bmesh, dim), target, lr=FIT_LR)
+    fit_steps += 1
+    new_1, loss_1 = TK.tf_fit_step_fast(TK.make_render_tf_kernel(plan0), non_reference, dim,
+                                        target, lr=FIT_LR)
+    loss_rel = abs(float(loss_s) - float(loss_1)) / abs(float(loss_1))
+    param_err = {n: float(((a - b).abs() - 1e-4 * b.abs()).max())
+                 for n, a, b in zip(TFParams._fields, new_s, new_1)}
+    if loss_rel > 1e-5 or max(param_err.values()) > 1e-6:
+        raise AssertionError(f"brick-sharded fit step vs single device: loss rel {loss_rel} "
+                             f"(bar 1e-5), params |d| - 1e-4 |p| {param_err} (bar 1e-6)")
+    fit_launches = SK.seg_tf_march_cuda.launches
+    emit({"phase": "sharded_fit", "layout": "bricks221", "fit_losses": losses, "fit_lr": FIT_LR,
+          "dim_scale": scale, "dim_max_alpha_single_device": max_alpha,
+          "step_loss_sharded": float(loss_s), "step_loss_single": float(loss_1),
+          "step_loss_rel_err": loss_rel, "step_param_err_beyond_rtol_1e-4": param_err,
+          "gpu": smi})
+
+    # 4. the row-sharded paths on the kernels already ported: image rows over
+    # a 4-device mesh, each shard launching B1, B4 or B5 on its rows.  The
+    # orbit renders equal plan.render bit for bit; one TF-fit step and one
+    # voxel-fit step match the single-device steps.  The launches are counted
+    # over the sharded calls alone, before the references run.
+    rmesh = PS.make_mesh(4)
+    n_rows = len(rmesh.axis_devices("rays"))
+    reference = TFParams.reference(dev)
+    row_kernels = {"composite_march": RK.composite_march_cuda, "tf_march": TK.tf_march_cuda,
+                   "voxel_grad": VK.voxel_grad_cuda}
+    for f in row_kernels.values():
+        f.launches = 0
+    row_frames = [KS.render_planned_sharded(rmesh, plan, turb) for plan in plans]
+    new_k, loss_k = KS.tf_fit_step_kernel(rmesh, plan0, non_reference, turb, target, lr=FIT_LR)
+    new_p, new_v, loss_v = KS.voxel_fit_step_kernel(rmesh, plan0, reference, turb, target)
+    row_launches = {n: f.launches for n, f in row_kernels.items()}
+    row_want = {"composite_march": n_rows * len(plans), "tf_march": 2 * n_rows,
+                "voxel_grad": n_rows}
+    if row_launches != row_want:
+        raise AssertionError(f"row-sharded paths: launches {row_launches}, want {row_want}")
+    row_px = 0
+    for plan, (rgb_s, a_s) in zip(plans, row_frames):
+        rgb_d, a_d = plan.render(turb)
+        row_px += int((rgb_s != rgb_d).any(dim=-1).sum()) + int((a_s != a_d).sum())
+    if row_px:
+        raise AssertionError(f"row-sharded orbit renders differ from plan.render on {row_px} px")
+    new_f, loss_f = TK.tf_fit_step_fast(TK.make_render_tf_kernel(plan0), non_reference, turb,
+                                        target, lr=FIT_LR)
+    row_loss_rel = abs(float(loss_k) - float(loss_f)) / abs(float(loss_f))
+    row_param_err = {n: float(((a - b).abs() - 1e-4 * b.abs()).max())
+                     for n, a, b in zip(TFParams._fields, new_k, new_f)}
+    if row_loss_rel > 1e-5 or max(row_param_err.values()) > 1e-6:
+        raise AssertionError(f"row-sharded TF fit step vs single device: loss rel {row_loss_rel} "
+                             f"(bar 1e-5), params |d| - 1e-4 |p| {row_param_err} (bar 1e-6)")
+    leaves = TFParams(*(t.clone().requires_grad_(True) for t in reference))
+    vt = turb.clone().requires_grad_(True)
+    rgb, _ = VK.make_render_tf_voxel(plan0)(leaves, vt)
+    loss_1v = torch.mean((rgb - target) ** 2)
+    *gp, gv = torch.autograd.grad(loss_1v, [*leaves, vt])
+    ref_v = torch.clamp(turb - 0.1 * gv, 0.0, 1.0)
+    vox_err = {"volume": float(((new_v - ref_v).abs() - 1e-4 * ref_v.abs()).max()),
+               **{n: float(((a - (p - 1e-2 * g)).abs() - 1e-4 * (p - 1e-2 * g).abs()).max())
+                  for n, a, p, g in zip(TFParams._fields, new_p, reference, gp)}}
+    vox_loss_rel = abs(float(loss_v) - float(loss_1v.detach())) / float(loss_1v.detach())
+    if vox_loss_rel > 1e-5 or max(vox_err.values()) > 1e-6:
+        raise AssertionError(f"row-sharded voxel fit step vs single device: loss rel "
+                             f"{vox_loss_rel}, |d| - 1e-4 |ref| {vox_err} (bar 1e-6)")
+    emit({"phase": "sharded_rows", "mesh": rmesh.shape,
+          "shard_devices": [str(d) for d in rmesh.axis_devices("rays")],
+          "orbit_frames": len(plans), "render_px_differ": row_px,
+          "tf_fit_loss_rel_err": row_loss_rel, "tf_fit_err_beyond_rtol_1e-4": row_param_err,
+          "voxel_fit_loss_rel_err": vox_loss_rel, "voxel_fit_err_beyond_rtol_1e-4": vox_err,
+          "launches": row_launches, "shards_x_calls": row_want, "gpu": smi})
+
+    # 5. per-launch times of B10 and B11 over the orbit, both layouts, and of
+    # their plain versions on orbit frame 0; the bounds from the same inputs
+    shards = {n: KS.seg_shards(m, plan0, volumes[n]) for n, m in meshes.items()}
+    n_launch = N_FRAMES * Z_SHARDS
+    ms = {"seg_march": {}, "seg_tf_march": {}}
+    plain_ms = {"seg_march": {}, "seg_tf_march": {}}
+    for n, sh in shards.items():
+        on = [(slab, kw, rays_on(p, slab.device), tf.to(slab.device))
+              for p in plans for slab, kw in sh]
+        ms["seg_march"][n] = time_ms(lambda: [SK.seg_march_cuda(s, *r, **kw)
+                                              for s, kw, r, _ in on]) / n_launch
+        ms["seg_tf_march"][n] = time_ms(lambda: [SK.seg_tf_march_cuda(s, *r, t, **kw)
+                                                 for s, kw, r, t in on]) / n_launch
+        plain_ms["seg_march"][n] = time_ms(lambda: [plain(s, plan0, kw) for s, kw in sh],
+                                           reps=1) / len(sh)
+        plain_ms["seg_tf_march"][n] = time_ms(lambda: [plain(s, plan0, kw, tf) for s, kw in sh],
+                                              reps=1) / len(sh)
+    emit({"phase": "sharded_timing", "shape": [H, W], "volume": list(VOLUME), "frames": N_FRAMES,
+          "plain_frames": [0], "kernel_ms_per_launch": ms, "plain_ms_per_launch": plain_ms,
+          "dense_b1_ms_per_launch_this_run": time_ms(lambda: [
+              p.render(turb) for p in plans]) / N_FRAMES, "gpu": smi})
+    walked = owned = 0.0
+    boxes = [box(kw) for sh in shards.values() for _, kw in sh]
+    for p in plans:
+        w, o = march_steps(p, boxes)
+        walked, owned = walked + float(w.sum()), owned + float(o.sum())
+    n_all = N_FRAMES * len(boxes)
+    slab_io = sum(nbytes(s) for sh in shards.values() for s, _ in sh) / len(boxes)
+    rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
+    bounds = {name: bound(slab_io + rays_io + planes * 4 * W * H + extra,
+                          (OPS_PER_STEP["seg_walk"] * walked + OPS_PER_STEP[key] * owned) / n_all,
+                          owned / n_all, W * H)
+              for name, planes, extra, key in (("seg_march", 3, 0, "seg_owned"),
+                                               ("seg_tf_march", 8, 12, "seg_tf_owned"))}
+
+    # 6. one sharded frame (orbit frame 0) split into its layers
+    for n, mesh in meshes.items():
+        sv, sh = volumes[n], shards[n]
+        u8 = np.empty(sv.bricks.shape, dtype=object)
+        for idx in np.ndindex(*u8.shape):
+            u8[idx] = quantize_u8(sv.bricks[idx])
+        axes = (0, 1) if sv.bricks.shape[1] > 1 else (0,)
+        outs = [SK.seg_march_cuda(s, *rays_on(plan0, s.device), **kw) for s, kw in sh]
+        C, A, T = (torch.stack([o[i].to(mesh.first) for o in outs]) for i in range(3))
+        c, a = PB.composite_segments_ordered(C, 1.0 - A, T)
+        emit({"phase": "sharded_layers", "layout": n, "ms": {
+            "quantize_shards": time_ms(lambda: [quantize_u8(b) for b in sv.bricks.flat]),
+            "halo_exchange": time_ms(lambda: PB.extend_halos(u8, axes)),
+            "seg_march_launches": time_ms(lambda: [SK.seg_march_cuda(s, *rays_on(plan0, s.device),
+                                                                     **kw) for s, kw in sh]),
+            "compose": time_ms(lambda: PB.composite_segments_ordered(C, 1.0 - A, T)),
+            "transfer": time_ms(lambda: apply_reference_transfer(c, a)),
+            "whole_frame_events": time_ms(lambda: render[n](mesh, plan0, sv))},
+            "orbit_sweep_profile": device_profile(lambda: sweep(n)),
+            "shards": len(sh), "gpu": smi})
+
+    # 7. the main path went through B10 once per shard and render, the fit
+    # through B11 once per shard and step (the row-sharded counts: phase 4)
+    want_fit = fit_steps * bmesh.size
+    if main_launches != want_launches or not renders["z4"] or fit_launches != want_fit:
+        raise AssertionError(f"segment kernels: B10 {main_launches} launches for "
+                             f"{want_launches}, B11 {fit_launches} for {want_fit}")
+    emit({"phase": "sharded_launch_count", "seg_march": main_launches,
+          "shards_x_renders": want_launches, "renders": main_renders,
+          "seg_tf_march": fit_launches, "shards_x_fit_steps": want_fit, "fit_steps": fit_steps,
+          "row_sharded": row_launches})
+    launches = {"seg_march": main_launches, "seg_tf_march": fit_launches}
+    return [{"name": name, "route": "cuda", "source": SEG_SOURCE,
+             "replaces": SEG_REPLACES[name], "launches": launches[name],
+             "max_abs_err": err[name], "ms": sum(ms[name].values()) / len(ms[name]),
+             "plain_ms": sum(plain_ms[name].values()) / len(plain_ms[name]), **bounds[name]}
+            for name in ("seg_march", "seg_tf_march")]
 
 
 def main() -> int:
@@ -911,6 +1388,7 @@ def main() -> int:
     from volumerenderer_tpu_torch.ops.cuda import _build
     from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
     from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK
     from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
     from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
     from volumerenderer_tpu_torch.ops.raycast import composite_march_steps
@@ -929,10 +1407,10 @@ def main() -> int:
     # 2. build the kernels from the checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
     _build.load_many(["composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad",
-                      "kdtree_seed"])
+                      "kdtree_seed", "seg_march"])
     libraries = {"composite_march": RK.load_kernel(), **IK.load_kernels(),
                  "tf_march": TK.load_kernel(), "voxel_grad": VK.load_kernel(),
-                 "kdtree_seed": _build.load("kdtree_seed")}
+                 "kdtree_seed": _build.load("kdtree_seed"), "seg_march": SK.load_kernel()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": {
         name: {"nvcc_seconds": built.build_seconds,
                "library": str(built.path.relative_to(HERE)),
@@ -1043,16 +1521,22 @@ def main() -> int:
         raise AssertionError(f"composite_march launched {launches} times for {renders} renders")
     emit({"phase": "launch_count", "composite_march": launches, "renders": renders})
 
-    iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles)
-    grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles)
-    pooled_kernels = run_compressed(dev, smi, turb, sphere, cameras, bundles,
-                                    {"composite_march": kernel_ms,
-                                     **{k["name"]: k["ms"] for k in iso_kernels}})
+    # B1's bound, per launch over the orbit
+    samples = sum(float(composite_samples(p, turb_plain).sum()) for p in plans) / N_FRAMES
+    rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
+    b1 = {"name": "composite_march", "route": "cuda", "source": KERNEL_SOURCE,
+          "replaces": REPLACES, "launches": launches, "max_abs_err": max_abs_err,
+          "ms": kernel_ms, "plain_ms": plain_ms,
+          **bound(nbytes(turb_u8) + rays_io + 8 * W * H, OPS_PER_STEP["composite"] * samples,
+                  samples, W * H)}
 
-    emit({"kernels": [{"name": "composite_march", "route": "cuda", "source": KERNEL_SOURCE,
-                       "replaces": REPLACES, "launches": launches,
-                       "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms},
-                      *iso_kernels, *grad_kernels, *pooled_kernels]})
+    iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles)
+    grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles, samples)
+    pooled_kernels = run_compressed(dev, smi, turb, sphere, cameras, bundles,
+                                    {k["name"]: k for k in (b1, *iso_kernels)})
+    sharded_kernels = run_sharded(dev, smi, turb, sphere, cameras, bundles)
+
+    emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *sharded_kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,81 @@
+"""Per-launch times of the port's kernels that share csrc/trilinear.cuh (B1,
+B4, B5, and B10 on each of four z-slabs) over the 16-frame orbit at 1024^2 rays
+on the 256^3 turbulence (seed 0), min of 5 after a warm call, for the
+``volumerenderer_tpu_torch`` package found under ROOT.  Prints one JSON line.
+
+To compare two trees on one card, unpack the other tree into a git-ignored
+directory of the checkout and run both in turns within one command:
+
+    for r in build/base . . build/base; do python3 scripts/torch_kernel_ab.py $r $r; done
+"""
+import json
+import math
+import sys
+
+ROOT, LABEL = sys.argv[1], sys.argv[2]
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays  # noqa
+from volumerenderer_tpu_torch.diff import closed_form as CF  # noqa: E402
+from volumerenderer_tpu_torch.io.synthetic import turbulence_volume  # noqa: E402
+from volumerenderer_tpu_torch.models import plan_compositing  # noqa: E402
+from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK  # noqa: E402
+from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK  # noqa: E402
+from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK  # noqa: E402
+from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK  # noqa: E402
+from volumerenderer_tpu_torch.parallel import context as PC  # noqa: E402
+from volumerenderer_tpu_torch.parallel import kernel_sharded as KS  # noqa: E402
+
+dev = torch.device("cuda", 0)
+W = H = 1024
+
+
+def orbit(az):
+    a = math.radians(az)
+    return Camera(width=W, height=H, position=(0.75 * math.sin(a), 0.0, -0.75 * math.cos(a)),
+                  front=(-math.sin(a), 0.0, math.cos(a)))
+
+
+def time_ms(fn, reps=5):
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        best = min(best, s.elapsed_time(e))
+    return best
+
+
+turb = as_normalized_volume(turbulence_volume((256, 256, 256), seed=0), device=dev)
+u8 = RK.quantize_u8(turb)
+plans = []
+for i in range(16):
+    r = generate_rays(orbit(2.0 * i), device=dev)
+    plans.append(plan_compositing(r.entry_uv, r.direction, r.hit, (256, 256, 256)))
+ref = TFParams.reference(dev)
+tf = CF.tf_scalars(ref)
+target = torch.full((H, W, 3), 0.5, device=dev)
+cots = []
+for p in plans:
+    k = TK.tf_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, tf)
+    rgb = ref.flip_sign * k[0][..., None] + ref.flip_bias
+    g_rgb = (rgb - target) * (2.0 / rgb.numel())
+    cots.append((*CF.cotangent_images(ref, g_rgb, None, k[1]), k[3]))
+mesh = PC.make_z_mesh(4)
+shards = KS.seg_shards(mesh, plans[0], turb)  # the slabs; every plan shares them
+ms = {
+    "B1": time_ms(lambda: [RK.composite_march_cuda(u8, p.entry_uv, p.dir_step, p.hit)
+                           for p in plans]) / 16,
+    "B4": time_ms(lambda: [TK.tf_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, tf)
+                           for p in plans]) / 16,
+    "B5": time_ms(lambda: [VK.voxel_grad_cuda(u8, p.entry_uv, p.dir_step, p.hit, tf, *c)
+                           for p, c in zip(plans, cots)]) / 16,
+    "B10_z4": time_ms(lambda: [SK.seg_march_cuda(s, p.entry_uv, p.dir_step, p.hit, **kw)
+                                      for p in plans for s, kw in shards]) / 64,
+}
+print(json.dumps({"label": LABEL, "ms": ms, "from": VK.__file__}), flush=True)

@@ -36,7 +36,7 @@ def test_camera_defaults_match():
 
 
 def test_default_camera_rays_match_jax():
-    rt = T.generate_rays(T.Camera(), 64, 48)
+    rt = T.generate_rays(T.Camera(), 64, 48, device="cpu")
     rj = J.generate_rays(J.Camera(), 64, 48)
     assert rt.entry_uv.shape == (48, 64, 3) and rt.entry_uv.dtype == torch.float32
     assert rt.hit.dtype == torch.bool
@@ -47,7 +47,7 @@ def test_default_camera_rays_match_jax():
 def test_orbit_camera_rays_match_jax(az_deg):
     cam_j = _orbit_jax_camera(az_deg, 64, 48)
     cam_t = camera_from_jax_fields(**dataclasses.asdict(cam_j))
-    rt = T.generate_rays(cam_t)
+    rt = T.generate_rays(cam_t, device="cpu")
     rj = J.generate_rays(cam_j)
     assert np.asarray(rj.hit).any()
     _assert_rays_close(rt, rj)

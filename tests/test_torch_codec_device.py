@@ -51,7 +51,7 @@ def _occupancy_volume():
 def test_to_device_matches_jax(turbulence_trees):
     tj, tt = turbulence_trees
     dj, sj = JD.to_device(tj)
-    dt, st = TD.to_device(tt)
+    dt, st = TD.to_device(tt, device="cpu")
     assert st == sj
     assert len(dt.packed_levels) == len(dj.packed_levels)
     for a, b in zip(dt.packed_levels, dj.packed_levels):
@@ -66,7 +66,7 @@ def test_to_device_matches_jax(turbulence_trees):
 def test_level_cut_device_matches_jax_and_host(turbulence_trees, jax_device_cuts, decode,
                                               monkeypatch):
     _, tt = turbulence_trees
-    dt, st = TD.to_device(tt)
+    dt, st = TD.to_device(tt, device="cpu")
     chunk_bits = None if decode == "flat" else 7
     if decode == "chunked_groups":  # groups of 4 chunks, so several groups
         monkeypatch.setattr(TD, "CHUNK_GROUP_LEAF_BITS", 9)
@@ -82,7 +82,7 @@ def test_level_cut_device_matches_jax_and_host(turbulence_trees, jax_device_cuts
 def test_deep_trees_decode_chunked(turbulence_trees, monkeypatch):
     """Past CHUNKED_DECODE_MIN_DEPTH the default decode is the chunked one."""
     _, tt = turbulence_trees
-    dt, st = TD.to_device(tt)
+    dt, st = TD.to_device(tt, device="cpu")
     calls = []
     chunked = TD._level_cut_chunked_impl
     monkeypatch.setattr(TD, "_level_cut_chunked_impl",
@@ -100,7 +100,7 @@ def test_tree_occupancy_mip8_matches_jax_and_block_max(regime, monkeypatch):
     tj = JK.build(v, tolerance=2, max_epochs=2)
     tt = kdtree_from_numpy(**dataclasses.asdict(tj))
     dj, sj = JD.to_device(tj)
-    dt, st = TD.to_device(tt)
+    dt, st = TD.to_device(tt, device="cpu")
     if regime == "chunked_cut":
         monkeypatch.setattr(TD, "CHUNKED_DECODE_MIN_DEPTH", tt.orig_depth)
         monkeypatch.setattr(TD, "CHUNK_LEAF_BITS", 6)

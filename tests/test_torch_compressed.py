@@ -39,14 +39,14 @@ def scene():
     tree_j = build_jax(_data(), tolerance=1, max_epochs=2)
     rays_j = J.generate_rays(J.Camera(width=64, height=32))
     rays = rays_from_numpy(*(np.asarray(a) for a in (rays_j.entry_uv, rays_j.direction,
-                                                     rays_j.hit)))
+                                                     rays_j.hit)), device="cpu")
     return tree_j, kdtree_from_numpy(**dataclasses.asdict(tree_j)), rays_j, rays
 
 
 def test_make_plan_pooled_matches_jax_compressed_renderer(scene):
     tree_j, tree, rays_j, rays = scene
     jax_ren = JaxCompressedRenderer(tree_j)
-    ren = CompressedRenderer(tree)
+    ren = CompressedRenderer(tree, device="cpu")
     rgb_j, a_j = jax_ren.render(rays_j, mode="compositing", max_samples=24)
     rgb, a = ren.make_plan(rays, mode="compositing", max_samples=24, pooled=True)()
     assert float(a.sum()) > 100
@@ -69,7 +69,7 @@ def test_make_plan_pooled_matches_jax_compressed_renderer(scene):
 def test_make_plan_pooled_equals_dense_plan(scene, mode, cut):
     _, tree, _, rays = scene
     cut_depth = {"full": None, "leaf_depth": tree.orig_depth, "coarse": 9}[cut]
-    ren = CompressedRenderer(tree)
+    ren = CompressedRenderer(tree, device="cpu")
     pooled = ren.make_plan(rays, cut_depth, mode=mode, iso_value=ISO, max_samples=40,
                            pooled=True)()
     dense = ren.make_plan(rays, cut_depth, mode=mode, iso_value=ISO, max_samples=40)()
@@ -84,7 +84,7 @@ def test_make_plan_pooled_equals_dense_plan(scene, mode, cut):
 
 def test_pools_come_from_the_tree_occupancy(scene):
     _, tree, _, _ = scene
-    ren = CompressedRenderer(tree)
+    ren = CompressedRenderer(tree, device="cpu")
     for fmt, build in (("pair16", RK.build_slab_pool), ("narrowf32", RK.build_slab_pool_narrow)):
         pool, smap = ren.slab_pool_at(fmt=fmt)
         want_pool, want_map = build(ren.volume_at())
@@ -104,7 +104,7 @@ def test_decoded_has_no_host_fallback(scene, monkeypatch):
         raise RuntimeError("RESOURCE_EXHAUSTED: out of memory while decoding")
 
     monkeypatch.setattr(MC, "level_cut_device", out_of_memory)
-    ren = CompressedRenderer(tree)
+    ren = CompressedRenderer(tree, device="cpu")
     with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):
         ren.volume_at()
     with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):
@@ -114,7 +114,7 @@ def test_decoded_has_no_host_fallback(scene, monkeypatch):
 
 def test_render_fast_and_dense_renderer(scene):
     tree_j, tree, rays_j, rays = scene
-    ren = CompressedRenderer(tree)
+    ren = CompressedRenderer(tree, device="cpu")
     for mode in ("compositing", "isosurface"):
         slow = ren.render(rays, mode=mode, max_samples=24)
         fast = ren.render(rays, mode=mode, fast=True, max_samples=24)
@@ -122,7 +122,7 @@ def test_render_fast_and_dense_renderer(scene):
             assert torch.equal(s, f)
     vol_u8 = (ren.volume_at() * 255.0).round().to(torch.uint8).numpy()
     rgb_j, a_j = JaxDenseRenderer(vol_u8).render(rays_j, max_samples=24)
-    dense = DenseRenderer(vol_u8)
+    dense = DenseRenderer(vol_u8, device="cpu")
     assert dense.volume_at(3) is dense.volume_at()
     rgb, a = dense.render(rays, max_samples=24)
     np.testing.assert_allclose(a.numpy(), np.asarray(a_j), atol=1e-5, rtol=0)
@@ -135,4 +135,4 @@ def test_render_fast_and_dense_renderer(scene):
 
 def test_compressed_renderer_takes_only_a_kdtree():
     with pytest.raises(TypeError, match="KdTree"):
-        CompressedRenderer(np.zeros((8, 8, 8), np.uint8))
+        CompressedRenderer(np.zeros((8, 8, 8), np.uint8), device="cpu")

@@ -1,0 +1,111 @@
+"""The port's entry points run on the card unless the caller asks for the CPU.
+
+Each entry point is called without a device.  With a CUDA device the result
+lies on it; without one (CPU-only torch) the call raises torch's own "no
+CUDA" error or, for a mesh, says that a CPU mesh must be asked for: nothing
+falls back to the CPU.  Whether there is a card is decided inside the test.
+"""
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from volumerenderer_tpu_torch import (Camera, TFParams, as_normalized_volume, generate_rays,
+                                      interop)
+from volumerenderer_tpu_torch.camera import RayBundle
+from volumerenderer_tpu_torch.codecs import device as CD
+from volumerenderer_tpu_torch.codecs import kdtree as KT
+from volumerenderer_tpu_torch.models import CompressedRenderer, DenseRenderer
+from volumerenderer_tpu_torch.parallel import (bricks, context, make_brick_mesh, make_mesh,
+                                               make_z_mesh, sharding)
+
+
+def _tree():
+    v = np.zeros((8, 8, 8), np.uint8)
+    v[2:6, 2:6, 2:6] = 200
+    return KT.build(v, tolerance=2, max_epochs=1)
+
+
+def _fields():
+    return {k: np.asarray(v.numpy()) for k, v in TFParams.reference(device="cpu")._asdict().items()}
+
+
+ENTRY_POINTS = {
+    "generate_rays": (generate_rays, lambda: generate_rays(Camera(width=8, height=4))),
+    "to_device": (CD.to_device, lambda: CD.to_device(_tree())),
+    "CompressedRenderer": (CompressedRenderer.__init__, lambda: CompressedRenderer(_tree())),
+    "DenseRenderer": (DenseRenderer.__init__,
+                      lambda: DenseRenderer(torch.zeros((4, 4, 4), dtype=torch.uint8))),
+    "TFParams.reference": (TFParams.reference, lambda: TFParams.reference()),
+    "volume_from_numpy": (interop.volume_from_numpy,
+                          lambda: interop.volume_from_numpy(np.zeros((4, 4, 4), np.uint8))),
+    "rays_from_numpy": (interop.rays_from_numpy, lambda: interop.rays_from_numpy(
+        np.zeros((2, 2, 3)), np.ones((2, 2, 3)), np.ones((2, 2), bool))),
+    "tf_params_from_numpy": (interop.tf_params_from_numpy,
+                             lambda: interop.tf_params_from_numpy(**_fields())),
+}
+
+MESHES = {"make_mesh": lambda: make_mesh(2), "make_z_mesh": lambda: make_z_mesh(2),
+          "make_brick_mesh": lambda: make_brick_mesh((2, 1, 1)),
+          "default_devices": lambda: sharding.default_devices(2)}
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, CompressedRenderer):
+        return list(out.dtree.packed_levels)
+    if isinstance(out, DenseRenderer):
+        return [out.volume_at()]
+    if isinstance(out, tuple):
+        return [t for o in out for t in _tensors(o)]
+    if hasattr(out, "_asdict"):
+        return [t for o in out._asdict().values() for t in _tensors(o)]
+    if hasattr(out, "packed_levels"):
+        return list(out.packed_levels)
+    if isinstance(out, RayBundle):
+        return [out.entry_uv, out.direction, out.hit]
+    return []
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    fn, call = ENTRY_POINTS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(AssertionError, match="CUDA"):
+            call()
+        return
+    tensors = _tensors(call())
+    assert tensors and all(t.device.type == "cuda" for t in tensors)
+
+
+def test_numpy_volume_defaults_to_the_card():
+    """``as_normalized_volume`` places a numpy volume on the card and leaves
+    a tensor on its own device."""
+    cpu = torch.zeros((4, 4, 4), dtype=torch.uint8)
+    assert as_normalized_volume(cpu).device == cpu.device
+    if not torch.cuda.is_available():
+        with pytest.raises(AssertionError, match="CUDA"):
+            as_normalized_volume(np.zeros((4, 4, 4), np.uint8))
+        return
+    assert as_normalized_volume(np.zeros((4, 4, 4), np.uint8)).device.type == "cuda"
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_mesh_defaults_to_the_cards(name):
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MESHES[name]()
+        return
+    mesh = MESHES[name]()
+    devices = mesh if isinstance(mesh, list) else list(mesh.devices.flat)
+    assert all(d.type == "cuda" for d in devices)
+
+
+def test_cpu_meshes_are_asked_for():
+    cpu = [torch.device("cpu")] * 4
+    assert make_mesh(devices=cpu, dp=2).shape == {"dp": 2, "rays": 2}
+    assert context.make_z_mesh(devices=cpu).shape == {"z": 4}
+    assert bricks.make_brick_mesh((2, 2, 1), devices=cpu).shape == {"bz": 2, "by": 2, "bx": 1}

@@ -63,11 +63,11 @@ def test_voxel_grad_step_matches_jax_chain(az_deg):
     new_v_j = np.asarray(vol_j - LR * gv_j)
 
     # the port: rays -> plan -> make_render_tf_voxel -> loss -> grads -> SGD
-    rays = generate_rays(_camera(az_deg, Camera))
+    rays = generate_rays(_camera(az_deg, Camera), device="cpu")
     plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (16, 16, 16), MAX_SAMPLES)
     f = make_render_tf_voxel(plan)
-    params = TFParams(*(t.requires_grad_(True) for t in TFParams.reference()))
-    vol = as_normalized_volume(vol_u8).requires_grad_(True)
+    params = TFParams(*(t.requires_grad_(True) for t in TFParams.reference(device="cpu")))
+    vol = as_normalized_volume(vol_u8, device="cpu").requires_grad_(True)
     rgb, _ = f(params, vol)
     loss = torch.mean((rgb - torch.tensor(target)) ** 2)
     *gp, gv = torch.autograd.grad(loss, [*params, vol])
@@ -99,12 +99,12 @@ def test_tf_fit_follows_jax_and_lowers_the_loss():
         return render_tf_jax(p, v, rays_j.entry_uv, rays_j.direction, rays_j.hit,
                              max_samples=MAX_SAMPLES)
 
-    rays = generate_rays(_camera(None, Camera))
+    rays = generate_rays(_camera(None, Camera), device="cpu")
     plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (16, 16, 16), MAX_SAMPLES)
     f = make_render_tf_kernel(plan)
-    vol = as_normalized_volume(vol_u8)
+    vol = as_normalized_volume(vol_u8, device="cpu")
     target = torch.full((H, W, 3), 0.5)
-    p_j, params = JTFParams.reference(), TFParams.reference()
+    p_j, params = JTFParams.reference(), TFParams.reference(device="cpu")
     losses_j, losses = [], []
     for _ in range(5):
         p_j, loss_j = step_jax(f_j, p_j, vol_j, target_j, lr=LR)

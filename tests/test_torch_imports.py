@@ -13,15 +13,18 @@ PACKAGE = REPO / "volumerenderer_tpu_torch"
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, volumerenderer_tpu_torch, volumerenderer_tpu_torch.models, "
-            "volumerenderer_tpu_torch.interop; "
-            "from volumerenderer_tpu_torch.ops.cuda import raycast_kernel, isosurface_kernel, "
-            "tf_kernel, voxel_grad_kernel; "
-            "from volumerenderer_tpu_torch.ops import isosurface; "
-            "from volumerenderer_tpu_torch.diff import transfer, vjp, closed_form; "
-            "from volumerenderer_tpu_torch.codecs import kdtree, device; "
-            "from volumerenderer_tpu_torch.models import compressed; "
-            "from volumerenderer_tpu_torch.utils import bitarray; "
+    """Every module of the port, found by walking the package (the sharded
+    layouts and the segment kernels' wrappers included)."""
+    code = ("import importlib, pkgutil, sys, volumerenderer_tpu_torch as P; "
+            "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "need = {'volumerenderer_tpu_torch.parallel.kernel_sharded', "
+            "'volumerenderer_tpu_torch.parallel.bricks', "
+            "'volumerenderer_tpu_torch.parallel.context', "
+            "'volumerenderer_tpu_torch.parallel.sharding', "
+            "'volumerenderer_tpu_torch.ops.cuda.seg_kernel', "
+            "'volumerenderer_tpu_torch.interop'}; "
+            "assert need <= set(names), need - set(names); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'volumerenderer_tpu' or m.startswith('volumerenderer_tpu.')); "
             "assert not bad, bad")

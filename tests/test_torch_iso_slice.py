@@ -42,10 +42,10 @@ def _render_both(cam_t, cam_j, vol_u8, iso, jax_rays_for_port=False):
                                            rays_j.direction, rays_j.hit, iso_value=iso)
     if jax_rays_for_port:
         rays = rays_from_numpy(*(np.asarray(a) for a in (rays_j.entry_uv, rays_j.direction,
-                                                         rays_j.hit)))
+                                                         rays_j.hit)), device="cpu")
     else:
-        rays = generate_rays(cam_t)
-    vol = as_normalized_volume(vol_u8)
+        rays = generate_rays(cam_t, device="cpu")
+    vol = as_normalized_volume(vol_u8, device="cpu")
     Z, Y, X = vol.shape
     rgb_t, found_t = IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit,
                                     (X, Y, Z)).render(vol, iso)
@@ -76,7 +76,7 @@ def test_iso_slice_at_volume_median_matches_jax():
     W, H = 64, 48
     cams = Camera(width=W, height=H), J.Camera(width=W, height=H)
     vol_u8 = turbulence_volume((32, 32, 32), seed=99)
-    iso = volume_median(as_normalized_volume(vol_u8))
+    iso = volume_median(as_normalized_volume(vol_u8, device="cpu"))
     (_, found_t), (_, found_j) = _render_both(*cams, vol_u8, iso)
     np.testing.assert_array_equal(found_t, found_j)
     (rgb_t, found_t), (rgb_j, found_j) = _render_both(*cams, vol_u8, iso,
@@ -88,8 +88,8 @@ def test_iso_slice_at_volume_median_matches_jax():
 
 def test_best_isosurface_renderer_on_cpu():
     """On CPU tensors the registry renderer is the plain path."""
-    vol = as_normalized_volume(turbulence_volume((16, 16, 16), seed=2))
-    rays = generate_rays(Camera(width=24, height=16))
+    vol = as_normalized_volume(turbulence_volume((16, 16, 16), seed=2), device="cpu")
+    rays = generate_rays(Camera(width=24, height=16), device="cpu")
     iso = volume_median(vol)
     ref = render_isosurface(vol, rays.entry_uv, rays.direction, rays.hit, iso)
     best = best_isosurface_renderer()(vol, rays.entry_uv, rays.direction, rays.hit, iso)

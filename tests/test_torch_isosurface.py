@@ -54,7 +54,8 @@ def test_bisection_refine_matches_jax(wrap):
     left = _points(1)
     right = left + _unit(2) * np.float32(0.05)
     iso = float(np.median(vol_u8)) / 255.0
-    got = TI.bisection_refine(as_normalized_volume(vol_u8), *_torch(left, right), iso, wrap)
+    got = TI.bisection_refine(as_normalized_volume(vol_u8, device="cpu"), *_torch(left, right),
+                              iso, wrap)
     ref = JI.bisection_refine(J.as_normalized_volume(vol_u8), left, right, iso, wrap)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
 
@@ -63,7 +64,8 @@ def test_bisection_refine_matches_jax(wrap):
 def test_gradient_normal_matches_jax(wrap):
     vol_u8 = turbulence_volume((16, 24, 32), seed=4)
     uvw = _points(5)
-    got = TI.gradient_normal(as_normalized_volume(vol_u8), torch.from_numpy(uvw), wrap)
+    got = TI.gradient_normal(as_normalized_volume(vol_u8, device="cpu"), torch.from_numpy(uvw),
+                             wrap)
     ref = JI.gradient_normal(J.as_normalized_volume(vol_u8), uvw, wrap)
     assert float(got.abs().max()) > 0.5
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
@@ -94,8 +96,8 @@ def _scene(kind):
 @pytest.mark.parametrize("kind", ["sphere", "goldens"])
 def test_render_isosurface_matches_jax(kind, wrap):
     vol_u8, rays, iso = _scene(kind)
-    rgb_t, f_t = render_isosurface(as_normalized_volume(vol_u8), *_torch(*rays), iso_value=iso,
-                                   wrap=wrap)
+    rgb_t, f_t = render_isosurface(as_normalized_volume(vol_u8, device="cpu"), *_torch(*rays),
+                                   iso_value=iso, wrap=wrap)
     rgb_j, f_j = JI.render_isosurface(J.as_normalized_volume(vol_u8), *rays, iso_value=iso,
                                       wrap=wrap)
     assert int(f_t.sum()) >= 18  # the scene has a surface
@@ -105,8 +107,8 @@ def test_render_isosurface_matches_jax(kind, wrap):
 
 def test_golden_isosurface():
     """The pin of tests/test_goldens.py, through the port alone."""
-    vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99))
-    rays = generate_rays(Camera(width=64, height=48))
+    vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99), device="cpu")
+    rays = generate_rays(Camera(width=64, height=48), device="cpu")
     rgb, found = render_isosurface(vol, rays.entry_uv, rays.direction, rays.hit)
     assert abs(float(rgb.sum()) - 9185.606445) < 0.05
     assert int(found.sum()) == 18
@@ -115,9 +117,9 @@ def test_golden_isosurface():
 def test_isosurface_matches_glsl_oracle():
     vol_u8 = sphere_volume((32, 32, 32))
     W, H = 40, 30
-    rays = generate_rays(Camera(width=W, height=H))
-    rgb, found = render_isosurface(as_normalized_volume(vol_u8), rays.entry_uv, rays.direction,
-                                   rays.hit, iso_value=40.0 / 255.0)
+    rays = generate_rays(Camera(width=W, height=H), device="cpu")
+    rgb, found = render_isosurface(as_normalized_volume(vol_u8, device="cpu"), rays.entry_uv,
+                                   rays.direction, rays.hit, iso_value=40.0 / 255.0)
     ref_rgb, ref_hit = render_isosurface_oracle(vol_u8, W, H, iso=40.0 / 255.0)
     assert ref_hit.any()
     np.testing.assert_array_equal(found.numpy(), ref_hit)
@@ -127,7 +129,7 @@ def test_isosurface_matches_glsl_oracle():
 @pytest.mark.parametrize("wrap", ["clamp", "repeat"])
 def test_march_then_shade_is_render_isosurface(wrap):
     vol_u8, rays, iso = _scene("goldens")
-    vol = as_normalized_volume(vol_u8)
+    vol = as_normalized_volume(vol_u8, device="cpu")
     entry_uv, direction, hit = _torch(*rays)
     dir_step = direction * step_sizes((32, 32, 32), "cpu")
     found, t_hit = TI.iso_march_steps(vol, entry_uv, dir_step, hit, iso, wrap=wrap)
@@ -144,7 +146,7 @@ def test_march_hit_bracket_straddles_iso():
     from volumerenderer_tpu_torch.ops.sampling import sample_trilinear
 
     vol_u8, rays, iso = _scene("sphere")
-    vol = as_normalized_volume(vol_u8)
+    vol = as_normalized_volume(vol_u8, device="cpu")
     entry_uv, direction, hit = _torch(*rays)
     dir_step = direction * step_sizes((32, 32, 32), "cpu")
     found, t_hit = TI.iso_march_steps(vol, entry_uv, dir_step, hit, iso)
@@ -159,6 +161,6 @@ def test_march_hit_bracket_straddles_iso():
 @pytest.mark.parametrize("shape", [(8, 6, 10), (5, 7, 9)])
 def test_volume_median_equals_numpy(shape):
     vol_u8 = turbulence_volume(shape, seed=11)
-    vol = as_normalized_volume(vol_u8)
+    vol = as_normalized_volume(vol_u8, device="cpu")
     assert volume_median(vol) == float(np.median(vol.numpy()))
     assert volume_median(torch.tensor([1.0, 2.0, 3.0, 4.0])) == 2.5  # torch.median says 2.0

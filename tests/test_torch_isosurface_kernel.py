@@ -67,10 +67,10 @@ def test_plan_matches_jax_pallas_plan():
     found_tpu = np.asarray(_untile(found_tiles, H, W, plan_j.lanes)) > 0.5
     t_hit_tpu = np.asarray(_untile(t_hit_tiles, H, W, plan_j.lanes)).astype(np.int32)
 
-    rays = rays_from_numpy(entry_uv, direction, hit)
+    rays = rays_from_numpy(entry_uv, direction, hit, device="cpu")
     plan_t = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
                                max_samples=24)
-    vol_t = as_normalized_volume(vol_u8)
+    vol_t = as_normalized_volume(vol_u8, device="cpu")
     rgb_t, found_t = plan_t.render(vol_t, iso)
     march_found, march_t_hit = IK.iso_march_cuda(quantize_u8(vol_t), plan_t.entry_uv,
                                                  plan_t.dir_step, plan_t.hit, iso,
@@ -88,8 +88,8 @@ def test_plan_matches_jax_pallas_plan():
 def test_render_isosurface_kernel_cpu_equals_plain(wrap):
     """On CPU the kernel entry point is the plain path on the 8-bit grid:
     equal to ``render_isosurface`` for a byte-derived volume."""
-    vol = as_normalized_volume(turbulence_volume(VOL_SHAPE, seed=3))
-    rays = rays_from_numpy(*_jax_rays(32, 16))
+    vol = as_normalized_volume(turbulence_volume(VOL_SHAPE, seed=3), device="cpu")
+    rays = rays_from_numpy(*_jax_rays(32, 16), device="cpu")
     iso = IK.volume_median(vol)
     got = IK.render_isosurface_kernel(vol, rays.entry_uv, rays.direction, rays.hit, iso,
                                       max_samples=40, wrap=wrap)
@@ -103,7 +103,7 @@ def test_render_isosurface_kernel_cpu_equals_plain(wrap):
 def _march_inputs():
     from volumerenderer_tpu_torch import Camera, generate_rays
 
-    rays = generate_rays(Camera(width=16, height=8))
+    rays = generate_rays(Camera(width=16, height=8), device="cpu")
     Z, Y, X = VOL_SHAPE
     return dict(vol_u8=torch.from_numpy(_sphere_u8()), entry_uv=rays.entry_uv,
                 dir_step=(rays.direction * step_sizes((X, Y, Z), "cpu")).contiguous(),
@@ -115,7 +115,7 @@ def _shade_inputs():
 
     kw = _march_inputs()
     found, t_hit = IK.iso_march_cuda(**kw, iso=0.5)
-    rays = generate_rays(Camera(width=16, height=8))
+    rays = generate_rays(Camera(width=16, height=8), device="cpu")
     return dict(vol_u8=kw["vol_u8"], entry_uv=kw["entry_uv"], dir_step=kw["dir_step"],
                 direction=rays.direction, found=found, t_hit=t_hit)
 

@@ -33,8 +33,8 @@ def _scene(camera, volume="turbulence"):
         u8[:8] = 0  # an empty z-block; its slab is kept for block 1's rows
     else:
         u8 = sphere_volume(VOL_SHAPE, radius=0.3, soft=0.2)
-    rays = generate_rays(Camera(width=40, height=24, **CAMERAS[camera]))
-    return as_normalized_volume(u8), rays
+    rays = generate_rays(Camera(width=40, height=24, **CAMERAS[camera]), device="cpu")
+    return as_normalized_volume(u8, device="cpu"), rays
 
 
 @pytest.mark.parametrize("fmt", sorted(POOLS))
@@ -160,10 +160,10 @@ def test_slot_zero_reads_are_exact(fmt):
     pooled renders stay equal to the dense ones through them."""
     u8 = np.zeros((32, 16, 32), np.uint8)
     u8[18:22, 3:13, 5:27] = turbulence_volume((4, 10, 22), seed=8)
-    vol = as_normalized_volume(u8)
+    vol = as_normalized_volume(u8, device="cpu")
     pool, smap = POOLS[fmt](vol)
     assert smap.tolist() == [[0, 1, 2, 0]] and not pool[0].any()
-    rays = generate_rays(Camera(width=40, height=24, **CAMERAS["oblique"]))
+    rays = generate_rays(Camera(width=40, height=24, **CAMERAS["oblique"]), device="cpu")
     cplan = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (32, 16, 32))
     iplan = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, (32, 16, 32))
     rgb_p, a_p = cplan.render_pooled(pool, smap)

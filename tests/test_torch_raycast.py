@@ -37,7 +37,8 @@ def test_composite_march_matches_jax(early_exit, wrap):
     march_j = JR.composite_march_early_exit if early_exit else JR.composite_march
     march_t = TR.composite_march_early_exit if early_exit else TR.composite_march
     cj, aj = march_j(vol_j, *rays, max_samples=64, wrap=wrap)
-    ct, at = march_t(as_normalized_volume(vol_u8), *_torch(*rays), max_samples=64, wrap=wrap)
+    ct, at = march_t(as_normalized_volume(vol_u8, device="cpu"), *_torch(*rays), max_samples=64,
+                     wrap=wrap)
     assert float(np.asarray(aj).max()) > 0.5  # the scene composites something
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-5, rtol=0)
     np.testing.assert_allclose(at.numpy(), np.asarray(aj), atol=1e-5, rtol=0)
@@ -45,7 +46,7 @@ def test_composite_march_matches_jax(early_exit, wrap):
 
 def test_early_exit_equals_fixed_trip():
     vol_u8, rays = _scene(seed=8)
-    vol = as_normalized_volume(vol_u8)
+    vol = as_normalized_volume(vol_u8, device="cpu")
     c0, a0 = TR.composite_march(vol, *_torch(*rays), max_samples=TR.MAX_SAMPLES)
     c1, a1 = TR.composite_march_early_exit(vol, *_torch(*rays), max_samples=TR.MAX_SAMPLES)
     assert torch.equal(c0, c1) and torch.equal(a0, a1)
@@ -58,16 +59,16 @@ def test_reference_constants():
 
 def test_golden_compositing():
     """The pins of tests/test_goldens.py, through the port alone."""
-    vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99))
-    rays = generate_rays(Camera(width=64, height=48))
+    vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99), device="cpu")
+    rays = generate_rays(Camera(width=64, height=48), device="cpu")
     rgb, a = TR.render_compositing(vol, rays.entry_uv, rays.direction, rays.hit)
     assert abs(float(rgb.sum()) - 3667.208252) < 0.02
     assert abs(float(a.sum()) - 3046.968750) < 0.02
 
 
 def test_golden_compositing_fixed_trip():
-    vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99))
-    rays = generate_rays(Camera(width=64, height=48))
+    vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99), device="cpu")
+    rays = generate_rays(Camera(width=64, height=48), device="cpu")
     rgb, a = TR.render_compositing(vol, rays.entry_uv, rays.direction, rays.hit,
                                    early_exit=False)
     assert abs(float(rgb.sum()) - 3667.208252) < 0.02
@@ -78,8 +79,8 @@ def test_golden_compositing_fixed_trip():
 def test_compositing_matches_glsl_oracle(wrap):
     vol_u8 = sphere_volume((16, 16, 16))
     W, H = 12, 10
-    rays = generate_rays(Camera(width=W, height=H))
-    rgb, alpha = TR.render_compositing(as_normalized_volume(vol_u8), rays.entry_uv,
+    rays = generate_rays(Camera(width=W, height=H), device="cpu")
+    rgb, alpha = TR.render_compositing(as_normalized_volume(vol_u8, device="cpu"), rays.entry_uv,
                                        rays.direction, rays.hit, wrap=wrap)
     ref_rgb, ref_alpha = render_compositing_oracle(vol_u8, W, H, wrap=wrap)
     assert ref_alpha.max() > 0.5

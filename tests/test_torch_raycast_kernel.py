@@ -49,10 +49,10 @@ def test_plan_matches_jax_pallas_plan():
         plan_j = JK.CompositingPlan(entry_uv, direction, hit, (X, Y, Z), max_samples=24)
         assert plan_j.use_kernel
         rgb_j, a_j = plan_j.render(vol_j)
-    rays = rays_from_numpy(entry_uv, direction, hit)
+    rays = rays_from_numpy(entry_uv, direction, hit, device="cpu")
     plan_t = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
                                 max_samples=24)
-    rgb_t, a_t = plan_t.render(as_normalized_volume(vol_u8))
+    rgb_t, a_t = plan_t.render(as_normalized_volume(vol_u8, device="cpu"))
     assert rgb_t.shape == (32, 64, 3) and a_t.shape == (32, 64)
     assert float(a_t.max()) > 0.5
     np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), atol=1e-5, rtol=0)
@@ -64,8 +64,8 @@ def test_render_compositing_kernel_cpu_equals_plain():
     equal to ``render_compositing`` for a byte-derived volume, both wraps."""
     from volumerenderer_tpu_torch.ops.raycast import render_compositing
 
-    vol = as_normalized_volume(_volume_u8())
-    rays = rays_from_numpy(*_jax_rays(32, 16))
+    vol = as_normalized_volume(_volume_u8(), device="cpu")
+    rays = rays_from_numpy(*_jax_rays(32, 16), device="cpu")
     for wrap in ("clamp", "repeat"):
         got = RK.render_compositing_kernel(vol, rays.entry_uv, rays.direction, rays.hit,
                                            max_samples=20, wrap=wrap)
@@ -77,7 +77,7 @@ def test_render_compositing_kernel_cpu_equals_plain():
 
 def test_quantize_u8_round_trips_bytes():
     v = _volume_u8()
-    assert torch.equal(RK.quantize_u8(as_normalized_volume(v)), torch.from_numpy(v))
+    assert torch.equal(RK.quantize_u8(as_normalized_volume(v, device="cpu")), torch.from_numpy(v))
     q = RK.quantize_u8(torch.tensor([-0.5, 0.0, 0.5 / 255, 1.5 / 255, 1.0, 2.0]))
     assert q.tolist() == [0, 0, 0, 2, 255, 255]
 
@@ -85,7 +85,7 @@ def test_quantize_u8_round_trips_bytes():
 def _wrapper_inputs():
     from volumerenderer_tpu_torch import Camera, generate_rays
 
-    rays = generate_rays(Camera(width=16, height=8))
+    rays = generate_rays(Camera(width=16, height=8), device="cpu")
     Z, Y, X = VOL_SHAPE
     return dict(vol_u8=torch.from_numpy(_volume_u8()), entry_uv=rays.entry_uv,
                 dir_step=(rays.direction * step_sizes((X, Y, Z), "cpu")).contiguous(),

@@ -33,7 +33,7 @@ def _uvw():
 
 def test_as_normalized_volume_exact():
     v = _volume()
-    ours = T.as_normalized_volume(v)
+    ours = T.as_normalized_volume(v, device="cpu")
     assert ours.dtype == torch.float32
     np.testing.assert_array_equal(ours.numpy(), np.asarray(J.as_normalized_volume(v)))
     f = np.random.default_rng(1).random(SHAPE).astype(np.float32)
@@ -44,7 +44,8 @@ def test_as_normalized_volume_exact():
 def test_sample_trilinear_matches_jax(wrap):
     v = _volume()
     uvw = _uvw()
-    ours = T.sample_trilinear(T.as_normalized_volume(v), torch.from_numpy(uvw), wrap=wrap)
+    ours = T.sample_trilinear(T.as_normalized_volume(v, device="cpu"), torch.from_numpy(uvw),
+                              wrap=wrap)
     ref = J.sample_trilinear(J.as_normalized_volume(v), uvw, wrap=wrap)
     assert ours.shape == (uvw.shape[0],)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-7, rtol=0)

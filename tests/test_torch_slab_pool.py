@@ -47,7 +47,7 @@ def test_build_slab_pool_matches_jax(scene, with_mip8):
     mip8 = _mip8(u8) if with_mip8 else None
     pool_j, map_j = JR.build_slab_pool(jax_normalized(u8),
                                        mip8=None if mip8 is None else mip8.numpy())
-    pool_t, map_t = RK.build_slab_pool(as_normalized_volume(u8), mip8=mip8)
+    pool_t, map_t = RK.build_slab_pool(as_normalized_volume(u8, device="cpu"), mip8=mip8)
     assert pool_t.dtype == torch.int32 and map_t.dtype == torch.int32
     np.testing.assert_array_equal(pool_t.numpy(), np.asarray(pool_j))
     np.testing.assert_array_equal(map_t.numpy(), np.asarray(map_j))
@@ -65,7 +65,7 @@ def test_narrow_pool_is_jax_first_chunks_relaid(scene):
     u8 = SCENES[scene]()
     Z, Y, X = u8.shape
     pool_j, map_j = JR.build_slab_pool_narrow(jax_normalized(u8))
-    pool_t, map_t = RK.build_slab_pool_narrow(as_normalized_volume(u8))
+    pool_t, map_t = RK.build_slab_pool_narrow(as_normalized_volume(u8, device="cpu"))
     C = X // 128
     relaid = np.asarray(pool_j)[:C].reshape(C, -1, RK.SLAB_H, Y, 128) \
         .transpose(1, 2, 3, 0, 4).reshape(-1, RK.SLAB_H, Y, X)
@@ -80,10 +80,10 @@ def test_narrow_pool_is_jax_first_chunks_relaid(scene):
 
 def test_packing_matches_jax():
     u8 = _dense_u8()[:, :, :20]
-    vj, vt = jax_normalized(u8), as_normalized_volume(u8)
+    vj, vt = jax_normalized(u8), as_normalized_volume(u8, device="cpu")
     np.testing.assert_array_equal(RK.pack_pairs(vt).numpy(), np.asarray(JR.pack_pairs(vj)))
     np.testing.assert_array_equal(RK.pack_pairs16(vt).numpy(), np.asarray(JR.pack_pairs16(vj)))
-    odd = as_normalized_volume(_dense_u8()[:, :11, :13])  # ragged blocks
+    odd = as_normalized_volume(_dense_u8()[:, :11, :13], device="cpu")  # ragged blocks
     np.testing.assert_array_equal(RK.block_max8(odd).numpy(),
                                   np.asarray(JR.block_max8(jax_normalized(odd.numpy()))))
 
@@ -95,7 +95,7 @@ def test_pool_sampler_bit_equal_to_dense(build, shape):
     u8 = rng.integers(0, 256, shape, dtype=np.uint8)
     u8[8:16] = 0  # an empty z-block between occupied ones
     Z, Y, X = shape
-    vol = as_normalized_volume(u8)
+    vol = as_normalized_volume(u8, device="cpu")
     pool, smap = (RK.build_slab_pool if build == "pair16" else RK.build_slab_pool_narrow)(vol)
     n = 6000
     uvw = rng.uniform(-0.2, 1.2, (n, 3)).astype(np.float32)

@@ -54,8 +54,8 @@ def test_slice_matches_jax_entry_path(az_deg):
         cam_t, cam_j = _orbit(az_deg, W, H, Camera), _orbit(az_deg, W, H, J.Camera)
     vol_u8 = turbulence_volume((32, 32, 32), seed=99)
 
-    vol = as_normalized_volume(vol_u8)
-    rays = generate_rays(cam_t)
+    vol = as_normalized_volume(vol_u8, device="cpu")
+    rays = generate_rays(cam_t, device="cpu")
     Z, Y, X = vol.shape
     rgb_t, a_t = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z)).render(vol)
 
@@ -72,8 +72,8 @@ def test_slice_matches_jax_entry_path(az_deg):
 
 def test_renderer_registry_on_cpu():
     """On CPU tensors both registry renderers are the plain march."""
-    vol = as_normalized_volume(turbulence_volume((16, 16, 16), seed=2))
-    rays = generate_rays(Camera(width=24, height=16))
+    vol = as_normalized_volume(turbulence_volume((16, 16, 16), seed=2), device="cpu")
+    rays = generate_rays(Camera(width=24, height=16), device="cpu")
     ref = reference_renderer()(vol, rays.entry_uv, rays.direction, rays.hit)
     best = best_renderer()(vol, rays.entry_uv, rays.direction, rays.hit)
     for r, b in zip(ref, best):
@@ -91,15 +91,15 @@ def test_interop_round_trip():
     vol_u8 = turbulence_volume_jax((16, 20, 24), seed=4)
     rays_j = J.generate_rays(cam_j)
     rays = rays_from_numpy(np.asarray(rays_j.entry_uv), np.asarray(rays_j.direction),
-                           np.asarray(rays_j.hit))
+                           np.asarray(rays_j.hit), device="cpu")
     assert rays.hit.dtype == torch.bool and rays.entry_uv.dtype == torch.float32
     np.testing.assert_array_equal(rays.entry_uv.numpy(), np.asarray(rays_j.entry_uv))
     np.testing.assert_array_equal(rays.hit.numpy(), np.asarray(rays_j.hit))
 
-    vol = volume_from_numpy(vol_u8)
+    vol = volume_from_numpy(vol_u8, device="cpu")
     vol_j = J.as_normalized_volume(vol_u8)
     np.testing.assert_array_equal(vol.numpy(), np.asarray(vol_j))
-    np.testing.assert_array_equal(volume_from_numpy(np.asarray(vol_j)).numpy(),
+    np.testing.assert_array_equal(volume_from_numpy(np.asarray(vol_j), device="cpu").numpy(),
                                   np.asarray(vol_j))
 
     Z, Y, X = vol.shape
@@ -114,9 +114,10 @@ def test_interop_round_trip():
 @pytest.mark.parametrize("bad", [np.zeros((4, 4), np.uint8), np.zeros((2, 2, 2), np.int32)])
 def test_interop_rejects_bad_volume(bad):
     with pytest.raises(ValueError):
-        volume_from_numpy(bad)
+        volume_from_numpy(bad, device="cpu")
 
 
 def test_interop_rejects_bad_rays():
     with pytest.raises(ValueError):
-        rays_from_numpy(np.zeros((4, 4, 3)), np.zeros((4, 4, 3)), np.zeros((4, 5), bool))
+        rays_from_numpy(np.zeros((4, 4, 3)), np.zeros((4, 4, 3)), np.zeros((4, 5), bool),
+                        device="cpu")

@@ -57,7 +57,7 @@ def _jax_rays(width=64, height=32):
 
 
 def _plan(rays_np, max_samples=24, wrap="clamp"):
-    rays = rays_from_numpy(*rays_np)
+    rays = rays_from_numpy(*rays_np, device="cpu")
     Z, Y, X = VOL_SHAPE
     return RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
                               max_samples=max_samples, wrap=wrap)
@@ -89,7 +89,7 @@ def test_tf_march_steps_matches_jax_pallas_kernel(lane_groups):
         _, _, parts_j = render_tf_grads_pallas(_jax_params(), J.as_normalized_volume(vol_u8),
                                                plan_j)
     plan = _plan(rays_np)
-    ours = tf_march_steps(as_normalized_volume(vol_u8), plan.entry_uv, plan.dir_step,
+    ours = tf_march_steps(as_normalized_volume(vol_u8, device="cpu"), plan.entry_uv, plan.dir_step,
                           plan.hit.bool(), tf_scalars(_params()), plan.max_samples)
     assert float(ours[1].max()) > 0.9 and float(ours[2].max()) > 1.0
     for name, o, p in zip(NAMES, ours, parts_j):
@@ -128,7 +128,7 @@ def test_render_tf_kernel_on_cpu_matches_jax_render_tf_and_grad():
     before = TK.tf_march_cuda.launches
     f = TK.make_render_tf_kernel(_plan((e, d, h)))
     params = TFParams(*(t.requires_grad_(True) for t in _params()))
-    rgb, a = f(params, as_normalized_volume(vol_u8))
+    rgb, a = f(params, as_normalized_volume(vol_u8, device="cpu"))
     np.testing.assert_allclose(rgb.detach().numpy(), np.asarray(rgb_ref), atol=1e-5, rtol=0)
     np.testing.assert_allclose(a.detach().numpy(), np.asarray(a_ref), atol=1e-5, rtol=0)
     loss = torch.sum(rgb * torch.tensor(w_rgb)) + torch.sum(a * torch.tensor(w_a))
@@ -161,8 +161,8 @@ def test_tf_fit_step_fast_matches_jax_step():
                              jnp.full((32, 64, 3), 0.5, jnp.float32), lr=0.05)
 
     f = TK.make_render_tf_kernel(_plan((e, d, h)))
-    params = TFParams.reference()
-    new, loss = TK.tf_fit_step_fast(f, params, as_normalized_volume(vol_u8),
+    params = TFParams.reference(device="cpu")
+    new, loss = TK.tf_fit_step_fast(f, params, as_normalized_volume(vol_u8, device="cpu"),
                                     torch.full((32, 64, 3), 0.5), lr=0.05)
     assert loss.dim() == 0 and not loss.requires_grad
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-6)
@@ -176,7 +176,7 @@ def test_render_tf_kernel_volume_grad_is_zero_and_none_cotangents_count_as_zero(
     """The TF kernel treats the volume as a constant (gradient zeros, as in
     JAX); a loss on rgb alone leaves alpha's cotangent ``None``, which counts
     as zero, and a loss on alpha alone does the same for rgb."""
-    vol = as_normalized_volume(_volume_u8())
+    vol = as_normalized_volume(_volume_u8(), device="cpu")
     plan = _plan(_jax_rays(32, 16))
     f = TK.make_render_tf_kernel(plan)
     params = TFParams(*(t.requires_grad_(True) for t in _params()))
@@ -195,7 +195,7 @@ def test_render_tf_kernel_volume_grad_is_zero_and_none_cotangents_count_as_zero(
 
 
 def test_render_tf_grads_kernel_returns_rgb_and_partials():
-    vol = as_normalized_volume(_volume_u8())
+    vol = as_normalized_volume(_volume_u8(), device="cpu")
     plan = _plan(_jax_rays(32, 16))
     params = _params()
     rgb, alpha, partials = TK.render_tf_grads_kernel(params, vol, plan)
@@ -205,7 +205,7 @@ def test_render_tf_grads_kernel_returns_rgb_and_partials():
 
 
 def _wrapper_inputs():
-    rays = generate_rays(Camera(width=16, height=8))
+    rays = generate_rays(Camera(width=16, height=8), device="cpu")
     Z, Y, X = VOL_SHAPE
     return dict(vol_u8=torch.from_numpy(_volume_u8()), entry_uv=rays.entry_uv,
                 dir_step=(rays.direction * step_sizes((X, Y, Z), "cpu")).contiguous(),
@@ -258,7 +258,7 @@ def test_repeat_plan_is_refused():
     with pytest.raises(ValueError, match="clamp-only"):
         TK.make_render_tf_kernel(plan)
     with pytest.raises(ValueError, match="clamp-only"):
-        TK.render_tf_grads_kernel(_params(), as_normalized_volume(_volume_u8()), plan)
+        TK.render_tf_grads_kernel(_params(), as_normalized_volume(_volume_u8(), device="cpu"), plan)
 
 
 def test_mismatched_volume_is_refused():

@@ -41,14 +41,14 @@ def _scene():
 
 
 def test_reference_params_give_the_reference_render():
-    p = TFParams.reference()
+    p = TFParams.reference(device="cpu")
     assert [float(x) for x in (p.alpha_scale, p.color_gain, p.color_bias)] == \
         pytest.approx([0.6, 1.0, 0.0])
     assert p.flip_sign.tolist() == [-1.0, -1.0, 0.0] and p.flip_bias.tolist() == [1.0, 1.0, 1.0]
     assert all(t.dtype == torch.float32 for t in p)
     assert p.alpha_scale.dim() == 0 and p.flip_sign.shape == (3,)
     vol, (e, d, h) = _scene()
-    rays = rays_from_numpy(e, d, h)
+    rays = rays_from_numpy(e, d, h, device="cpu")
     vt = torch.tensor(vol)
     got = render_tf(p, vt, rays.entry_uv, rays.direction, rays.hit, MAX_SAMPLES)
     ref = render_compositing(vt, rays.entry_uv, rays.direction, rays.hit, MAX_SAMPLES)
@@ -62,9 +62,10 @@ def test_render_tf_matches_jax(wrap):
     vol, (e, d, h) = _scene()
     pj = _jax_params()
     rgb_j, a_j = render_tf_jax(pj, jnp.asarray(vol), e, d, h, max_samples=MAX_SAMPLES, wrap=wrap)
-    rays = rays_from_numpy(e, d, h)
-    rgb, a = render_tf(tf_params_from_numpy(**_as_numpy(pj)), torch.tensor(vol), rays.entry_uv,
-                       rays.direction, rays.hit, MAX_SAMPLES, wrap)
+    rays = rays_from_numpy(e, d, h, device="cpu")
+    params = tf_params_from_numpy(**_as_numpy(pj), device="cpu")
+    rgb, a = render_tf(params, torch.tensor(vol), rays.entry_uv, rays.direction, rays.hit,
+                       MAX_SAMPLES, wrap)
     assert rgb.shape == (16, 16, 3) and a.shape == (16, 16)
     assert float(a.max()) > 0.5
     np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_j), atol=1e-6, rtol=0)
@@ -77,9 +78,10 @@ def test_tf_loss_matches_jax():
     target = np.random.default_rng(11).random((16, 16, 3)).astype(np.float32)
     loss_j = tf_loss_jax(pj, jnp.asarray(vol), e, d, h, jnp.asarray(target),
                          max_samples=MAX_SAMPLES)
-    rays = rays_from_numpy(e, d, h)
-    loss = tf_loss(tf_params_from_numpy(**_as_numpy(pj)), torch.tensor(vol), rays.entry_uv,
-                   rays.direction, rays.hit, torch.tensor(target), MAX_SAMPLES)
+    rays = rays_from_numpy(e, d, h, device="cpu")
+    params = tf_params_from_numpy(**_as_numpy(pj), device="cpu")
+    loss = tf_loss(params, torch.tensor(vol), rays.entry_uv, rays.direction, rays.hit,
+                   torch.tensor(target), MAX_SAMPLES)
     assert loss.dim() == 0
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-6)
 
@@ -100,8 +102,9 @@ def test_autograd_gradients_match_jax_grad():
 
     gp_j, gv_j = jax.grad(loss_j, argnums=(0, 1))(pj, jnp.asarray(vol))
 
-    rays = rays_from_numpy(e, d, h)
-    params = TFParams(*(t.requires_grad_(True) for t in tf_params_from_numpy(**_as_numpy(pj))))
+    rays = rays_from_numpy(e, d, h, device="cpu")
+    params = TFParams(*(t.requires_grad_(True)
+                        for t in tf_params_from_numpy(**_as_numpy(pj), device="cpu")))
     vt = torch.tensor(vol, requires_grad=True)
     rgb, a = render_tf(params, vt, rays.entry_uv, rays.direction, rays.hit, MAX_SAMPLES)
     loss = torch.sum(rgb * torch.tensor(w_rgb)) + torch.sum(a * torch.tensor(w_a))
@@ -116,14 +119,14 @@ def test_autograd_gradients_match_jax_grad():
 def test_tf_params_from_numpy_round_trips():
     pj = _jax_params()
     fields = _as_numpy(pj)
-    pt = tf_params_from_numpy(**fields)
+    pt = tf_params_from_numpy(**fields, device="cpu")
     assert isinstance(pt, TFParams) and pt._fields == JTFParams._fields
     for name in TFParams._fields:
         got = getattr(pt, name)
         assert got.dtype == torch.float32 and got.device.type == "cpu"
         np.testing.assert_array_equal(got.numpy(), fields[name])
-    ref = tf_params_from_numpy(**_as_numpy(JTFParams.reference()))
-    for a, b in zip(ref, TFParams.reference()):
+    ref = tf_params_from_numpy(**_as_numpy(JTFParams.reference()), device="cpu")
+    for a, b in zip(ref, TFParams.reference(device="cpu")):
         assert torch.equal(a, b)
 
 
@@ -137,4 +140,4 @@ def test_tf_params_from_numpy_rejects_bad_fields(edit, err):
     fields = _as_numpy(_jax_params())
     edit(fields)
     with pytest.raises(err):
-        tf_params_from_numpy(**fields)
+        tf_params_from_numpy(**fields, device="cpu")

@@ -35,7 +35,8 @@ def _scene(scale=1.0):
 
 def _port_leaves(params_j, vol):
     fields = {k: np.asarray(v) for k, v in params_j._asdict().items()}
-    params = TFParams(*(t.requires_grad_(True) for t in tf_params_from_numpy(**fields)))
+    params = TFParams(*(t.requires_grad_(True)
+                        for t in tf_params_from_numpy(**fields, device="cpu")))
     return params, torch.tensor(vol, requires_grad=True)
 
 
@@ -61,7 +62,7 @@ def test_o1_matches_jax_o1(kind):
     rgb_j, a_j = render_tf_o1_jax(pj, jnp.asarray(vol), e, d, h, 48)
     gp_j, gv_j = jax.grad(loss_j, argnums=(0, 1))(pj, jnp.asarray(vol))
 
-    rays = rays_from_numpy(e, d, h)
+    rays = rays_from_numpy(e, d, h, device="cpu")
     params, vt = _port_leaves(pj, vol)
     rgb, a = render_tf_o1(params, vt, rays.entry_uv, rays.direction, rays.hit, 48)
     np.testing.assert_allclose(rgb.detach().numpy(), np.asarray(rgb_j), atol=1e-6, rtol=0)
@@ -82,7 +83,7 @@ def test_o1_gradients_match_autograd_through_render_tf():
     torch autograd through the port's ``render_tf`` loop, moderate density
     (saturating and pass-through rays), same bars."""
     vol, (e, d, h) = _scene()
-    rays = rays_from_numpy(e, d, h)
+    rays = rays_from_numpy(e, d, h, device="cpu")
     target = torch.full((16, 16, 3), 0.4)
     grads = []
     for render in (render_tf, render_tf_o1):
@@ -100,8 +101,8 @@ def test_o1_pixel_gradients_match_finite_differences():
     away from the 0.99 threshold; the five most influential voxels of one
     pixel, central differences with eps 1e-3, bar 5e-3 * max(1, |fd|)."""
     vol, (e, d, h) = _scene(scale=0.2)
-    rays = rays_from_numpy(e, d, h)
-    p = TFParams.reference()
+    rays = rays_from_numpy(e, d, h, device="cpu")
+    p = TFParams.reference(device="cpu")
     pix = (7, 9)
 
     def pixel(v):
@@ -126,7 +127,7 @@ def test_volume_grad_skippable():
     """``compute_volume_grad=False`` skips the scatter: the param gradients
     are unchanged and the volume's is zeros, as in JAX."""
     vol, (e, d, h) = _scene()
-    rays = rays_from_numpy(e, d, h)
+    rays = rays_from_numpy(e, d, h, device="cpu")
     out = {}
     for flag in (True, False):
         params, vt = _port_leaves(JTFParams.reference(), vol)
@@ -144,8 +145,8 @@ def test_o1_forward_against_render_tf_measures_position_rounding():
     agree to rounding, here within test_vjp_o1.py's 1e-6 bar, and not
     necessarily bit for bit (its JAX docstring's "exactly" does not hold)."""
     vol, (e, d, h) = _scene()
-    rays = rays_from_numpy(e, d, h)
-    p = TFParams.reference()
+    rays = rays_from_numpy(e, d, h, device="cpu")
+    p = TFParams.reference(device="cpu")
     vt = torch.tensor(vol)
     pos_rec = rays.entry_uv
     step = rays.direction * torch.tensor([1 / 16, 1 / 16, 1 / 16])

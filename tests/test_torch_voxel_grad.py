@@ -59,7 +59,7 @@ def _jax_rays(width=64, height=32):
 
 
 def _plan(rays_np, max_samples=24):
-    rays = rays_from_numpy(*rays_np)
+    rays = rays_from_numpy(*rays_np, device="cpu")
     Z, Y, X = VOL_SHAPE
     return RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
                               max_samples=max_samples)
@@ -96,7 +96,7 @@ def test_render_tf_voxel_on_cpu_matches_jax_o1():
     before = VK.voxel_grad_cuda.launches
     f = VK.make_render_tf_voxel(_plan(rays_np))
     params = TFParams(*(t.requires_grad_(True) for t in _params()))
-    vt = as_normalized_volume(vol_u8).requires_grad_(True)
+    vt = as_normalized_volume(vol_u8, device="cpu").requires_grad_(True)
     rgb, a = f(params, vt)
     loss = torch.sum(rgb * torch.tensor(w_rgb)) + torch.sum(a * torch.tensor(w_a))
     *gp, gv = torch.autograd.grad(loss, [*params, vt])
@@ -140,7 +140,7 @@ def test_voxel_grad_steps_matches_jax_voxel_grad_kernel():
     params = _params()
     alpha_T, P_tot = (torch.tensor(np.asarray(parts[i])) for i in (1, 3))
     gc, gaT_term = cotangent_images(params, torch.tensor(g_rgb), torch.tensor(g_a), alpha_T)
-    gv = voxel_grad_steps(as_normalized_volume(vol_u8), plan.entry_uv, plan.dir_step,
+    gv = voxel_grad_steps(as_normalized_volume(vol_u8, device="cpu"), plan.entry_uv, plan.dir_step,
                           plan.hit.bool(), tf_scalars(params), gc, gaT_term, P_tot,
                           plan.max_samples)
     assert np.abs(gv_j).max() > 0.5
@@ -148,14 +148,14 @@ def test_voxel_grad_steps_matches_jax_voxel_grad_kernel():
 
 
 def _wrapper_inputs():
-    rays = generate_rays(Camera(width=16, height=8))
+    rays = generate_rays(Camera(width=16, height=8), device="cpu")
     Z, Y, X = VOL_SHAPE
     vol_u8 = torch.from_numpy(_volume_u8())
     dir_step = (rays.direction * step_sizes((X, Y, Z), "cpu")).contiguous()
     hit = rays.hit.to(torch.uint8)
     tf = tf_scalars(_params())
-    partials = tf_march_steps(as_normalized_volume(vol_u8), rays.entry_uv, dir_step, rays.hit,
-                              tf, 32)
+    partials = tf_march_steps(as_normalized_volume(vol_u8, device="cpu"), rays.entry_uv, dir_step,
+                              rays.hit, tf, 32)
     g_rgb, g_a = (torch.tensor(x) for x in _cotangents(9, (8, 16)))
     gc, gaT_term = cotangent_images(_params(), g_rgb, g_a, partials[1])
     return dict(vol_u8=vol_u8, entry_uv=rays.entry_uv, dir_step=dir_step, hit=hit,
@@ -181,7 +181,7 @@ def test_wrapper_cpu_runs_plain_version_and_conserves_cotangent():
 
 
 def test_voxel_grad_kernel_counts_none_cotangents_as_zero():
-    vol = as_normalized_volume(_volume_u8())
+    vol = as_normalized_volume(_volume_u8(), device="cpu")
     plan = _plan(_jax_rays(32, 16))
     params = _params()
     from volumerenderer_tpu_torch.ops.cuda.tf_kernel import render_tf_grads_kernel
@@ -220,7 +220,7 @@ def test_wrapper_rejects_bad_arguments(kwargs, match):
 
 
 def test_repeat_plan_is_refused():
-    rays = rays_from_numpy(*_jax_rays(32, 16))
+    rays = rays_from_numpy(*_jax_rays(32, 16), device="cpu")
     Z, Y, X = VOL_SHAPE
     plan = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z), wrap="repeat")
     with pytest.raises(ValueError, match="clamp-only"):

@@ -8,7 +8,9 @@ TF-gradient and voxel-gradient marches also run as hand-written CUDA kernels
 for Hopper (``ops/cuda``, ``csrc/``), built with ``nvcc`` at first use.
 The compressed domain (``codecs``: the kd-tree built on the host, decoded on
 the device) renders through ``CompressedRenderer`` from sparse slab pools,
-with pooled variants of the same kernels.  It imports neither jax nor
+with pooled variants of the same kernels.  ``parallel`` shards the image
+rows, or the volume in z slabs or bricks, over a mesh of devices; inside a
+volume shard the segment marches run.  It imports neither jax nor
 ``volumerenderer_tpu``.
 """
 
@@ -19,6 +21,8 @@ from .ops.isosurface import render_isosurface
 from .diff.transfer import TFParams, render_tf
 from .codecs.kdtree import KdTree
 from .models.compressed import CompressedRenderer
+from .parallel import (DeviceMesh, make_brick_mesh, make_mesh, make_z_mesh,
+                       render_bricksharded_kernel, render_zsharded_kernel, shard_volume)
 
 __version__ = "0.1.0"
 
@@ -35,4 +39,11 @@ __all__ = [
     "render_tf",
     "KdTree",
     "CompressedRenderer",
+    "DeviceMesh",
+    "make_mesh",
+    "make_z_mesh",
+    "make_brick_mesh",
+    "shard_volume",
+    "render_zsharded_kernel",
+    "render_bricksharded_kernel",
 ]

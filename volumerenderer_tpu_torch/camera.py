@@ -73,7 +73,7 @@ class RayBundle:
 
 
 def generate_rays(camera: Camera, width: int | None = None, height: int | None = None,
-                  device: torch.device | str = "cpu") -> RayBundle:
+                  device: torch.device | str = "cuda") -> RayBundle:
     """Generate the per-pixel ray bundle for ``camera`` on ``device``
     (optionally overriding the image size)."""
     w = int(width or camera.width)

@@ -48,7 +48,7 @@ def _pack_rows(rows: np.ndarray) -> np.ndarray:
             | (quads[..., 3] << 6)).astype(np.uint8)
 
 
-def to_device(tree: KdTree, device: torch.device | str = "cpu") -> tuple[DeviceKdTree, dict]:
+def to_device(tree: KdTree, device: torch.device | str = "cuda") -> tuple[DeviceKdTree, dict]:
     """Put a host tree on ``device``; returns (tensors, static spec for the
     decoder: dims, orig_depth, max_depth, schedule, chain_len)."""
     packed_levels = tuple(torch.from_numpy(pack2_np(codes)).to(device)

@@ -1,8 +1,12 @@
 // Trilinear sampling of the 8-bit volume with OpenGL texture semantics, shared
 // by the march, shade and gradient kernels (composite_march.cu, iso_march.cu,
-// iso_shade.cu, tf_march.cu, voxel_grad.cu), its adjoint for the voxel
-// gradient, and the same sampler fetching from a sparse z-slab pool
-// (sample_trilinear_pool, for the pooled marches and shade).
+// iso_shade.cu, tf_march.cu, voxel_grad.cu, seg_march.cu), its adjoint for the
+// voxel gradient, and the same sampler fetching from a sparse z-slab pool
+// (sample_trilinear_pool, for the pooled marches and shade) or from one
+// shard's halo-extended slab (sample_trilinear_shard, for the segment marches).
+// The samplers differ only in how they fetch: the texel math (texel) and the
+// seven lerps (trilerp) are written once, so their bit-for-bit agreement
+// rests on one copy.
 //
 // The device counterpart of volumerenderer_tpu_torch/ops/sampling.py::
 // sample_trilinear on the 8-bit grid: texel centers at (i + 0.5) / N, bytes
@@ -30,8 +34,45 @@ __device__ __forceinline__ int wrap_index(int i, int n, bool repeat) {
   return min(max(i, 0), n - 1);
 }
 
+// The texel math every sampler here shares: the anchor floor(u * n - 0.5) of
+// coordinate u on an axis of n texels, and the fraction past it.
+__device__ __forceinline__ int texel(float u, int n, float& frac) {
+  const float t = u * static_cast<float>(n) - 0.5f;
+  const float i = floorf(t);
+  frac = t - i;
+  return static_cast<int>(i);
+}
+
+// The seven lerps of the 8 taps c<x><y><z> (index 1 = the upper tap of that
+// axis): along x, then y, then z.
+__device__ __forceinline__ float trilerp(float c000, float c100, float c010, float c110,
+                                         float c001, float c101, float c011, float c111,
+                                         float fx, float fy, float fz) {
+  const float c00 = c000 + (c100 - c000) * fx;
+  const float c10 = c010 + (c110 - c010) * fx;
+  const float c01 = c001 + (c101 - c001) * fx;
+  const float c11 = c011 + (c111 - c011) * fx;
+  const float c0 = c00 + (c10 - c00) * fy;
+  const float c1 = c01 + (c11 - c01) * fy;
+  return c0 + (c1 - c0) * fz;
+}
+
 __device__ __forceinline__ float tap(const uint8_t* __restrict__ vol, size_t offset) {
   return static_cast<float>(__ldg(vol + offset)) * (1.0f / 255.0f);
+}
+
+// trilerp of the bytes vol[z + y + x], given the flat offsets of each axis's
+// lower and upper tap (64-bit: z*Y*X overflows int32 past 2^31 voxels).
+__device__ __forceinline__ float gather_trilerp(const uint8_t* __restrict__ vol, size_t x0,
+                                                size_t x1, size_t y0, size_t y1, size_t z0,
+                                                size_t z1, float fx, float fy, float fz) {
+  return trilerp(tap(vol, z0 + y0 + x0), tap(vol, z0 + y0 + x1), tap(vol, z0 + y1 + x0),
+                 tap(vol, z0 + y1 + x1), tap(vol, z1 + y0 + x0), tap(vol, z1 + y0 + x1),
+                 tap(vol, z1 + y1 + x0), tap(vol, z1 + y1 + x1), fx, fy, fz);
+}
+
+__device__ __forceinline__ size_t wrapped(int i, int n, bool repeat, size_t stride) {
+  return static_cast<size_t>(wrap_index(i, n, repeat)) * stride;
 }
 
 __device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vol, float u,
@@ -42,45 +83,15 @@ __device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vo
     v = v - floorf(v);
     w = w - floorf(w);
   }
-  const float tx = u * static_cast<float>(X) - 0.5f;
-  const float ty = v * static_cast<float>(Y) - 0.5f;
-  const float tz = w * static_cast<float>(Z) - 0.5f;
-  const float ix = floorf(tx);
-  const float iy = floorf(ty);
-  const float iz = floorf(tz);
-  const float fx = tx - ix;
-  const float fy = ty - iy;
-  const float fz = tz - iz;
-  const int i0x = static_cast<int>(ix);
-  const int i0y = static_cast<int>(iy);
-  const int i0z = static_cast<int>(iz);
-
-  // 64-bit flat offsets: z*Y*X overflows int32 for volumes past 2^31 voxels
-  const size_t stride_y = static_cast<size_t>(X);
-  const size_t stride_z = static_cast<size_t>(X) * static_cast<size_t>(Y);
-  const size_t x0 = static_cast<size_t>(wrap_index(i0x, X, repeat));
-  const size_t x1 = static_cast<size_t>(wrap_index(i0x + 1, X, repeat));
-  const size_t y0 = static_cast<size_t>(wrap_index(i0y, Y, repeat)) * stride_y;
-  const size_t y1 = static_cast<size_t>(wrap_index(i0y + 1, Y, repeat)) * stride_y;
-  const size_t z0 = static_cast<size_t>(wrap_index(i0z, Z, repeat)) * stride_z;
-  const size_t z1 = static_cast<size_t>(wrap_index(i0z + 1, Z, repeat)) * stride_z;
-
-  const float c000 = tap(vol, z0 + y0 + x0);
-  const float c100 = tap(vol, z0 + y0 + x1);
-  const float c010 = tap(vol, z0 + y1 + x0);
-  const float c110 = tap(vol, z0 + y1 + x1);
-  const float c001 = tap(vol, z1 + y0 + x0);
-  const float c101 = tap(vol, z1 + y0 + x1);
-  const float c011 = tap(vol, z1 + y1 + x0);
-  const float c111 = tap(vol, z1 + y1 + x1);
-
-  const float c00 = c000 + (c100 - c000) * fx;
-  const float c10 = c010 + (c110 - c010) * fx;
-  const float c01 = c001 + (c101 - c001) * fx;
-  const float c11 = c011 + (c111 - c011) * fx;
-  const float c0 = c00 + (c10 - c00) * fy;
-  const float c1 = c01 + (c11 - c01) * fy;
-  return c0 + (c1 - c0) * fz;
+  float fx, fy, fz;
+  const int i0x = texel(u, X, fx);
+  const int i0y = texel(v, Y, fy);
+  const int i0z = texel(w, Z, fz);
+  const size_t sy = static_cast<size_t>(X);
+  const size_t sz = static_cast<size_t>(X) * static_cast<size_t>(Y);
+  return gather_trilerp(vol, wrapped(i0x, X, repeat, 1), wrapped(i0x + 1, X, repeat, 1),
+                        wrapped(i0y, Y, repeat, sy), wrapped(i0y + 1, Y, repeat, sy),
+                        wrapped(i0z, Z, repeat, sz), wrapped(i0z + 1, Z, repeat, sz), fx, fy, fz);
 }
 
 // The dense volume as a sampler object: the march and shade bodies are
@@ -127,18 +138,10 @@ __device__ __forceinline__ float sample_trilinear_pool(const void* pool,
                                                        const int32_t* __restrict__ slab_map,
                                                        int n_slots, float u, float v, float w,
                                                        int X, int Y, int Z) {
-  const float tx = u * static_cast<float>(X) - 0.5f;
-  const float ty = v * static_cast<float>(Y) - 0.5f;
-  const float tz = w * static_cast<float>(Z) - 0.5f;
-  const float ix = floorf(tx);
-  const float iy = floorf(ty);
-  const float iz = floorf(tz);
-  const float fx = tx - ix;
-  const float fy = ty - iy;
-  const float fz = tz - iz;
-  const int i0x = static_cast<int>(ix);
-  const int i0y = static_cast<int>(iy);
-  const int i0z = static_cast<int>(iz);
+  float fx, fy, fz;
+  const int i0x = texel(u, X, fx);
+  const int i0y = texel(v, Y, fy);
+  const int i0z = texel(w, Z, fz);
 
   const int x0 = wrap_index(i0x, X, false);
   const size_t y0 = static_cast<size_t>(wrap_index(i0y, Y, false));
@@ -165,14 +168,7 @@ __device__ __forceinline__ float sample_trilinear_pool(const void* pool,
   const float c110 = low_edge ? c010 : static_cast<float>(p10 & 255) * kInv255;
   const float c101 = low_edge ? c001 : static_cast<float>(p01 & 255) * kInv255;
   const float c111 = low_edge ? c011 : static_cast<float>(p11 & 255) * kInv255;
-
-  const float c00 = c000 + (c100 - c000) * fx;
-  const float c10 = c010 + (c110 - c010) * fx;
-  const float c01 = c001 + (c101 - c001) * fx;
-  const float c11 = c011 + (c111 - c011) * fx;
-  const float c0 = c00 + (c10 - c00) * fy;
-  const float c1 = c01 + (c11 - c01) * fy;
-  return c0 + (c1 - c0) * fz;
+  return trilerp(c000, c100, c010, c110, c001, c101, c011, c111, fx, fy, fz);
 }
 
 template <PoolFormat F>
@@ -186,6 +182,44 @@ struct PoolSampler {
   }
 };
 
+// Clamp-mode sample_trilinear of a global (X, Y, Z) volume, fetched from one
+// shard's halo-extended u8 slab: (Ez, Ey, X) bytes holding the global rows
+// [z_lo, z_lo + Ez) x [y_lo, y_lo + Ey).  The texel math, the anchor and both
+// taps of each axis are sample_trilinear's, clamped against the global
+// extents; only then are the z and y indices rebased by (z_lo, y_lo), and
+// clamped into the slab so that no position reads outside it.  A shard owns
+// the anchors z0 in [z_lo, z_lo + n_z) and y0 in [y_lo, y_lo + n_y); their taps
+// z0 + 1 and y0 + 1 need one halo plane and one halo row, so for every owned
+// anchor the sample is the dense sampler's on the whole volume, bit for bit
+// (the counterpart of ops/sampling.py::sample_trilinear_shard).
+__device__ __forceinline__ size_t rebased(int i, int n, int lo, int extent, size_t stride) {
+  return static_cast<size_t>(wrap_index(wrap_index(i, n, false) - lo, extent, false)) * stride;
+}
+
+__device__ __forceinline__ float sample_trilinear_shard(const uint8_t* __restrict__ slab, float u,
+                                                        float v, float w, int X, int Y, int Z,
+                                                        int z_lo, int y_lo, int Ez, int Ey) {
+  float fx, fy, fz;
+  const int i0x = texel(u, X, fx);
+  const int i0y = texel(v, Y, fy);
+  const int i0z = texel(w, Z, fz);
+  const size_t sy = static_cast<size_t>(X);
+  const size_t sz = static_cast<size_t>(X) * static_cast<size_t>(Ey);
+  return gather_trilerp(slab, wrapped(i0x, X, false, 1), wrapped(i0x + 1, X, false, 1),
+                        rebased(i0y, Y, y_lo, Ey, sy), rebased(i0y + 1, Y, y_lo, Ey, sy),
+                        rebased(i0z, Z, z_lo, Ez, sz), rebased(i0z + 1, Z, z_lo, Ez, sz), fx, fy,
+                        fz);
+}
+
+struct ShardSampler {
+  const uint8_t* slab;
+  int X, Y, Z;
+  int z_lo, y_lo, Ez, Ey;
+  __device__ __forceinline__ float operator()(float u, float v, float w) const {
+    return sample_trilinear_shard(slab, u, v, w, X, Y, Z, z_lo, y_lo, Ez, Ey);
+  }
+};
+
 // The adjoint of clamp-mode sample_trilinear at (u, v, w): the flat offsets
 // of the 8 taps and the cotangent g times each tap's weight, g*wz*wy*wx in
 // that order, z outermost and x innermost (the order of
@@ -195,27 +229,16 @@ struct PoolSampler {
 // sample_trilinear's, which stays as it is.
 __device__ __forceinline__ void trilinear_adjoint(float u, float v, float w, int X, int Y, int Z,
                                                   float g, size_t offset[8], float weight[8]) {
-  const float tx = u * static_cast<float>(X) - 0.5f;
-  const float ty = v * static_cast<float>(Y) - 0.5f;
-  const float tz = w * static_cast<float>(Z) - 0.5f;
-  const float ix = floorf(tx);
-  const float iy = floorf(ty);
-  const float iz = floorf(tz);
-  const float fx = tx - ix;
-  const float fy = ty - iy;
-  const float fz = tz - iz;
-  const int i0x = static_cast<int>(ix);
-  const int i0y = static_cast<int>(iy);
-  const int i0z = static_cast<int>(iz);
+  float fx, fy, fz;
+  const int i0x = texel(u, X, fx);
+  const int i0y = texel(v, Y, fy);
+  const int i0z = texel(w, Z, fz);
 
-  const size_t stride_y = static_cast<size_t>(X);
-  const size_t stride_z = static_cast<size_t>(X) * static_cast<size_t>(Y);
-  const size_t xs[2] = {static_cast<size_t>(wrap_index(i0x, X, false)),
-                        static_cast<size_t>(wrap_index(i0x + 1, X, false))};
-  const size_t ys[2] = {static_cast<size_t>(wrap_index(i0y, Y, false)) * stride_y,
-                        static_cast<size_t>(wrap_index(i0y + 1, Y, false)) * stride_y};
-  const size_t zs[2] = {static_cast<size_t>(wrap_index(i0z, Z, false)) * stride_z,
-                        static_cast<size_t>(wrap_index(i0z + 1, Z, false)) * stride_z};
+  const size_t sy = static_cast<size_t>(X);
+  const size_t sz = static_cast<size_t>(X) * static_cast<size_t>(Y);
+  const size_t xs[2] = {wrapped(i0x, X, false, 1), wrapped(i0x + 1, X, false, 1)};
+  const size_t ys[2] = {wrapped(i0y, Y, false, sy), wrapped(i0y + 1, Y, false, sy)};
+  const size_t zs[2] = {wrapped(i0z, Z, false, sz), wrapped(i0z + 1, Z, false, sz)};
   const float wxs[2] = {1.0f - fx, fx};
   const float wys[2] = {1.0f - fy, fy};
   const float wzs[2] = {1.0f - fz, fz};

@@ -22,20 +22,24 @@ and a second forward march yields each step's sample cotangent
 which the trilinear adjoint scatters into the voxels.  Each march is written
 as separate tensor operations in the kernel's order, so the kernels can be
 held to them bit for bit (B4) or to the order of their atomic sums (B5).
-These functions are what the kernel wrappers run on CPU tensors and what
-``chip_smoke.py`` holds the kernels against on the card.  Clamp wrap only,
+``seg_tf_march_steps`` is the TF march with its sums on one shard of a
+volume-sharded layout (the plain version of ``csrc/seg_march.cu``'s B11),
+with the shard's local alpha; ``ops/cuda/seg_kernel.py::compose_tf_segments``
+folds the shards' sums into the global ones.  These functions are what the
+kernel wrappers run on CPU tensors and what ``chip_smoke.py`` holds the
+kernels against on the card.  Clamp wrap only,
 as the kernels.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.raycast import EARLY_OUT_ALPHA, MAX_SAMPLES
-from ..ops.sampling import sample_trilinear, trilinear_scatter_add_
+from ..ops.raycast import BIG_T, EARLY_OUT_ALPHA, MAX_SAMPLES, shard_owned
+from ..ops.sampling import as_sampler, sample_trilinear, trilinear_scatter_add_
 from .transfer import TFParams
 
-__all__ = ["tf_scalars", "tf_march_steps", "step_cotangents", "voxel_grad_steps",
-           "cotangent_images", "tf_param_grads"]
+__all__ = ["tf_scalars", "tf_march_steps", "seg_tf_march_steps", "step_cotangents",
+           "voxel_grad_steps", "cotangent_images", "tf_param_grads"]
 
 
 def tf_scalars(params: TFParams) -> torch.Tensor:
@@ -88,6 +92,48 @@ def tf_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
         alpha = torch.where(alive, alpha + pa * K, alpha)
         alive = alive & (alpha <= EARLY_OUT_ALPHA)
     return color, alpha, R, P, QP, SG, SB
+
+
+def seg_tf_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor,
+                       hit: torch.Tensor, tf_scalars: torch.Tensor, dims, box,
+                       max_samples: int = MAX_SAMPLES):
+    """:func:`tf_march_steps` on one volume shard, as
+    ``ops/raycast.py::seg_march_steps`` marches one: ``volume`` a sampler of
+    the global volume (``shard_sampler``) or a float32 volume, ``dims`` (X,
+    Y, Z), ``box`` the owned anchor box; only owned samples of alive rays
+    composite and add to the sums, with the shard's local alpha, and there
+    is no early-out.
+
+    Returns the eight (H, W) float32 images (C_seg, alpha_seg, t_first, R, P,
+    QP, SG, SB), the fields of the JAX ``launch_seg_tf`` in its order.
+    """
+    K, G, B = tf_scalars[0], tf_scalars[1], tf_scalars[2]
+    color, alpha, R, P, QP, SG, SB = (
+        torch.zeros(entry_uv.shape[:-1], dtype=torch.float32, device=entry_uv.device)
+        for _ in range(7))
+    t_first = torch.full_like(color, BIG_T)
+    sample = as_sampler(volume)
+    pos = entry_uv
+    alive = hit.to(torch.bool)
+    for t in range(max_samples):
+        if not bool(alive.any()):
+            break
+        pos = pos + dir_step
+        alive = alive & _inside(pos)
+        comp = alive & shard_owned(pos, dims, box)
+        s = sample(pos)
+        sc = s * G + B
+        pa = s - s * alpha
+        r = s / torch.clamp(1.0 - K * s, min=1e-12)
+        P = P + torch.where(comp, s * sc * (1.0 - alpha), 0.0)
+        R = R + torch.where(comp, r, 0.0)
+        QP = QP + torch.where(comp, r * P, 0.0)
+        SG = SG + torch.where(comp, pa * s, 0.0)
+        SB = SB + torch.where(comp, pa, 0.0)
+        color = torch.where(comp, color + pa * sc, color)
+        alpha = torch.where(comp, alpha + pa * K, alpha)
+        t_first = torch.where(comp, torch.clamp(t_first, max=float(t)), t_first)
+    return color, alpha, t_first, R, P, QP, SG, SB
 
 
 def step_cotangents(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,

@@ -34,7 +34,7 @@ class TFParams(NamedTuple):
     flip_bias: torch.Tensor     # (3,) final-transfer intercept per channel
 
     @classmethod
-    def reference(cls, device: torch.device | str = "cpu") -> "TFParams":
+    def reference(cls, device: torch.device | str = "cuda") -> "TFParams":
         def f32(v):
             return torch.tensor(v, dtype=torch.float32, device=device)
 

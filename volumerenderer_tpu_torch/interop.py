@@ -22,7 +22,7 @@ __all__ = ["volume_from_numpy", "rays_from_numpy", "camera_from_jax_fields",
            "tf_params_from_numpy", "kdtree_from_numpy"]
 
 
-def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cpu") -> torch.Tensor:
+def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
     """(Z, Y, X) uint8 or float32 array -> float32 volume in [0, 1] on
     ``device`` (bytes are normalized by 255, floats are taken as they are)."""
     arr = np.asarray(arr)
@@ -33,7 +33,7 @@ def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cpu") -> to
 
 
 def rays_from_numpy(entry_uv: np.ndarray, direction: np.ndarray, hit: np.ndarray,
-                    device: torch.device | str = "cpu") -> RayBundle:
+                    device: torch.device | str = "cuda") -> RayBundle:
     """(H, W, 3) entry points and directions and an (H, W) hit mask ->
     a ``RayBundle`` of float32 / bool tensors on ``device``."""
     entry_uv = np.asarray(entry_uv, dtype=np.float32)
@@ -56,7 +56,7 @@ def camera_from_jax_fields(**fields) -> Camera:
     return Camera(**{**fields, **vectors})
 
 
-def tf_params_from_numpy(device: torch.device | str = "cpu", **fields) -> TFParams:
+def tf_params_from_numpy(device: torch.device | str = "cuda", **fields) -> TFParams:
     """``tf_params_from_numpy(**{k: np.asarray(v) for k, v in
     jax_params._asdict().items()})``: the JAX ``TFParams`` as the port's, in
     float32 on ``device``.  Every field is required; an unknown or

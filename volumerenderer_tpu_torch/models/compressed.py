@@ -52,10 +52,10 @@ def _render(vol, rays, mode, fast, **kwargs):
 
 class DenseRenderer:
     """The render API over an uncompressed (Z, Y, X) volume (uint8, or
-    float in [0, 1]), on the volume's device."""
+    float in [0, 1]; a numpy array or a tensor), held on ``device``."""
 
-    def __init__(self, volume):
-        self._vol = as_normalized_volume(volume)
+    def __init__(self, volume, device: torch.device | str = "cuda"):
+        self._vol = as_normalized_volume(volume, device=device)
 
     def volume_at(self, cut_depth=None) -> torch.Tensor:
         return self._vol
@@ -73,7 +73,7 @@ class CompressedRenderer:
     pools (``slab_pool_at``) are cached per cut depth; progressive
     refinement is rendering coarser cuts first."""
 
-    def __init__(self, tree: KdTree, device: torch.device | str = "cpu"):
+    def __init__(self, tree: KdTree, device: torch.device | str = "cuda"):
         if not isinstance(tree, KdTree):
             raise TypeError(f"expected a KdTree, got {type(tree).__name__} (the MidRangeTree "
                             f"input is not ported yet)")

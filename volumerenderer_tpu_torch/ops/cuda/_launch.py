@@ -62,6 +62,41 @@ def check_volume(vol_u8):
         raise ValueError(f"volume extent {tuple(vol_u8.shape)} exceeds int32")
 
 
+def _check_index(name: str, value) -> int:
+    if isinstance(value, bool) or not isinstance(value, int) or not 0 <= value <= INT32_MAX:
+        raise ValueError(f"{name} must be a non-negative int, got {value!r}")
+    return value
+
+
+def check_shard(slab, dims, z_lo, n_z, y_lo, n_y):
+    """The checks of a segment march's shard arguments: ``slab`` (Ez, Ey, X)
+    uint8 holds the global rows [z_lo, z_lo + Ez) x [y_lo, y_lo + Ey) of a
+    volume of ``dims = (X, Y, Z)``, and the shard owns the anchors
+    [z_lo, z_lo + n_z) x [y_lo, y_lo + n_y) (a z-slab: y_lo = 0, n_y = Y).
+    The slab must hold every tap of an owned anchor: the owned rows and one
+    halo plane and row past them, where the volume has one.  Returns the
+    owned box (z_lo, z_hi, y_lo, y_hi)."""
+    if len(dims) != 3:
+        raise ValueError(f"dims must be (X, Y, Z), got {dims!r}")
+    X, Y, Z = (_check_index("dims", d) for d in dims)
+    z_lo, n_z = _check_index("z_lo", z_lo), _check_index("n_z", n_z)
+    y_lo, n_y = _check_index("y_lo", y_lo), _check_index("n_y", n_y)
+    if n_z < 1 or n_y < 1 or z_lo + n_z > Z or y_lo + n_y > Y:
+        raise ValueError(f"owned box z [{z_lo}, {z_lo + n_z}) x y [{y_lo}, {y_lo + n_y}) is "
+                         f"empty or leaves the volume's (Z, Y) = ({Z}, {Y})")
+    if slab.dtype != torch.uint8 or slab.dim() != 3:
+        raise ValueError(f"slab must be an (Ez, Ey, X) uint8 tensor, got {tuple(slab.shape)} "
+                         f"{slab.dtype}")
+    Ez, Ey, Xs = slab.shape
+    need = (min(n_z + 1, Z - z_lo), min(n_y + 1, Y - y_lo), X)
+    if Xs != X or Ez < need[0] or Ey < need[1]:
+        raise ValueError(f"slab {tuple(slab.shape)} does not hold the owned box and its halo: "
+                         f"needs at least {need}")
+    if max(Ez, Ey) > INT32_MAX:
+        raise ValueError(f"slab extent {tuple(slab.shape)} exceeds int32")
+    return z_lo, z_lo + n_z, y_lo, y_lo + n_y
+
+
 def check_image(tensors: dict, shape, dtype, names, suffix=()):
     want = tuple(shape) + tuple(suffix)
     for name in names:

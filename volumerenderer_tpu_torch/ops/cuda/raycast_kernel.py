@@ -166,6 +166,19 @@ class CompositingPlan:
                          * step_sizes(self.dims, direction.device)).contiguous()
         self.hit = hit.to(torch.uint8).contiguous()
 
+    def rows(self, start: int, stop: int, device=None) -> "CompositingPlan":
+        """The plan of image rows [start, stop), on ``device`` (default: this
+        plan's): its ray tensors sliced, and copied when the device differs.
+        Each ray marches alone, so the rows render as they do in the whole
+        plan, bit for bit."""
+        sub = object.__new__(CompositingPlan)
+        sub.dims, sub.max_samples, sub.wrap = self.dims, self.max_samples, self.wrap
+        sub.shape = (stop - start, self.shape[1])
+        for name in ("entry_uv", "dir_step", "hit"):
+            t = getattr(self, name)[start:stop]
+            setattr(sub, name, t if device is None else t.to(device))
+        return sub
+
     def check_volume(self, volume: torch.Tensor) -> None:
         """Raise ValueError unless ``volume`` has the plan's (Z, Y, X) shape."""
         X, Y, Z = self.dims

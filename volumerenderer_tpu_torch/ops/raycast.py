@@ -12,6 +12,11 @@ the CUDA march kernel (``csrc/composite_march.cu``):
 * early termination at ``a > 0.99``, checked after compositing;
 * final fixed transfer: ``r = g = 1 - c``, ``b = 1``.
 
+``seg_march_steps`` is the same march on one shard of a volume-sharded
+layout (the plain version of ``csrc/seg_march.cu``, B10): it composites only
+the samples whose anchor the shard owns, with no early-out, and returns the
+ray's affine segment map.
+
 Per-ray control flow is a latched ``alive`` mask over whole-image tensor
 operations.  Each product and sum is its own operation, so float32 rounding
 matches the JAX functions (no fused multiply-add).
@@ -23,12 +28,13 @@ import torch
 from .sampling import as_sampler
 
 __all__ = ["composite_march", "composite_march_early_exit", "composite_march_steps",
-           "apply_reference_transfer", "render_compositing", "step_sizes",
-           "MAX_SAMPLES", "ALPHA_SCALE", "EARLY_OUT_ALPHA"]
+           "seg_march_steps", "shard_owned", "apply_reference_transfer", "render_compositing",
+           "step_sizes", "MAX_SAMPLES", "ALPHA_SCALE", "EARLY_OUT_ALPHA", "BIG_T"]
 
 MAX_SAMPLES = 300
 ALPHA_SCALE = 0.6
 EARLY_OUT_ALPHA = 0.99
+BIG_T = 1.0e9  # t_first of a ray that a shard owns no sample of
 
 
 def step_sizes(dims, device: torch.device | str) -> torch.Tensor:
@@ -74,6 +80,59 @@ def composite_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step
         alpha = torch.where(alive, alpha + prev_alpha * ALPHA_SCALE, alpha)
         alive = alive & (alpha <= EARLY_OUT_ALPHA)
     return color, alpha
+
+
+def shard_owned(pos: torch.Tensor, dims, box) -> torch.Tensor:
+    """Whether each position's trilinear anchor cell lies in a shard's owned
+    box: the clamped floor anchors ``z0 = clamp(floor(w*Z - 0.5), 0, Z - 1)``
+    and ``y0`` likewise, in [z_lo, z_hi) x [y_lo, y_hi) (``box``, global
+    texel indices; ``dims`` is (X, Y, Z)).  The criterion of the JAX segment
+    kernel (``seg_kernel.py:149-156``)."""
+    X, Y, Z = dims
+    z_lo, z_hi, y_lo, y_hi = box
+    z0 = torch.clamp(torch.floor(pos[..., 2] * float(Z) - 0.5), 0.0, Z - 1.0)
+    y0 = torch.clamp(torch.floor(pos[..., 1] * float(Y) - 0.5), 0.0, Y - 1.0)
+    return (z0 >= z_lo) & (z0 < z_hi) & (y0 >= y_lo) & (y0 < y_hi)
+
+
+def seg_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor, hit: torch.Tensor,
+                    dims, box, max_samples: int = MAX_SAMPLES):
+    """The compositing march on one volume shard: the segment map of each ray.
+
+    ``volume`` is a sampler of the global volume (``ops/sampling.py::
+    shard_sampler`` on the shard's slab) or a (Z, Y, X) float32 volume;
+    ``dims`` is (X, Y, Z) and ``box`` = (z_lo, z_hi, y_lo, y_hi) the owned
+    anchor box (:func:`shard_owned`).  Positions advance by repeated
+    ``pos + dir_step``; a ray is alive while ``hit``, inside (0, 1)^3 and
+    short of ``max_samples`` steps, and a sample composites only where the
+    ray is alive and the shard owns it.  There is no early-out: a shard
+    cannot see the ray's global alpha.
+
+    Returns (C_seg, alpha_seg, t_first), each (...) float32: under the
+    compositing recurrence the segment acts on (color, transmittance) as
+    ``c -> c + tau*C_seg``, ``tau -> tau*(1 - alpha_seg)``; ``t_first`` is
+    the least owned step index (0-based, the first sample at ``entry +
+    dir_step``), ``BIG_T`` where the shard owns none.
+    """
+    shape = entry_uv.shape[:-1]
+    pos = entry_uv
+    color = torch.zeros(shape, dtype=torch.float32, device=entry_uv.device)
+    alpha = torch.zeros_like(color)
+    t_first = torch.full_like(color, BIG_T)
+    alive = hit.to(torch.bool)
+    sample = as_sampler(volume)
+    for t in range(max_samples):
+        if not bool(alive.any()):
+            break
+        pos = pos + dir_step
+        alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
+        comp = alive & shard_owned(pos, dims, box)
+        s = sample(pos)
+        prev_alpha = s - s * alpha
+        color = torch.where(comp, color + prev_alpha * s, color)
+        alpha = torch.where(comp, alpha + prev_alpha * ALPHA_SCALE, alpha)
+        t_first = torch.where(comp, torch.clamp(t_first, max=float(t)), t_first)
+    return color, alpha, t_first
 
 
 def composite_march(volume, entry_uv, direction, hit, max_samples: int = MAX_SAMPLES,

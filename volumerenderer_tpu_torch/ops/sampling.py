@@ -15,17 +15,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sample_trilinear", "sample_trilinear_slab_pool", "slab_pool_sampler", "as_sampler",
-           "trilinear_scatter_add_", "as_normalized_volume", "WRAP_MODES"]
+__all__ = ["sample_trilinear", "sample_trilinear_slab_pool", "slab_pool_sampler",
+           "sample_trilinear_shard", "shard_sampler", "as_sampler", "trilinear_scatter_add_",
+           "as_normalized_volume", "WRAP_MODES"]
 
 WRAP_MODES = ("clamp", "repeat")
 
 
 def as_normalized_volume(volume, device: torch.device | str | None = None) -> torch.Tensor:
     """uint8 volume (Z, Y, X) -> float32 normalized to [0, 1]; a float volume
-    is cast to float32 as it is.  Accepts a numpy array or a tensor."""
+    is cast to float32 as it is.  Accepts a numpy array or a tensor.
+
+    ``device=None`` places a numpy array on the card ("cuda") and leaves a
+    tensor on its own device; any other ``device`` moves the result there."""
     if isinstance(volume, np.ndarray):  # copied only if read-only or strided
         volume = torch.from_numpy(np.require(volume, requirements=["C", "W"]))
+        device = "cuda" if device is None else device
     v = volume if device is None else volume.to(device)
     if v.dtype == torch.uint8:
         return v.to(torch.float32) * (1.0 / 255.0)
@@ -38,6 +43,48 @@ def _wrap_index(i: torch.Tensor, n: int, wrap: str) -> torch.Tensor:
     return torch.remainder(i, n)
 
 
+def texel_coords(uvw: torch.Tensor, dims):
+    """The texel math of every sampler here: the anchor ``floor(uvw * dims -
+    0.5)`` (int64) and the fraction past it, per axis, of positions ``uvw``
+    (..., 3) on a volume of ``dims`` = (X, Y, Z)."""
+    fdims = torch.tensor([float(d) for d in dims], dtype=torch.float32, device=uvw.device)
+    t = uvw * fdims - 0.5
+    i0f = torch.floor(t)
+    return i0f.to(torch.int64), t - i0f
+
+
+def trilerp(taps, frac: torch.Tensor) -> torch.Tensor:
+    """The seven lerps of the 8 taps (c000, c100, c010, c110, c001, c101,
+    c011, c111), x index first: along x, then y, then z, each product and
+    sum on its own, in the JAX function's order."""
+    c000, c100, c010, c110, c001, c101, c011, c111 = taps
+    fx = frac[..., 0]
+    fy = frac[..., 1]
+    fz = frac[..., 2]
+    c00 = c000 + (c100 - c000) * fx
+    c10 = c010 + (c110 - c010) * fx
+    c01 = c001 + (c101 - c001) * fx
+    c11 = c011 + (c111 - c011) * fx
+    c0 = c00 + (c10 - c00) * fy
+    c1 = c01 + (c11 - c01) * fy
+    return c0 + (c1 - c0) * fz
+
+
+def gather_trilerp(flat: torch.Tensor, xs, ys, zs, frac: torch.Tensor) -> torch.Tensor:
+    """:func:`trilerp` of the taps ``flat[z + y + x]``, where ``xs``, ``ys``
+    and ``zs`` are the (lower, upper) flat offsets of each axis."""
+    return trilerp([flat[z + y + x] for z in zs for y in ys for x in xs], frac)
+
+
+def rebased_taps(i0: torch.Tensor, n: int, lo: int, extent: int, stride: int):
+    """The flat offsets of an axis's two taps in a block holding the global
+    rows [lo, lo + extent) of that axis: the anchor ``i0`` and ``i0 + 1``
+    clamped against the global extent ``n``, then rebased by ``lo`` and
+    clamped into the block, times the block's ``stride``."""
+    return tuple(torch.clamp(torch.clamp(j, 0, n - 1) - lo, 0, extent - 1) * stride
+                 for j in (i0, i0 + 1))
+
+
 def sample_trilinear(volume: torch.Tensor, uvw: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
     """Trilinearly sample ``volume`` (Z, Y, X) float32 at ``uvw`` (..., 3) in [0,1].
 
@@ -46,45 +93,15 @@ def sample_trilinear(volume: torch.Tensor, uvw: torch.Tensor, wrap: str = "clamp
     if wrap not in WRAP_MODES:
         raise ValueError(f"unknown wrap mode: {wrap}")
     Z, Y, X = volume.shape
-    dims = torch.tensor([X, Y, Z], dtype=torch.float32, device=uvw.device)
-
     if wrap == "repeat":
         uvw = uvw - torch.floor(uvw)
+    i0, frac = texel_coords(uvw, (X, Y, Z))
 
-    t = uvw * dims - 0.5  # texel-space coordinate of the sample
-    i0f = torch.floor(t)
-    frac = t - i0f
-    i0 = i0f.to(torch.int64)
-    i1 = i0 + 1
+    def taps(i, n, stride):
+        return _wrap_index(i, n, wrap) * stride, _wrap_index(i + 1, n, wrap) * stride
 
-    x0 = _wrap_index(i0[..., 0], X, wrap)
-    x1 = _wrap_index(i1[..., 0], X, wrap)
-    y0 = _wrap_index(i0[..., 1], Y, wrap) * X
-    y1 = _wrap_index(i1[..., 1], Y, wrap) * X
-    z0 = _wrap_index(i0[..., 2], Z, wrap) * (X * Y)
-    z1 = _wrap_index(i1[..., 2], Z, wrap) * (X * Y)
-
-    fx = frac[..., 0]
-    fy = frac[..., 1]
-    fz = frac[..., 2]
-
-    flat = volume.reshape(-1)
-    c000 = flat[z0 + y0 + x0]
-    c100 = flat[z0 + y0 + x1]
-    c010 = flat[z0 + y1 + x0]
-    c110 = flat[z0 + y1 + x1]
-    c001 = flat[z1 + y0 + x0]
-    c101 = flat[z1 + y0 + x1]
-    c011 = flat[z1 + y1 + x0]
-    c111 = flat[z1 + y1 + x1]
-
-    c00 = c000 + (c100 - c000) * fx
-    c10 = c010 + (c110 - c010) * fx
-    c01 = c001 + (c101 - c001) * fx
-    c11 = c011 + (c111 - c011) * fx
-    c0 = c00 + (c10 - c00) * fy
-    c1 = c01 + (c11 - c01) * fy
-    return c0 + (c1 - c0) * fz
+    return gather_trilerp(volume.reshape(-1), taps(i0[..., 0], X, 1), taps(i0[..., 1], Y, X),
+                          taps(i0[..., 2], Z, X * Y), frac)
 
 
 def as_sampler(volume, wrap: str = "clamp"):
@@ -119,11 +136,7 @@ def sample_trilinear_slab_pool(pool: torch.Tensor, slab_map: torch.Tensor, dims,
     (n_slots, 16, Y, X) float32 pair values ``s[x]*256 + s[x+1]``.
     """
     X, Y, Z = (int(d) for d in dims)
-    fdims = torch.tensor([X, Y, Z], dtype=torch.float32, device=uvw.device)
-    t = uvw * fdims - 0.5
-    i0f = torch.floor(t)
-    frac = t - i0f
-    i0 = i0f.to(torch.int64)
+    i0, frac = texel_coords(uvw, (X, Y, Z))
     ix = i0[..., 0]
     x0 = torch.clamp(ix, 0, X - 1)
     y0 = torch.clamp(i0[..., 1], 0, Y - 1)
@@ -147,27 +160,48 @@ def sample_trilinear_slab_pool(pool: torch.Tensor, slab_map: torch.Tensor, dims,
         c1 = (p16 & 255).to(torch.float32) * (1.0 / 255.0)
         return c0, torch.where(low_edge, c0, c1)
 
-    c000, c100 = taps(base0 + y0)
-    c010, c110 = taps(base0 + y1)
-    c001, c101 = taps(base1 + y0)
-    c011, c111 = taps(base1 + y1)
-
-    fx = frac[..., 0]
-    fy = frac[..., 1]
-    fz = frac[..., 2]
-    c00 = c000 + (c100 - c000) * fx
-    c10 = c010 + (c110 - c010) * fx
-    c01 = c001 + (c101 - c001) * fx
-    c11 = c011 + (c111 - c011) * fx
-    c0 = c00 + (c10 - c00) * fy
-    c1 = c01 + (c11 - c01) * fy
-    return c0 + (c1 - c0) * fz
+    return trilerp([c for row in (base0 + y0, base0 + y1, base1 + y0, base1 + y1)
+                    for c in taps(row)], frac)
 
 
 def slab_pool_sampler(pool: torch.Tensor, slab_map: torch.Tensor, dims):
     """:func:`sample_trilinear_slab_pool` on one pool, as a sampler for the
     marches (``ops/raycast.py``, ``ops/isosurface.py``)."""
     return lambda uvw: sample_trilinear_slab_pool(pool, slab_map, dims, uvw)
+
+
+def sample_trilinear_shard(slab: torch.Tensor, dims, z_lo: int, y_lo: int,
+                           uvw: torch.Tensor) -> torch.Tensor:
+    """Clamp-mode :func:`sample_trilinear` of the global volume, fetched from
+    one shard's halo-extended slab (the plain counterpart of
+    ``csrc/trilinear.cuh::ShardSampler``).
+
+    ``slab`` (Ez, Ey, X) float32 holds the global rows [z_lo, z_lo + Ez) x
+    [y_lo, y_lo + Ey) of a volume of ``dims = (X, Y, Z)``.  The texel math,
+    the anchor and both taps of each axis are the dense sampler's, clamped
+    against the global (X, Y, Z); only then are the z and y indices rebased
+    by (z_lo, y_lo), and clamped into the slab so that any position reads
+    inside it.  A shard owns the anchors z0 in [z_lo, z_lo + n_z) and y0 in
+    [y_lo, y_lo + n_y), whose taps z0 + 1 and y0 + 1 need one halo plane and
+    one halo row (``Ez = n_z + 1``, ``Ey = n_y + 1``, or all Y rows when y is
+    not sharded): for every owned anchor the sample is bit for bit the dense
+    sampler's on the whole volume.  The JAX segment kernel keeps an 8-row y
+    halo (``seg_kernel.py:57``) only so that its TPU DMA windows start on
+    8-aligned rows; one row is all the taps read, so the port keeps one.
+    """
+    X, Y, Z = (int(d) for d in dims)
+    Ez, Ey, _ = slab.shape
+    i0, frac = texel_coords(uvw, (X, Y, Z))
+
+    return gather_trilerp(slab.reshape(-1), rebased_taps(i0[..., 0], X, 0, X, 1),
+                          rebased_taps(i0[..., 1], Y, y_lo, Ey, X),
+                          rebased_taps(i0[..., 2], Z, z_lo, Ez, X * Ey), frac)
+
+
+def shard_sampler(slab: torch.Tensor, dims, z_lo: int, y_lo: int):
+    """:func:`sample_trilinear_shard` on one shard's slab, as a sampler for
+    the marches (``ops/raycast.py::seg_march_steps``)."""
+    return lambda uvw: sample_trilinear_shard(slab, dims, z_lo, y_lo, uvw)
 
 
 def trilinear_scatter_add_(grad: torch.Tensor, uvw: torch.Tensor, g: torch.Tensor) -> None:
@@ -180,11 +214,7 @@ def trilinear_scatter_add_(grad: torch.Tensor, uvw: torch.Tensor, g: torch.Tenso
     the same voxel both add.
     """
     Z, Y, X = grad.shape
-    dims = torch.tensor([X, Y, Z], dtype=torch.float32, device=uvw.device)
-    t = uvw * dims - 0.5
-    i0f = torch.floor(t)
-    frac = t - i0f
-    i0 = i0f.to(torch.int64)
+    i0, frac = texel_coords(uvw, (X, Y, Z))
     xs = (torch.clamp(i0[:, 0], 0, X - 1), torch.clamp(i0[:, 0] + 1, 0, X - 1))
     ys = (torch.clamp(i0[:, 1], 0, Y - 1) * X, torch.clamp(i0[:, 1] + 1, 0, Y - 1) * X)
     zs = (torch.clamp(i0[:, 2], 0, Z - 1) * (X * Y),
