@@ -28,8 +28,10 @@ calls:
   over the host's cards: ``make_z_mesh(4)`` / ``make_brick_mesh((2, 2, 1))``
   -> ``shard_volume`` -> ``render_zsharded_kernel`` /
   ``render_bricksharded_kernel`` per frame (the segment march
-  ``csrc/seg_march.cu`` B10 once per shard), ``tf_fit_step_bricksharded``
-  x 5 (B11 once per brick), and the row-sharded ``render_planned_sharded``,
+  ``csrc/seg_march.cu`` B10 once per shard, from each shard's entry table,
+  built by that file's table kernel at a camera's first frame and cached on
+  its plan), ``tf_fit_step_bricksharded`` x 5 (B11 once per brick), and the
+  row-sharded ``render_planned_sharded``,
   ``tf_fit_step_kernel`` and ``voxel_fit_step_kernel`` on ``make_mesh(4)``
   (B1, B4 and B5 once per row shard).
 
@@ -47,14 +49,14 @@ vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
 grad_launch_count, then codec, decode, pools, pooled_parity,
 pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
 then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
-sharded_timing, sharded_layers, sharded_launch_count).
+sharded_timing, seg_starts, sharded_layers, sharded_launch_count).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
 kernels line's ``max_abs_err`` is over the parity cases, kernel against
 plain version: |color|, |alpha| for the compositing marches, |t_hit| in
 steps (-1 for a miss) for the isosurface marches, |rgb| for the shade
 passes, the largest |d| of the seven images for the TF march, |g_vol| for
-the voxel-gradient march.  Without a CUDA device, or away from the repository's package, it
+the voxel-gradient march, |position| and |i0| of the segment entry table.  Without a CUDA device, or away from the repository's package, it
 exits non-zero and prints no result.  Any failed check raises.
 """
 from __future__ import annotations
@@ -117,7 +119,9 @@ POOLED_REPLACES = {
 # the volume-sharded layouts: z-slabs (n = 4) and (bz, by, bx) = (2, 2, 1) bricks
 SEG_SOURCE = "volumerenderer_tpu_torch/csrc/seg_march.cu"
 SEG_REPLACES = {"seg_march": "volumerenderer_tpu/ops/pallas/seg_kernel.py:235",
-                "seg_tf_march": "volumerenderer_tpu/ops/pallas/seg_kernel.py:469"}
+                "seg_tf_march": "volumerenderer_tpu/ops/pallas/seg_kernel.py:469",
+                # build_word_table_seg: the TPU word table (group skip, DMA windows)
+                "seg_entry_table": "volumerenderer_tpu/ops/pallas/seg_kernel.py:553"}
 Z_SHARDS, BRICKS = 4, (2, 2, 1)
 NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
 
@@ -128,7 +132,8 @@ NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
 # a trilinear sample 41 (texel coordinates 6, floors 3, fractions 3, byte
 # scales 8, seven lerps 21); a position step 3; compositing 6; the TF sums
 # 16 more; the iso crossing test and lookahead step 5; the segment anchor
-# test 6; the voxel gradient's replayed step, cotangent, tap weights and 8
+# test 6 (a segment step before the sample: a position step and the anchor
+# test, 9); the voxel gradient's replayed step, cotangent, tap weights and 8
 # atomic adds 94 in all; the shade 3 per rebuilt step and per hit 4
 # bisections (47), 6 normal taps (44) and 60 for the Phong terms.
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -235,8 +240,10 @@ def composite_samples(plan, vol_plain, K: float = 0.6) -> torch.Tensor:
 def march_steps(plan, boxes=None):
     """Per-ray steps inside the cube, up to max_samples; with ``boxes``
     ((N, 4) owned boxes z_lo, z_hi, y_lo, y_hi) the segment march's
-    (walked, owned) steps per box, (N, H, W) each: a ray walks until it
-    leaves the cube or its owned interval ends."""
+    (walked, owned, entered) steps per box, (N, H, W) each: a walking march
+    goes on until the ray leaves the cube or its owned interval ends; the
+    entry table walks until the first owned step (``entered``, that step
+    included)."""
     from volumerenderer_tpu_torch.ops.raycast import shard_owned
 
     pos, alive = plan.entry_uv, plan.hit.bool()
@@ -247,6 +254,7 @@ def march_steps(plan, boxes=None):
         was = torch.zeros_like(walking)
         walked = torch.zeros(walking.shape, device=pos.device)
         owned = torch.zeros_like(walked)
+        entered = torch.zeros_like(walked)
     for _ in range(plan.max_samples):
         if not bool(alive.any()):
             break
@@ -257,11 +265,12 @@ def march_steps(plan, boxes=None):
             own = shard_owned(pos, plan.dims, b.unbind(1))
             walking = walking & alive
             walked = walked + walking
+            entered = entered + (walking & ~was)
             own = own & walking
             owned = owned + own
             walking = walking & ~(was & ~own)
             was = was | own
-    return n if boxes is None else (walked, owned)
+    return n if boxes is None else (walked, owned, entered)
 
 
 def sweep_seconds(fn) -> float:
@@ -1067,7 +1076,7 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
 
 
 def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
-    """The volume-sharded phases; returns the kernels line's two entries."""
+    """The volume-sharded phases; returns the kernels line's three entries."""
     from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
     from volumerenderer_tpu_torch.diff.closed_form import seg_tf_march_steps, tf_scalars
     from volumerenderer_tpu_torch.models import plan_compositing
@@ -1077,7 +1086,8 @@ def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
     from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import quantize_u8
     from volumerenderer_tpu_torch.ops.raycast import (ALPHA_SCALE, EARLY_OUT_ALPHA,
-                                                      apply_reference_transfer, seg_march_steps)
+                                                      apply_reference_transfer, seg_entry_table,
+                                                      seg_march_steps)
     from volumerenderer_tpu_torch.ops.sampling import shard_sampler
     from volumerenderer_tpu_torch.parallel import bricks as PB
     from volumerenderer_tpu_torch.parallel import context as PC
@@ -1110,11 +1120,16 @@ def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
         return seg_tf_march_steps(sample, e, d, h.bool(), tf_scalars.to(slab.device), kw["dims"],
                                   box(kw), kw["max_samples"])
 
-    # 1. every shard's B10 and B11 against their plain versions on the same
-    # inputs, both layouts: orbit frames 0 and 15 and the sphere; B11 at
-    # non-reference params, its five sums at B4's bar
-    err = {"seg_march": 0.0, "seg_tf_march": 0.0}
-    allowed = KNIFE_PER_MPX * W * H / 2**20
+    def plain_table(plan, kw, device):
+        e, d, h = rays_on(plan, device)
+        return seg_entry_table(e, d, h.bool(), kw["dims"], box(kw), kw["max_samples"])
+
+    # 1. every shard's entry table, B10 and B11 against their plain versions
+    # on the same inputs, both layouts: orbit frames 0 and 15 and the
+    # sphere; B11 at non-reference params.  All bit for bit: the table's
+    # positions and indices, every plane of B10 and B11 (the walking plain
+    # marches; the kernels from the kernel's table).
+    err = {"seg_march": 0.0, "seg_tf_march": 0.0, "seg_entry_table": 0.0}
     for case, v, cam in (("orbit_frame0", turb, cameras[0]),
                          ("orbit_frame15", turb, cameras[-1]),
                          ("entry_sphere", sphere, Camera(width=W, height=H))):
@@ -1122,40 +1137,47 @@ def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
         plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, VOLUME[::-1])
         for layout, mesh in meshes.items():
             for shard, (slab, kw) in enumerate(KS.seg_shards(mesh, plan, v)):
-                k = SK.seg_march_cuda(slab, *rays_on(plan, slab.device), **kw)
+                st = SK.seg_entry_table_cuda(*rays_on(plan, slab.device), **kw)
+                pe = plain_table(plan, kw, slab.device)
+                k = SK.seg_march_cuda(slab, *rays_on(plan, slab.device), **kw, starts=st)
                 p = plain(slab, plan, kw)
                 kt = SK.seg_tf_march_cuda(slab, *rays_on(plan, slab.device), tf.to(slab.device),
-                                          **kw)
+                                          **kw, starts=st)
                 pt = plain(slab, plan, kw, tf)
                 torch.cuda.synchronize()
-                res = compare(k[:2], p[:2], W * H)
-                res_tf = compare(kt[:2], pt[:2], W * H)
-                rel = torch.stack([(a - b).abs() / torch.clamp(b.abs(), min=1.0)
-                                   for a, b in zip(kt[3:], pt[3:])]).amax(dim=0)
-                t_px, t_px_tf = int((k[2] != p[2]).sum()), int((kt[2] != pt[2]).sum())
-                sums_over = int((rel > TF_SUMS_REL).sum())
-                if max(t_px, t_px_tf, sums_over) > allowed:
-                    raise AssertionError(f"sharded {case} {layout} shard {shard}: t_first differs "
-                                         f"on {t_px} / {t_px_tf} px, TF sums on {sums_over} "
-                                         f"(allowed {allowed:g})")
+                i0_k, i0_p = (t[..., 3].contiguous().view(torch.int32) for t in (st.entry, pe))
+                table_err = max(float((st.entry[..., :3] - pe[..., :3]).abs().max()),
+                                float((i0_k - i0_p).abs().max()))
+                equal = {"table": torch.equal(st.entry.view(torch.int32), pe.view(torch.int32)),
+                         "b10": all(torch.equal(a, b) for a, b in zip(k, p)),
+                         "b11": all(torch.equal(a, b) for a, b in zip(kt, pt))}
+                if not all(equal.values()):
+                    raise AssertionError(f"sharded {case} {layout} shard {shard}: bit-equal "
+                                         f"{equal}")
                 b10 = {n: {"max_abs_err": float((a - b).abs().max()), "px_differ": int((a != b).sum())}
                        for n, a, b in zip(("C", "alpha", "t_first"), k, p)}
                 b11_err = max(float((a - b).abs().max()) for i, (a, b) in enumerate(zip(kt, pt))
                               if i != 2)
-                err["seg_march"] = max(err["seg_march"], res["max_abs_err"])
-                err["seg_tf_march"] = max(err["seg_tf_march"], b11_err, res_tf["max_abs_err"])
+                err["seg_entry_table"] = max(err["seg_entry_table"], table_err)
+                err["seg_march"] = max(err["seg_march"], b10["C"]["max_abs_err"],
+                                       b10["alpha"]["max_abs_err"])
+                err["seg_tf_march"] = max(err["seg_tf_march"], b11_err)
                 emit({"phase": "sharded_parity", "case": case, "layout": layout, "shard": shard,
                       "box": list(box(kw)), "slab": list(slab.shape), "device": str(slab.device),
-                      "b10": b10, "b11_max_abs_err_8": b11_err, "b11_t_first_px_differ": t_px_tf,
-                      "b11_sums_max_rel_err": float(rel.max()), "b11_sums_px_beyond": sums_over,
-                      "px_allowed": allowed, "owned_rays": int((k[2] < 1e9).sum())})
+                      "bit_equal": equal, "table_max_abs_err": table_err, "b10": b10,
+                      "b11_max_abs_err_8": b11_err, "owned_rays": int((k[2] < 1e9).sum())})
 
     # 2. the main path, as a user drives it: camera -> rays -> plan (once per
     # camera) -> render per frame, both layouts, beside the dense plan's
-    # frame; min of REPS sweeps after a warm sweep.  The launch count covers
-    # the sweeps and the checks after them.
+    # frame; min of REPS sweeps after a warm sweep.  A camera's first frame
+    # builds its shards' entry tables, which its plan keeps.  The launch
+    # count covers the sweeps and the checks after them, which leave each
+    # plan holding its tables of both layouts (their bytes printed).  Then
+    # the same sweeps with the tables rebuilt inside each frame, as a camera
+    # seen once pays them, not counted.
     plans = [plan_compositing(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
     SK.seg_march_cuda.launches = 0
+    SK.seg_entry_table_cuda.launches = 0
     renders = dict.fromkeys(meshes, 0)
 
     def sweep(layout):
@@ -1193,9 +1215,25 @@ def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     if any(worst[n] > bars[n] for n in bars):
         raise AssertionError(f"sharded frames: max |d| {worst}, bars {bars}")
     main_launches, main_renders = SK.seg_march_cuda.launches, dict(renders)
+    table_launches = SK.seg_entry_table_cuda.launches
     want_launches = sum(renders[n] * meshes[n].size for n in meshes)
+    want_tables = len(plans) * sum(m.size for m in meshes.values())
+    cache_bytes = [sum(nbytes(st.entry) for st in p.seg_starts.values()) for p in plans]
+
+    def rebuilt_sweep(layout):
+        acc = torch.zeros((), device=dev)
+        for plan in plans:
+            plan.seg_starts.clear()
+            acc = acc + render[layout](meshes[layout], plan, volumes[layout])[0].sum()
+        return float(acc)
+
+    rebuilt_s = {layout: sweep_seconds(lambda: rebuilt_sweep(layout)) for layout in meshes}
     emit({"phase": "sharded_main_path", "volume": list(VOLUME), "frames": N_FRAMES, "reps": REPS,
           "ms_per_frame": {n: 1e3 * s / N_FRAMES for n, s in sweep_s.items()},
+          "ms_per_frame_tables_rebuilt": {n: 1e3 * s / N_FRAMES for n, s in rebuilt_s.items()},
+          "table_launches": table_launches, "tables_cameras_x_shards": want_tables,
+          "table_cache_bytes_per_plan_both_layouts": max(cache_bytes),
+          "table_cache_bytes_all_plans": sum(cache_bytes),
           "rays_per_s": {n: W * H / (s / N_FRAMES) for n, s in sweep_s.items()},
           "dense_plan_ms_per_frame": 1e3 * dense_s / N_FRAMES,
           "dense_plan_rays_per_s": W * H / (dense_s / N_FRAMES),
@@ -1298,40 +1336,75 @@ def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
           "voxel_fit_loss_rel_err": vox_loss_rel, "voxel_fit_err_beyond_rtol_1e-4": vox_err,
           "launches": row_launches, "shards_x_calls": row_want, "gpu": smi})
 
-    # 5. per-launch times of B10 and B11 over the orbit, both layouts, and of
-    # their plain versions on orbit frame 0; the bounds from the same inputs
+    # 5. per-launch times of the entry table, B10 and B11 (from the cached
+    # tables) over the orbit, both layouts, and of their plain versions on
+    # orbit frame 0; the bounds from the same inputs
     shards = {n: KS.seg_shards(m, plan0, volumes[n]) for n, m in meshes.items()}
     n_launch = N_FRAMES * Z_SHARDS
-    ms = {"seg_march": {}, "seg_tf_march": {}}
-    plain_ms = {"seg_march": {}, "seg_tf_march": {}}
+    names = ("seg_march", "seg_tf_march", "seg_entry_table")
+    ms = {name: {} for name in names}
+    plain_ms = {name: {} for name in names}
     for n, sh in shards.items():
-        on = [(slab, kw, rays_on(p, slab.device), tf.to(slab.device))
-              for p in plans for slab, kw in sh]
-        ms["seg_march"][n] = time_ms(lambda: [SK.seg_march_cuda(s, *r, **kw)
-                                              for s, kw, r, _ in on]) / n_launch
-        ms["seg_tf_march"][n] = time_ms(lambda: [SK.seg_tf_march_cuda(s, *r, t, **kw)
-                                                 for s, kw, r, t in on]) / n_launch
+        on = [(slab, kw, rays_on(p, slab.device), tf.to(slab.device),
+               KS.shard_starts(p, kw, slab.device)) for p in plans for slab, kw in sh]
+        ms["seg_march"][n] = time_ms(lambda: [SK.seg_march_cuda(s, *r, **kw, starts=st)
+                                              for s, kw, r, _, st in on]) / n_launch
+        ms["seg_tf_march"][n] = time_ms(lambda: [SK.seg_tf_march_cuda(s, *r, t, **kw, starts=st)
+                                                 for s, kw, r, t, st in on]) / n_launch
+        ms["seg_entry_table"][n] = time_ms(lambda: [SK.seg_entry_table_cuda(*r, **kw)
+                                                    for _, kw, r, _, _ in on]) / n_launch
         plain_ms["seg_march"][n] = time_ms(lambda: [plain(s, plan0, kw) for s, kw in sh],
                                            reps=1) / len(sh)
         plain_ms["seg_tf_march"][n] = time_ms(lambda: [plain(s, plan0, kw, tf) for s, kw in sh],
                                               reps=1) / len(sh)
+        plain_ms["seg_entry_table"][n] = time_ms(
+            lambda: [plain_table(plan0, kw, s.device) for s, kw in sh], reps=1) / len(sh)
     emit({"phase": "sharded_timing", "shape": [H, W], "volume": list(VOLUME), "frames": N_FRAMES,
           "plain_frames": [0], "kernel_ms_per_launch": ms, "plain_ms_per_launch": plain_ms,
           "dense_b1_ms_per_launch_this_run": time_ms(lambda: [
               p.render(turb) for p in plans]) / N_FRAMES, "gpu": smi})
-    walked = owned = 0.0
     boxes = [box(kw) for sh in shards.values() for _, kw in sh]
+    steps = torch.zeros((3, len(boxes)), dtype=torch.float64)
     for p in plans:
-        w, o = march_steps(p, boxes)
-        walked, owned = walked + float(w.sum()), owned + float(o.sum())
+        steps += torch.stack([t.sum(dim=(1, 2)).double().cpu() for t in march_steps(p, boxes)])
+    walked, owned, entered = (float(t.sum()) for t in steps)
     n_all = N_FRAMES * len(boxes)
+    # B10/B11 from the table: each input read once (the slab, the table's
+    # 16 bytes and dir_step's 12 per ray, B11's 3 TF scalars), each output
+    # plane written once, and per owned step a position step and anchor
+    # test (9) and the sample and sums; the table reads the rays, writes its
+    # 16 bytes per ray and takes its steps up to the first owned one.  The
+    # walking formula (the bound before the table, kept so that earlier
+    # shares of bound compare) adds 9 ops for every step a walking march
+    # takes and reads entry_uv and hit in place of the table.
     slab_io = sum(nbytes(s) for sh in shards.values() for s, _ in sh) / len(boxes)
     rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
-    bounds = {name: bound(slab_io + rays_io + planes * 4 * W * H + extra,
-                          (OPS_PER_STEP["seg_walk"] * walked + OPS_PER_STEP[key] * owned) / n_all,
-                          owned / n_all, W * H)
-              for name, planes, extra, key in (("seg_march", 3, 0, "seg_owned"),
-                                               ("seg_tf_march", 8, 12, "seg_tf_owned"))}
+    march_io = sum(nbytes(p.dir_step) for p in plans) / N_FRAMES + 16 * W * H
+    walk = OPS_PER_STEP["seg_walk"]
+    owned_n, walked_n, entered_n = owned / n_all, walked / n_all, entered / n_all  # per launch
+    bounds = {}
+    for name, planes, extra, key in (("seg_march", 3, 0, "seg_owned"),
+                                     ("seg_tf_march", 8, 12, "seg_tf_owned")):
+        out_io = planes * 4 * W * H + extra
+        bounds[name] = bound(slab_io + march_io + out_io, (walk + OPS_PER_STEP[key]) * owned_n,
+                             owned_n, W * H)
+        bounds[name]["bound_ms_walking_formula"] = bound(
+            slab_io + rays_io + out_io, walk * walked_n + OPS_PER_STEP[key] * owned_n, owned_n,
+            W * H)["bound_ms"]
+    bounds["seg_entry_table"] = bound(rays_io + 16 * W * H, walk * entered_n, entered_n, W * H)
+    # the entry table per layout: build time per camera, the steps a ray
+    # takes per shard (walked by a walking march, owned, walked by the table)
+    first = 0
+    for n, sh in shards.items():
+        per = steps[:, first:first + len(sh)].sum(dim=1) / (N_FRAMES * len(sh) * W * H)
+        first += len(sh)
+        emit({"phase": "seg_starts", "layout": n, "shards": len(sh),
+              "table_ms_per_camera": ms["seg_entry_table"][n] * len(sh),
+              "table_ms_per_launch": ms["seg_entry_table"][n],
+              "plain_table_ms_per_launch": plain_ms["seg_entry_table"][n],
+              "steps_per_ray_per_shard": {"walked": float(per[0]), "owned": float(per[1]),
+                                          "table": float(per[2])},
+              "gpu": smi})
 
     # 6. one sharded frame (orbit frame 0) split into its layers
     for n, mesh in meshes.items():
@@ -1340,36 +1413,45 @@ def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
         for idx in np.ndindex(*u8.shape):
             u8[idx] = quantize_u8(sv.bricks[idx])
         axes = (0, 1) if sv.bricks.shape[1] > 1 else (0,)
-        outs = [SK.seg_march_cuda(s, *rays_on(plan0, s.device), **kw) for s, kw in sh]
+        on = [(s, kw, rays_on(plan0, s.device), KS.shard_starts(plan0, kw, s.device))
+              for s, kw in sh]
+        outs = [SK.seg_march_cuda(s, *r, **kw, starts=st) for s, kw, r, st in on]
         C, A, T = (torch.stack([o[i].to(mesh.first) for o in outs]) for i in range(3))
         c, a = PB.composite_segments_ordered(C, 1.0 - A, T)
         emit({"phase": "sharded_layers", "layout": n, "ms": {
             "quantize_shards": time_ms(lambda: [quantize_u8(b) for b in sv.bricks.flat]),
             "halo_exchange": time_ms(lambda: PB.extend_halos(u8, axes)),
-            "seg_march_launches": time_ms(lambda: [SK.seg_march_cuda(s, *rays_on(plan0, s.device),
-                                                                     **kw) for s, kw in sh]),
+            "entry_tables_once_per_camera": time_ms(
+                lambda: [SK.seg_entry_table_cuda(*r, **kw) for _, kw, r, _ in on]),
+            "seg_march_launches": time_ms(
+                lambda: [SK.seg_march_cuda(s, *r, **kw, starts=st) for s, kw, r, st in on]),
             "compose": time_ms(lambda: PB.composite_segments_ordered(C, 1.0 - A, T)),
             "transfer": time_ms(lambda: apply_reference_transfer(c, a)),
             "whole_frame_events": time_ms(lambda: render[n](mesh, plan0, sv))},
             "orbit_sweep_profile": device_profile(lambda: sweep(n)),
             "shards": len(sh), "gpu": smi})
 
-    # 7. the main path went through B10 once per shard and render, the fit
-    # through B11 once per shard and step (the row-sharded counts: phase 4)
+    # 7. the main path went through B10 once per shard and render and the
+    # entry table once per shard and camera, the fit through B11 once per
+    # shard and step (the row-sharded counts: phase 4)
     want_fit = fit_steps * bmesh.size
-    if main_launches != want_launches or not renders["z4"] or fit_launches != want_fit:
+    if main_launches != want_launches or not renders["z4"] or fit_launches != want_fit \
+            or table_launches != want_tables:
         raise AssertionError(f"segment kernels: B10 {main_launches} launches for "
-                             f"{want_launches}, B11 {fit_launches} for {want_fit}")
+                             f"{want_launches}, B11 {fit_launches} for {want_fit}, entry table "
+                             f"{table_launches} for {want_tables}")
     emit({"phase": "sharded_launch_count", "seg_march": main_launches,
           "shards_x_renders": want_launches, "renders": main_renders,
+          "seg_entry_table": table_launches, "cameras_x_shards": want_tables,
           "seg_tf_march": fit_launches, "shards_x_fit_steps": want_fit, "fit_steps": fit_steps,
           "row_sharded": row_launches})
-    launches = {"seg_march": main_launches, "seg_tf_march": fit_launches}
+    launches = {"seg_march": main_launches, "seg_tf_march": fit_launches,
+                "seg_entry_table": table_launches}
     return [{"name": name, "route": "cuda", "source": SEG_SOURCE,
              "replaces": SEG_REPLACES[name], "launches": launches[name],
              "max_abs_err": err[name], "ms": sum(ms[name].values()) / len(ms[name]),
              "plain_ms": sum(plain_ms[name].values()) / len(plain_ms[name]), **bounds[name]}
-            for name in ("seg_march", "seg_tf_march")]
+            for name in names]
 
 
 def main() -> int:

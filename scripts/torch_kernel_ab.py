@@ -1,7 +1,16 @@
 """Per-launch times of the port's kernels that share csrc/trilinear.cuh (B1,
-B4, B5, and B10 on each of four z-slabs) over the 16-frame orbit at 1024^2 rays
-on the 256^3 turbulence (seed 0), min of 5 after a warm call, for the
+B4, B5) and of the segment marches (B10, B11) on both volume-sharded
+layouts (z-slabs n = 4, bricks (2, 2, 1)), over the 16-frame orbit at 1024^2
+rays on the 256^3 turbulence (seed 0), min of 5 after a warm call, for the
 ``volumerenderer_tpu_torch`` package found under ROOT.  Prints one JSON line.
+
+B10 and B11 are timed three ways: one launch per shard (``*_launch``, ms per
+launch, from each shard's cached entry table where the package has one),
+through ``kernel_sharded._seg_launches`` (``*_seg_launches``, ms per frame:
+the per-frame quantize, halo exchange and copies of the four shards
+included), and the whole ``render_{z,brick}sharded_kernel`` frame
+(``frame_*``).  Where the package builds entry tables, ``table_*`` is the
+table kernel's ms per launch.
 
 To compare two trees on one card, unpack the other tree into a git-ignored
 directory of the checkout and run both in turns within one command:
@@ -25,6 +34,7 @@ from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK  # noqa: E402
+from volumerenderer_tpu_torch.parallel import bricks as PB  # noqa: E402
 from volumerenderer_tpu_torch.parallel import context as PC  # noqa: E402
 from volumerenderer_tpu_torch.parallel import kernel_sharded as KS  # noqa: E402
 
@@ -66,8 +76,6 @@ for p in plans:
     rgb = ref.flip_sign * k[0][..., None] + ref.flip_bias
     g_rgb = (rgb - target) * (2.0 / rgb.numel())
     cots.append((*CF.cotangent_images(ref, g_rgb, None, k[1]), k[3]))
-mesh = PC.make_z_mesh(4)
-shards = KS.seg_shards(mesh, plans[0], turb)  # the slabs; every plan shares them
 ms = {
     "B1": time_ms(lambda: [RK.composite_march_cuda(u8, p.entry_uv, p.dir_step, p.hit)
                            for p in plans]) / 16,
@@ -75,7 +83,30 @@ ms = {
                            for p in plans]) / 16,
     "B5": time_ms(lambda: [VK.voxel_grad_cuda(u8, p.entry_uv, p.dir_step, p.hit, tf, *c)
                            for p, c in zip(plans, cots)]) / 16,
-    "B10_z4": time_ms(lambda: [SK.seg_march_cuda(s, p.entry_uv, p.dir_step, p.hit, **kw)
-                                      for p in plans for s, kw in shards]) / 64,
 }
-print(json.dumps({"label": LABEL, "ms": ms, "from": VK.__file__}), flush=True)
+
+has_table = hasattr(KS, "shard_starts")
+meshes = {"z4": PC.make_z_mesh(4), "bricks221": PB.make_brick_mesh((2, 2, 1))}
+render = {"z4": KS.render_zsharded_kernel, "bricks221": KS.render_bricksharded_kernel}
+for name, mesh in meshes.items():
+    sv = PB.shard_volume(mesh, turb)
+    shards = KS.seg_shards(mesh, plans[0], sv)  # the slabs; every plan shares them
+    on = []
+    for p in plans:
+        for slab, kw in shards:
+            starts = {"starts": KS.shard_starts(p, kw, dev)} if has_table else {}
+            on.append((slab, kw, (p.entry_uv, p.dir_step, p.hit), starts))
+    if has_table:
+        ms[f"table_{name}"] = time_ms(lambda: [SK.seg_entry_table_cuda(*r, **kw)
+                                               for _, kw, r, _ in on]) / len(on)
+    ms[f"B10_launch_{name}"] = time_ms(lambda: [SK.seg_march_cuda(s, *r, **kw, **st)
+                                                for s, kw, r, st in on]) / len(on)
+    ms[f"B11_launch_{name}"] = time_ms(lambda: [SK.seg_tf_march_cuda(s, *r, tf, **kw, **st)
+                                                for s, kw, r, st in on]) / len(on)
+    ms[f"B10_seg_launches_{name}"] = time_ms(
+        lambda: [KS._seg_launches(mesh, p, sv, None) for p in plans]) / 16
+    ms[f"B11_seg_launches_{name}"] = time_ms(
+        lambda: [KS._seg_launches(mesh, p, sv, tf) for p in plans]) / 16
+    ms[f"frame_{name}"] = time_ms(lambda: [render[name](mesh, p, sv) for p in plans]) / 16
+print(json.dumps({"label": LABEL, "ms": ms, "gpu": torch.cuda.get_device_name(0),
+                  "from": VK.__file__}), flush=True)

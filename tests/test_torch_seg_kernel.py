@@ -56,9 +56,10 @@ SHARDS = {"z_of_4": (8, 8, 0, None), "brick_10_of_22": (16, 16, 0, 16),
           "brick_01_of_22": (0, 16, 16, 16), "z_2_of_4": (16, 8, 0, None)}
 
 
-def _jax_segment(tf: bool, shard: str):
+def _jax_segment(tf: bool, shard: str, starts: bool = False):
     """One shard through the JAX kernel in interpret mode, and the port's
-    wrapper on the same CPU inputs.  Returns (jax planes, port planes)."""
+    wrapper on the same CPU inputs (from the shard's entry table where
+    ``starts``).  Returns (jax planes, port planes)."""
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
 
@@ -102,6 +103,8 @@ def _jax_segment(tf: bool, shard: str):
     slab = torch.from_numpy(_slab(vol_u8, z_lo, n_z, y_lo, n_y, hy=0 if n_y == Y else 1))
     call = dict(dims=(X, Y, Z), z_lo=z_lo, n_z=n_z, y_lo=y_lo, n_y=n_y, max_samples=24)
     hit_u8 = rays.hit.to(torch.uint8)
+    if starts:
+        call["starts"] = SK.seg_entry_table_cuda(rays.entry_uv, dir_step, hit_u8, **call)
     if tf:
         port = SK.seg_tf_march_cuda(slab, rays.entry_uv, dir_step, hit_u8, torch.tensor(TF),
                                     **call)

@@ -1,12 +1,12 @@
 // Trilinear sampling of the 8-bit volume with OpenGL texture semantics, shared
 // by the march, shade and gradient kernels (composite_march.cu, iso_march.cu,
-// iso_shade.cu, tf_march.cu, voxel_grad.cu, seg_march.cu), its adjoint for the
-// voxel gradient, and the same sampler fetching from a sparse z-slab pool
-// (sample_trilinear_pool, for the pooled marches and shade) or from one
-// shard's halo-extended slab (sample_trilinear_shard, for the segment marches).
-// The samplers differ only in how they fetch: the texel math (texel) and the
-// seven lerps (trilerp) are written once, so their bit-for-bit agreement
-// rests on one copy.
+// iso_shade.cu, tf_march.cu, voxel_grad.cu), its adjoint for the voxel
+// gradient, and the same sampler fetching from a sparse z-slab pool
+// (sample_trilinear_pool, for the pooled marches and shade).  The samplers
+// differ only in how they fetch: the texel math (texel) and the seven lerps
+// (trilerp) are written once, so their bit-for-bit agreement rests on one
+// copy.  The segment marches (seg_march.cu) take their taps from the anchors
+// of their ownership test and share trilerp.
 //
 // The device counterpart of volumerenderer_tpu_torch/ops/sampling.py::
 // sample_trilinear on the 8-bit grid: texel centers at (i + 0.5) / N, bytes
@@ -179,44 +179,6 @@ struct PoolSampler {
   int X, Y, Z;
   __device__ __forceinline__ float operator()(float u, float v, float w) const {
     return sample_trilinear_pool<F>(pool, slab_map, n_slots, u, v, w, X, Y, Z);
-  }
-};
-
-// Clamp-mode sample_trilinear of a global (X, Y, Z) volume, fetched from one
-// shard's halo-extended u8 slab: (Ez, Ey, X) bytes holding the global rows
-// [z_lo, z_lo + Ez) x [y_lo, y_lo + Ey).  The texel math, the anchor and both
-// taps of each axis are sample_trilinear's, clamped against the global
-// extents; only then are the z and y indices rebased by (z_lo, y_lo), and
-// clamped into the slab so that no position reads outside it.  A shard owns
-// the anchors z0 in [z_lo, z_lo + n_z) and y0 in [y_lo, y_lo + n_y); their taps
-// z0 + 1 and y0 + 1 need one halo plane and one halo row, so for every owned
-// anchor the sample is the dense sampler's on the whole volume, bit for bit
-// (the counterpart of ops/sampling.py::sample_trilinear_shard).
-__device__ __forceinline__ size_t rebased(int i, int n, int lo, int extent, size_t stride) {
-  return static_cast<size_t>(wrap_index(wrap_index(i, n, false) - lo, extent, false)) * stride;
-}
-
-__device__ __forceinline__ float sample_trilinear_shard(const uint8_t* __restrict__ slab, float u,
-                                                        float v, float w, int X, int Y, int Z,
-                                                        int z_lo, int y_lo, int Ez, int Ey) {
-  float fx, fy, fz;
-  const int i0x = texel(u, X, fx);
-  const int i0y = texel(v, Y, fy);
-  const int i0z = texel(w, Z, fz);
-  const size_t sy = static_cast<size_t>(X);
-  const size_t sz = static_cast<size_t>(X) * static_cast<size_t>(Ey);
-  return gather_trilerp(slab, wrapped(i0x, X, false, 1), wrapped(i0x + 1, X, false, 1),
-                        rebased(i0y, Y, y_lo, Ey, sy), rebased(i0y + 1, Y, y_lo, Ey, sy),
-                        rebased(i0z, Z, z_lo, Ez, sz), rebased(i0z + 1, Z, z_lo, Ez, sz), fx, fy,
-                        fz);
-}
-
-struct ShardSampler {
-  const uint8_t* slab;
-  int X, Y, Z;
-  int z_lo, y_lo, Ez, Ey;
-  __device__ __forceinline__ float operator()(float u, float v, float w) const {
-    return sample_trilinear_shard(slab, u, v, w, X, Y, Z, z_lo, y_lo, Ez, Ey);
   }
 };
 

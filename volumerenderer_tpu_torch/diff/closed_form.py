@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.raycast import BIG_T, EARLY_OUT_ALPHA, MAX_SAMPLES, shard_owned
+from ..ops.raycast import BIG_T, EARLY_OUT_ALPHA, MAX_SAMPLES, seg_steps
 from ..ops.sampling import as_sampler, sample_trilinear, trilinear_scatter_add_
 from .transfer import TFParams
 
@@ -96,13 +96,15 @@ def tf_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
 
 def seg_tf_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                        hit: torch.Tensor, tf_scalars: torch.Tensor, dims, box,
-                       max_samples: int = MAX_SAMPLES):
+                       max_samples: int = MAX_SAMPLES, starts: torch.Tensor | None = None):
     """:func:`tf_march_steps` on one volume shard, as
     ``ops/raycast.py::seg_march_steps`` marches one: ``volume`` a sampler of
     the global volume (``shard_sampler``) or a float32 volume, ``dims`` (X,
     Y, Z), ``box`` the owned anchor box; only owned samples of alive rays
     composite and add to the sums, with the shard's local alpha, and there
-    is no early-out.
+    is no early-out.  With ``starts`` (the entry of
+    ``ops/raycast.py::seg_entry_table``) each ray starts at its first owned
+    step, with the same result (``ops/raycast.py::seg_steps``).
 
     Returns the eight (H, W) float32 images (C_seg, alpha_seg, t_first, R, P,
     QP, SG, SB), the fields of the JAX ``launch_seg_tf`` in its order.
@@ -113,14 +115,7 @@ def seg_tf_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor,
         for _ in range(7))
     t_first = torch.full_like(color, BIG_T)
     sample = as_sampler(volume)
-    pos = entry_uv
-    alive = hit.to(torch.bool)
-    for t in range(max_samples):
-        if not bool(alive.any()):
-            break
-        pos = pos + dir_step
-        alive = alive & _inside(pos)
-        comp = alive & shard_owned(pos, dims, box)
+    for pos, comp, t in seg_steps(entry_uv, dir_step, hit, dims, box, max_samples, starts):
         s = sample(pos)
         sc = s * G + B
         pa = s - s * alpha
@@ -132,7 +127,7 @@ def seg_tf_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor,
         SB = SB + torch.where(comp, pa, 0.0)
         color = torch.where(comp, color + pa * sc, color)
         alpha = torch.where(comp, alpha + pa * K, alpha)
-        t_first = torch.where(comp, torch.clamp(t_first, max=float(t)), t_first)
+        t_first = torch.where(comp, torch.clamp(t_first, max=t), t_first)
     return color, alpha, t_first, R, P, QP, SG, SB
 
 

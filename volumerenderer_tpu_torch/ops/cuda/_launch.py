@@ -68,14 +68,10 @@ def _check_index(name: str, value) -> int:
     return value
 
 
-def check_shard(slab, dims, z_lo, n_z, y_lo, n_y):
-    """The checks of a segment march's shard arguments: ``slab`` (Ez, Ey, X)
-    uint8 holds the global rows [z_lo, z_lo + Ez) x [y_lo, y_lo + Ey) of a
-    volume of ``dims = (X, Y, Z)``, and the shard owns the anchors
-    [z_lo, z_lo + n_z) x [y_lo, y_lo + n_y) (a z-slab: y_lo = 0, n_y = Y).
-    The slab must hold every tap of an owned anchor: the owned rows and one
-    halo plane and row past them, where the volume has one.  Returns the
-    owned box (z_lo, z_hi, y_lo, y_hi)."""
+def check_box(dims, z_lo, n_z, y_lo, n_y):
+    """The checks of a shard's owned anchor box [z_lo, z_lo + n_z) x
+    [y_lo, y_lo + n_y) in a volume of ``dims = (X, Y, Z)`` (a z-slab:
+    y_lo = 0, n_y = Y).  Returns the box (z_lo, z_hi, y_lo, y_hi)."""
     if len(dims) != 3:
         raise ValueError(f"dims must be (X, Y, Z), got {dims!r}")
     X, Y, Z = (_check_index("dims", d) for d in dims)
@@ -84,6 +80,18 @@ def check_shard(slab, dims, z_lo, n_z, y_lo, n_y):
     if n_z < 1 or n_y < 1 or z_lo + n_z > Z or y_lo + n_y > Y:
         raise ValueError(f"owned box z [{z_lo}, {z_lo + n_z}) x y [{y_lo}, {y_lo + n_y}) is "
                          f"empty or leaves the volume's (Z, Y) = ({Z}, {Y})")
+    return z_lo, z_lo + n_z, y_lo, y_lo + n_y
+
+
+def check_shard(slab, dims, z_lo, n_z, y_lo, n_y):
+    """The checks of a segment march's shard arguments: ``slab`` (Ez, Ey, X)
+    uint8 holds the global rows [z_lo, z_lo + Ez) x [y_lo, y_lo + Ey) of a
+    volume of ``dims = (X, Y, Z)``, and the shard owns the anchors of
+    :func:`check_box`.  The slab must hold every tap of an owned anchor: the
+    owned rows and one halo plane and row past them, where the volume has
+    one.  Returns the owned box (z_lo, z_hi, y_lo, y_hi)."""
+    box = check_box(dims, z_lo, n_z, y_lo, n_y)
+    X, Y, Z = dims
     if slab.dtype != torch.uint8 or slab.dim() != 3:
         raise ValueError(f"slab must be an (Ez, Ey, X) uint8 tensor, got {tuple(slab.shape)} "
                          f"{slab.dtype}")
@@ -94,7 +102,7 @@ def check_shard(slab, dims, z_lo, n_z, y_lo, n_y):
                          f"needs at least {need}")
     if max(Ez, Ey) > INT32_MAX:
         raise ValueError(f"slab extent {tuple(slab.shape)} exceeds int32")
-    return z_lo, z_lo + n_z, y_lo, y_lo + n_y
+    return box
 
 
 def check_image(tensors: dict, shape, dtype, names, suffix=()):

@@ -150,6 +150,11 @@ class CompositingPlan:
     direction * (1/X, 1/Y, 1/Z)`` and ``hit`` as uint8.  ``dims`` is
     (X, Y, Z).  ``render`` runs the CUDA kernel when the rays lie on a CUDA
     device and the plain PyTorch march when they lie on the CPU.
+    ``seg_starts`` keeps the segment marches' entry tables of these rays by
+    (owned box, max_samples, device), built at first use by the
+    volume-sharded renders (``parallel/kernel_sharded.py``): 16 bytes per ray
+    and shard, more than the 25 the rays take, so ``seg_starts.clear()``
+    frees them where a camera will not be seen again.
     """
 
     def __init__(self, entry_uv: torch.Tensor, direction: torch.Tensor, hit: torch.Tensor,
@@ -165,6 +170,7 @@ class CompositingPlan:
         self.dir_step = (direction.to(torch.float32)
                          * step_sizes(self.dims, direction.device)).contiguous()
         self.hit = hit.to(torch.uint8).contiguous()
+        self.seg_starts = {}
 
     def rows(self, start: int, stop: int, device=None) -> "CompositingPlan":
         """The plan of image rows [start, stop), on ``device`` (default: this
@@ -174,6 +180,7 @@ class CompositingPlan:
         sub = object.__new__(CompositingPlan)
         sub.dims, sub.max_samples, sub.wrap = self.dims, self.max_samples, self.wrap
         sub.shape = (stop - start, self.shape[1])
+        sub.seg_starts = {}
         for name in ("entry_uv", "dir_step", "hit"):
             t = getattr(self, name)[start:stop]
             setattr(sub, name, t if device is None else t.to(device))

@@ -15,7 +15,8 @@ the CUDA march kernel (``csrc/composite_march.cu``):
 ``seg_march_steps`` is the same march on one shard of a volume-sharded
 layout (the plain version of ``csrc/seg_march.cu``, B10): it composites only
 the samples whose anchor the shard owns, with no early-out, and returns the
-ray's affine segment map.
+ray's affine segment map.  ``seg_entry_table`` is the plain version of that
+file's entry table: where each ray's owned steps begin.
 
 Per-ray control flow is a latched ``alive`` mask over whole-image tensor
 operations.  Each product and sum is its own operation, so float32 rounding
@@ -28,13 +29,15 @@ import torch
 from .sampling import as_sampler
 
 __all__ = ["composite_march", "composite_march_early_exit", "composite_march_steps",
-           "seg_march_steps", "shard_owned", "apply_reference_transfer", "render_compositing",
-           "step_sizes", "MAX_SAMPLES", "ALPHA_SCALE", "EARLY_OUT_ALPHA", "BIG_T"]
+           "seg_march_steps", "seg_steps", "seg_entry_table", "shard_owned",
+           "apply_reference_transfer", "render_compositing", "step_sizes", "MAX_SAMPLES",
+           "ALPHA_SCALE", "EARLY_OUT_ALPHA", "BIG_T", "NO_ENTRY"]
 
 MAX_SAMPLES = 300
 ALPHA_SCALE = 0.6
 EARLY_OUT_ALPHA = 0.99
 BIG_T = 1.0e9  # t_first of a ray that a shard owns no sample of
+NO_ENTRY = -1  # the entry table's first owned step of a ray that a shard owns none of
 
 
 def step_sizes(dims, device: torch.device | str) -> torch.Tensor:
@@ -95,8 +98,45 @@ def shard_owned(pos: torch.Tensor, dims, box) -> torch.Tensor:
     return (z0 >= z_lo) & (z0 < z_hi) & (y0 >= y_lo) & (y0 < y_hi)
 
 
+def seg_steps(entry_uv: torch.Tensor, dir_step: torch.Tensor, hit: torch.Tensor, dims, box,
+              max_samples: int = MAX_SAMPLES, starts: torch.Tensor | None = None):
+    """The steps of the segment march on one shard: yields ``(pos, comp,
+    t)`` per step, ``comp`` the rays that composite there (alive and owned,
+    :func:`shard_owned`) and ``t`` their 0-based step index (a float, or a
+    float32 tensor per ray).
+
+    Without ``starts`` every ray walks from ``entry_uv`` by repeated ``pos +
+    dir_step`` while ``hit``, inside (0, 1)^3 and short of ``max_samples``
+    steps.  With ``starts`` (the entry of :func:`seg_entry_table`) each ray
+    starts at its first owned step and stops where it leaves the owned
+    interval: the same positions from the same additions, hence the same
+    samples.  A ray's owned steps form one interval, because positions built
+    by repeated addition move monotonically along each axis (float addition
+    is monotone), and so do their clamped floor anchors.
+    """
+    if starts is None:
+        pos, alive = entry_uv, hit.to(torch.bool)
+        for t in range(max_samples):
+            if not bool(alive.any()):
+                break
+            pos = pos + dir_step
+            alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
+            yield pos, alive & shard_owned(pos, dims, box), float(t)
+        return
+    pos = starts[..., :3]
+    step = starts[..., 3].contiguous().view(torch.int32)
+    alive = step != NO_ENTRY
+    while bool(alive.any()):
+        alive = alive & (step < max_samples)
+        pos = pos + dir_step
+        alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1) & shard_owned(pos, dims, box)
+        yield pos, alive, step.to(torch.float32)
+        step = step + 1
+
+
 def seg_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor, hit: torch.Tensor,
-                    dims, box, max_samples: int = MAX_SAMPLES):
+                    dims, box, max_samples: int = MAX_SAMPLES,
+                    starts: torch.Tensor | None = None):
     """The compositing march on one volume shard: the segment map of each ray.
 
     ``volume`` is a sampler of the global volume (``ops/sampling.py::
@@ -106,7 +146,9 @@ def seg_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor, hit:
     ``pos + dir_step``; a ray is alive while ``hit``, inside (0, 1)^3 and
     short of ``max_samples`` steps, and a sample composites only where the
     ray is alive and the shard owns it.  There is no early-out: a shard
-    cannot see the ray's global alpha.
+    cannot see the ray's global alpha.  With ``starts`` (the entry of
+    :func:`seg_entry_table` for these rays and box) each ray starts at its
+    first owned step, with the same result (:func:`seg_steps`).
 
     Returns (C_seg, alpha_seg, t_first), each (...) float32: under the
     compositing recurrence the segment acts on (color, transmittance) as
@@ -115,24 +157,48 @@ def seg_march_steps(volume, entry_uv: torch.Tensor, dir_step: torch.Tensor, hit:
     dir_step``), ``BIG_T`` where the shard owns none.
     """
     shape = entry_uv.shape[:-1]
-    pos = entry_uv
     color = torch.zeros(shape, dtype=torch.float32, device=entry_uv.device)
     alpha = torch.zeros_like(color)
     t_first = torch.full_like(color, BIG_T)
-    alive = hit.to(torch.bool)
     sample = as_sampler(volume)
-    for t in range(max_samples):
-        if not bool(alive.any()):
-            break
-        pos = pos + dir_step
-        alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
-        comp = alive & shard_owned(pos, dims, box)
+    for pos, comp, t in seg_steps(entry_uv, dir_step, hit, dims, box, max_samples, starts):
         s = sample(pos)
         prev_alpha = s - s * alpha
         color = torch.where(comp, color + prev_alpha * s, color)
         alpha = torch.where(comp, alpha + prev_alpha * ALPHA_SCALE, alpha)
-        t_first = torch.where(comp, torch.clamp(t_first, max=float(t)), t_first)
+        t_first = torch.where(comp, torch.clamp(t_first, max=t), t_first)
     return color, alpha, t_first
+
+
+def seg_entry_table(entry_uv: torch.Tensor, dir_step: torch.Tensor, hit: torch.Tensor, dims,
+                    box, max_samples: int = MAX_SAMPLES) -> torch.Tensor:
+    """Where each ray's owned steps begin on one shard: the plain version of
+    the entry table of ``csrc/seg_march.cu``, which takes the place of the
+    JAX package's ``build_word_table_seg`` group skip.
+
+    Replays the march's recurrence (:func:`seg_steps` without ``starts``)
+    until each ray leaves the cube or its ``max_samples`` steps, or reaches
+    its first owned step.  It depends on the rays and the box, not on the
+    volume.
+
+    Returns (..., 4) float32: per ray, the position after ``i0`` additions,
+    so that the march's next ``pos + dir_step`` lands on the first owned
+    sample, then the int32 bits of ``i0``, the first owned step index
+    (``NO_ENTRY`` and a zero position where the shard owns none).
+    """
+    start = torch.zeros_like(entry_uv)
+    i0 = torch.full(entry_uv.shape[:-1], NO_ENTRY, dtype=torch.int32, device=entry_uv.device)
+    pos, alive = entry_uv, hit.to(torch.bool)
+    for t in range(max_samples):
+        if not bool(alive.any()):
+            break
+        prev, pos = pos, pos + dir_step
+        alive = alive & ((pos > 0.0) & (pos < 1.0)).all(dim=-1)
+        first = alive & shard_owned(pos, dims, box)
+        start = torch.where(first[..., None], prev, start)
+        i0 = torch.where(first, t, i0)
+        alive = alive & ~first
+    return torch.cat([start, i0.view(torch.float32)[..., None]], dim=-1)
 
 
 def composite_march(volume, entry_uv, direction, hit, max_samples: int = MAX_SAMPLES,

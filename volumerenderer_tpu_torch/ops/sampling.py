@@ -173,8 +173,8 @@ def slab_pool_sampler(pool: torch.Tensor, slab_map: torch.Tensor, dims):
 def sample_trilinear_shard(slab: torch.Tensor, dims, z_lo: int, y_lo: int,
                            uvw: torch.Tensor) -> torch.Tensor:
     """Clamp-mode :func:`sample_trilinear` of the global volume, fetched from
-    one shard's halo-extended slab (the plain counterpart of
-    ``csrc/trilinear.cuh::ShardSampler``).
+    one shard's halo-extended slab (the plain counterpart of the taps of
+    ``csrc/seg_march.cu``).
 
     ``slab`` (Ez, Ey, X) float32 holds the global rows [z_lo, z_lo + Ez) x
     [y_lo, y_lo + Ey) of a volume of ``dims = (X, Y, Z)``.  The texel math,

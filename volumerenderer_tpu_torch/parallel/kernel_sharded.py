@@ -18,13 +18,16 @@ copied to the mesh's first device and reduced there.
   on its device, exchanges one halo plane in z and one row in y
   (``bricks.extend_halos``), launches the segment march once per shard
   (``ops/cuda/seg_kernel.py``), and composes the shards' segment maps in
-  per-ray traversal order on the first device.  No early-out: equal to the
+  per-ray traversal order on the first device.  Each march starts from its
+  shard's entry table, which depends on the rays and the owned box only: it
+  is built at a plan's first sharded call and kept in
+  ``CompositingPlan.seg_starts``.  No early-out: equal to the
   unsharded march without it, so within the early-out envelope of the dense
   frame (``docs/PARITY.md`` deviation 6).
 
 Not ported: the ``_LRU`` caches of jitted ``shard_map`` bodies (torch has no
-trace to cache), the ``words`` arguments (the CUDA marches read no word
-table), and the TPU window checks of ``seg_plan_ok``.  The halo is one plane
+trace to cache), the ``words`` arguments (the entry tables take the word
+tables' place), and the TPU window checks of ``seg_plan_ok``.  The halo is one plane
 per axis, so JAX's ``_extend_axis_h`` is ``bricks.extend_halos`` here.  Later
 (with ``multihost.py``): ``scaling_probe_kernel``.
 """
@@ -36,7 +39,8 @@ import torch
 from ..diff.closed_form import cotangent_images, tf_param_grads, tf_scalars
 from ..diff.transfer import TFParams
 from ..ops.cuda.raycast_kernel import CompositingPlan, composite_march_cuda, quantize_u8
-from ..ops.cuda.seg_kernel import compose_tf_segments, seg_march_cuda, seg_tf_march_cuda
+from ..ops.cuda.seg_kernel import (compose_tf_segments, seg_entry_table_cuda, seg_march_cuda,
+                                   seg_tf_march_cuda)
 from ..ops.cuda.tf_kernel import check_plan, tf_march_cuda
 from ..ops.cuda.voxel_grad_kernel import voxel_grad_cuda
 from ..ops.raycast import apply_reference_transfer
@@ -44,8 +48,8 @@ from .bricks import as_sharded, composite_segments_ordered, extend_halos
 from .sharding import DeviceMesh
 
 __all__ = ["plan_shardable", "render_planned_sharded", "tf_fit_step_kernel",
-           "voxel_fit_step_kernel", "seg_plan_ok", "seg_shards", "render_zsharded_kernel",
-           "render_bricksharded_kernel", "tf_fit_step_bricksharded"]
+           "voxel_fit_step_kernel", "seg_plan_ok", "seg_shards", "shard_starts",
+           "render_zsharded_kernel", "render_bricksharded_kernel", "tf_fit_step_bricksharded"]
 
 
 def plan_shardable(plan: CompositingPlan, n: int) -> bool:
@@ -183,18 +187,36 @@ def seg_shards(mesh: DeviceMesh, plan: CompositingPlan, volume):
             for iz, iy, _ in np.ndindex(*slabs.shape)]
 
 
+def shard_starts(plan: CompositingPlan, kw: dict, device):
+    """The entry table of ``plan``'s rays on one shard (``kw``: the launch
+    keywords of :func:`seg_shards`) on ``device``: built at first use
+    (``seg_entry_table_cuda``) and kept in ``plan.seg_starts`` by (owned
+    box, max_samples, device), so every later frame and fit step of the
+    camera reuses it.  Each table holds 16 bytes per ray (16.8 MB at 1024²)
+    until the plan goes or ``plan.seg_starts.clear()``."""
+    box = (kw["z_lo"], kw["z_lo"] + kw["n_z"], kw["y_lo"], kw["y_lo"] + kw["n_y"])
+    key = (box, kw["max_samples"], torch.device(device))
+    starts = plan.seg_starts.get(key)
+    if starts is None:
+        rays = (plan.entry_uv.to(device), plan.dir_step.to(device), plan.hit.to(device))
+        starts = plan.seg_starts[key] = seg_entry_table_cuda(*rays, **kw)
+    return starts
+
+
 def _seg_launches(mesh: DeviceMesh, plan: CompositingPlan, volume, tf: torch.Tensor | None):
     """The segment march once per shard (B10, or B11 with the TF scalars
-    ``tf``) on :func:`seg_shards`' inputs.  Returns the outputs stacked per
-    field, (n_shards, H, W) each, on the mesh's first device."""
+    ``tf``) on :func:`seg_shards`' inputs, each from its entry table
+    (:func:`shard_starts`).  Returns the outputs stacked per field,
+    (n_shards, H, W) each, on the mesh's first device."""
     outs = []
     for slab, kw in seg_shards(mesh, plan, volume):
         dev = slab.device
         rays = (plan.entry_uv.to(dev), plan.dir_step.to(dev), plan.hit.to(dev))
+        starts = shard_starts(plan, kw, dev)
         if tf is None:
-            out = seg_march_cuda(slab, *rays, **kw)
+            out = seg_march_cuda(slab, *rays, **kw, starts=starts)
         else:
-            out = seg_tf_march_cuda(slab, *rays, tf.to(dev), **kw)
+            out = seg_tf_march_cuda(slab, *rays, tf.to(dev), **kw, starts=starts)
         outs.append([o.to(mesh.first) for o in out])
     return [torch.stack(field) for field in zip(*outs)]
 
