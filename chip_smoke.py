@@ -9,8 +9,11 @@ calls:
   ``plan_compositing`` -> ``CompositingPlan.render`` (kernel
   ``csrc/composite_march.cu``);
 * isosurface at the volume's median, over the same orbit: ``generate_rays``
-  -> ``IsosurfacePlan`` -> ``IsosurfacePlan.render`` (kernels
-  ``csrc/iso_march.cu`` and ``csrc/iso_shade.cu``);
+  -> ``IsosurfacePlan`` -> ``IsosurfacePlan.bind`` (once for the volume and
+  isovalue, shared by the 16 plans) -> ``IsosurfacePlan.render(..., bound=)``
+  (kernels ``csrc/iso_march.cu``, skipping exactly, and
+  ``csrc/iso_shade.cu``), with the bind inside the sweep and outside it,
+  and the same unbound;
 * gradients, on orbit frame 0: the config-4 TF fit, ``plan_compositing`` ->
   ``make_render_tf_kernel`` -> ``tf_fit_step_fast`` x 5, and a voxel-grad
   step, ``make_render_tf_voxel`` -> MSE loss -> ``torch.autograd.grad`` of
@@ -46,7 +49,7 @@ Each phase prints one JSON line (device, build, goldens, parity, main_path,
 kernel_timing, layers, launch_count, then iso_goldens, iso_parity,
 iso_main_path, iso_timing, iso_layers, iso_launch_count, then tf_parity,
 vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
-grad_launch_count, then codec, decode, pools, pooled_parity,
+vg_tile, grad_launch_count, then codec, decode, pools, pooled_parity,
 pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
 then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
 sharded_timing, seg_starts, sharded_layers, sharded_launch_count).
@@ -135,10 +138,17 @@ NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
 # test 6 (a segment step before the sample: a position step and the anchor
 # test, 9); the voxel gradient's replayed step, cotangent, tap weights and 8
 # atomic adds 94 in all; the shade 3 per rebuilt step and per hit 4
-# bisections (47), 6 normal taps (44) and 60 for the Phong terms.
+# bisections (47), 6 normal taps (44) and 60 for the Phong terms.  A bound
+# iso march classifies every sample's block (texel coordinates 6, floors 3;
+# like the sampler's index math, its integer clamps, shifts and 2-byte load
+# are not counted) and gathers only in a mixed block: a gathered sample 49 +
+# 9, a skipped one 49 - 41 + 9.
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 OPS_PER_STEP = {"composite": 50, "tf": 66, "voxel_grad": 94, "iso": 49, "seg_walk": 9,
                 "seg_owned": 47, "seg_tf_owned": 63}
+TRILINEAR_OPS, ISO_CLASSIFY_OPS = 41, 9
+ISO_GATHERED_OPS = OPS_PER_STEP["iso"] + ISO_CLASSIFY_OPS
+ISO_SKIPPED_OPS = OPS_PER_STEP["iso"] - TRILINEAR_OPS + ISO_CLASSIFY_OPS
 SHADE_OPS_PER_HIT, SHADE_OPS_PER_STEP = 4 * 47 + 6 * 44 + 60, 3
 
 
@@ -273,6 +283,26 @@ def march_steps(plan, boxes=None):
     return n if boxes is None else (walked, owned, entered)
 
 
+def iso_samples(plan, found, t_hit, iso_bound=None) -> torch.Tensor:
+    """Per-ray samples of the isosurface march: sample k (1-based) is taken
+    at entry + k additions of dir_step, for k up to t_hit + 2 for a hit and
+    the steps inside the cube + 1 for a miss.  With an IsoBound, only those
+    whose block is mixed (the samples the bound march gathers)."""
+    from volumerenderer_tpu_torch.ops.isosurface import classify_blocks
+
+    last = torch.where(found, t_hit.float() + 2.0, march_steps(plan) + 1.0) * plan.hit
+    pos = plan.entry_uv
+    n = torch.zeros(plan.shape, device=pos.device)
+    for k in range(1, int(last.max()) + 1):
+        pos = pos + plan.dir_step
+        take = last >= k
+        if iso_bound is not None:
+            below, above = classify_blocks(iso_bound, pos)
+            take = take & ~below & ~above
+        n = n + take
+    return n
+
+
 def sweep_seconds(fn) -> float:
     """Min over REPS of one call of ``fn`` after a warm call, in seconds
     (host clock; ``fn`` ends in a host read of a device sum)."""
@@ -322,6 +352,7 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
     from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
     from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
     from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import quantize_u8
     from volumerenderer_tpu_torch.ops.isosurface import (iso_march_steps, render_isosurface,
                                                          shade_hits)
@@ -329,14 +360,18 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     # the isosurface golden of tests/test_goldens.py, through both kernels
     vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99), device=dev)
     rays = generate_rays(Camera(width=64, height=48), device=dev)
-    rgb, found = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit,
-                                   (32, 32, 32)).render(vol)
-    total, hits = float(rgb.sum()), int(found.sum())
-    if abs(total - ISO_GOLDEN_RGB) >= ISO_GOLDEN_TOL or hits != ISO_GOLDEN_HITS:
-        raise AssertionError(f"iso golden through the kernels: sum {total}, {hits} hits; "
-                             f"expected {ISO_GOLDEN_RGB} within {ISO_GOLDEN_TOL}, "
-                             f"{ISO_GOLDEN_HITS} hits")
-    emit({"phase": "iso_goldens", "sum_rgb": total, "hits": hits, "tol": ISO_GOLDEN_TOL})
+    gplan = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, (32, 32, 32))
+    golden = {}
+    for name, ib in (("unbound", None), ("bound", gplan.bind(vol))):
+        rgb, found = gplan.render(vol, bound=ib)
+        total, hits = float(rgb.sum()), int(found.sum())
+        if abs(total - ISO_GOLDEN_RGB) >= ISO_GOLDEN_TOL or hits != ISO_GOLDEN_HITS:
+            raise AssertionError(f"iso golden through the kernels ({name}): sum {total}, {hits} "
+                                 f"hits; expected {ISO_GOLDEN_RGB} within {ISO_GOLDEN_TOL}, "
+                                 f"{ISO_GOLDEN_HITS} hits")
+        golden[name] = {"sum_rgb": total, "hits": hits}
+    emit({"phase": "iso_goldens", **golden["unbound"], "bound": golden["bound"],
+          "tol": ISO_GOLDEN_TOL})
 
     # each kernel vs its plain version on the same inputs; the shade pass of
     # both is fed the kernel march's hits
@@ -361,7 +396,23 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
                                            plan.hit.bool(), iso, plan.max_samples, wrap)
         rgb_p = shade_hits(plain_vol, plan.entry_uv, plan.dir_step, plan.direction, found_k,
                            t_hit_k, iso, wrap)
+        # bound: the kernel and the plain march from the volume's grid, the
+        # kernel from its mip8's, each bit-equal to its unbound version
+        bounds = {"volume": plan.bind(v, iso), "mip8": plan.bind(v, iso,
+                                                                 mip8=RK.block_max8(vol_u8))}
+        bound_equal = {}
+        for bname, ib in bounds.items():
+            fb, tb = IK.iso_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, iso,
+                                       plan.max_samples, wrap, ib)
+            bound_equal[f"kernel_{bname}"] = bool(torch.equal(fb, found_k)
+                                                  and torch.equal(tb, t_hit_k))
+        fb, tb = iso_march_steps(plain_vol, plan.entry_uv, plan.dir_step, plan.hit.bool(), iso,
+                                 plan.max_samples, wrap, bounds["volume"])
+        bound_equal["plain_volume"] = bool(torch.equal(fb, found_p) and torch.equal(tb, t_hit_p))
         torch.cuda.synchronize()
+        if not all(bound_equal.values()):
+            raise AssertionError(f"iso {name}: a bound march differs from its unbound one: "
+                                 f"{bound_equal}")
         n_px = cam.width * cam.height
         px_differ = int(((found_k != found_p) | (t_hit_k != t_hit_p)).sum())
         t_hit_err = float((t_hit_k - t_hit_p).abs().max())
@@ -377,25 +428,39 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
               "hits_plain": int(found_p.sum()), "px_differ_found_t_hit": px_differ,
               "px_allowed": allowed, "t_hit_max_abs_err": t_hit_err,
               "rgb_max_abs_err": rgb_err,
-              "rgb_px_beyond_1e-6": int(((rgb_k - rgb_p).abs() > 1e-6).sum())})
+              "rgb_px_beyond_1e-6": int(((rgb_k - rgb_p).abs() > 1e-6).sum()),
+              "bound_bit_equal": bound_equal})
 
     # the main path: the 16-frame orbit at the volume's median, plans built
-    # once; min of REPS sweeps after a warm sweep.  The launch counts cover
-    # exactly this run.
+    # once per camera and one bound for the volume and isovalue, which every
+    # plan shares (bench.py:86 times bound plans); min of REPS sweeps after a
+    # warm sweep: bound with the bind outside the sweep (a reused volume and
+    # isovalue), with the bind inside it (a new pair each orbit), and
+    # unbound; and one frame that pays its own bind (a new pair each frame).
+    # The launch counts cover exactly this run.
+    plans = [IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+    iso_bound = plans[0].bind(turb, iso_med)
     IK.iso_march_cuda.launches = 0
     IK.iso_shade_cuda.launches = 0
     renders = 0
-    plans = [IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
     last = {}
 
-    def kernel_sweep():
+    def kernel_sweep(mode: str):
         nonlocal renders
         acc = torch.zeros((), device=dev)
+        b = {"unbound": None, "bound": iso_bound,
+             "bind_in_sweep": plans[0].bind(turb, iso_med) if mode == "bind_in_sweep" else None}
         for plan in plans:
-            last["rgb"], last["found"] = plan.render(turb, iso_med)
+            last["rgb"], last["found"] = plan.render(turb, iso_med, bound=b[mode])
             acc = acc + last["rgb"].sum()
             renders += 1
         return float(acc)
+
+    def frame_with_own_bind():
+        nonlocal renders
+        rgb, _ = plans[0].render(turb, iso_med, bound=plans[0].bind(turb, iso_med))
+        renders += 1
+        return float(rgb.sum())
 
     def plain_sweep():
         acc = torch.zeros((), device=dev)
@@ -404,10 +469,16 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
             acc = acc + rgb.sum()
         return float(acc)
 
-    kernel_sweep_s = sweep_seconds(kernel_sweep)
+    unbound_sweep_s = sweep_seconds(lambda: kernel_sweep("unbound"))
+    rgb_unbound = last["rgb"]
+    bind_sweep_s = sweep_seconds(lambda: kernel_sweep("bind_in_sweep"))
+    own_bind_s = sweep_seconds(frame_with_own_bind)
+    kernel_sweep_s = sweep_seconds(lambda: kernel_sweep("bound"))
     launches = {"iso_march": IK.iso_march_cuda.launches, "iso_shade": IK.iso_shade_cuda.launches}
     plain_sweep_s = sweep_seconds(plain_sweep)
     rgb, found = last["rgb"], last["found"]
+    if not torch.equal(rgb, rgb_unbound):
+        raise AssertionError("iso main path: the bound frame differs from the unbound one")
     if rgb.shape != (H, W, 3) or found.shape != (H, W) or not bool(torch.isfinite(rgb).all()) \
             or not bool(((rgb >= 0) & (rgb <= 1)).all()) or not 0 < int(found.sum()) < H * W:
         raise AssertionError(f"iso main path output: rgb {tuple(rgb.shape)}, found "
@@ -415,9 +486,14 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
                              f"finite/in-range/hit check failed")
     emit({"phase": "iso_main_path", "metric": "iso_rays_per_s_per_chip_1024sq_256cube",
           "iso": iso_med, "kernel_rays_per_s": W * H / (kernel_sweep_s / N_FRAMES),
+          "unbound_rays_per_s": W * H / (unbound_sweep_s / N_FRAMES),
           "plain_rays_per_s": W * H / (plain_sweep_s / N_FRAMES),
           "kernel_ms_per_frame": 1e3 * kernel_sweep_s / N_FRAMES,
+          "bind_in_sweep_ms_per_frame": 1e3 * bind_sweep_s / N_FRAMES,
+          "frame_with_own_bind_ms": 1e3 * own_bind_s,
+          "unbound_ms_per_frame": 1e3 * unbound_sweep_s / N_FRAMES,
           "plain_ms_per_frame": 1e3 * plain_sweep_s / N_FRAMES,
+          "bind_ms": time_ms(lambda: plans[0].bind(turb, iso_med)), "bound_frame_equal": True,
           "hits_last_frame": int(found.sum()), "frames": N_FRAMES, "reps": REPS, "gpu": smi})
 
     # per-launch times of each kernel and its plain version over the orbit,
@@ -425,30 +501,46 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     turb_u8 = quantize_u8(turb)
     turb_plain = as_normalized_volume(turb_u8)
     hits = [IK.iso_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, iso_med) for p in plans]
-    ms = {
-        "iso_march": time_ms(lambda: [IK.iso_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit,
-                                                        iso_med) for p in plans]) / N_FRAMES,
-        "iso_shade": time_ms(lambda: [IK.iso_shade_cuda(turb_u8, p.entry_uv, p.dir_step,
-                                                        p.direction, f, t, iso_med)
-                                      for p, (f, t) in zip(plans, hits)]) / N_FRAMES}
+
+    def march_ms(b):
+        return time_ms(lambda: [IK.iso_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit,
+                                                  iso_med, bound=b)
+                                for p in plans]) / N_FRAMES
+
+    ms = {"iso_march": march_ms(iso_bound), "iso_march_unbound": march_ms(None),
+          "iso_shade": time_ms(lambda: [IK.iso_shade_cuda(turb_u8, p.entry_uv, p.dir_step,
+                                                          p.direction, f, t, iso_med)
+                                        for p, (f, t) in zip(plans, hits)]) / N_FRAMES}
+    # the plain marches on frames 0 and 15 (~0.25 s a frame)
+    ends = (0, N_FRAMES - 1)
     plain_ms = {
-        "iso_march": time_ms(lambda: [iso_march_steps(turb_plain, p.entry_uv, p.dir_step,
-                                                      p.hit.bool(), iso_med)
-                                      for p in plans]) / N_FRAMES,
-        "iso_shade": time_ms(lambda: [shade_hits(turb_plain, p.entry_uv, p.dir_step,
-                                                 p.direction, f, t, iso_med)
-                                      for p, (f, t) in zip(plans, hits)]) / N_FRAMES}
+        name: sum(time_ms(lambda: iso_march_steps(turb_plain, plans[i].entry_uv,
+                                                  plans[i].dir_step, plans[i].hit.bool(),
+                                                  iso_med, bound=b), reps=1)
+                  for i in ends) / len(ends)
+        for name, b in (("iso_march", iso_bound), ("iso_march_unbound", None))}
+    plain_ms["iso_shade"] = time_ms(lambda: [shade_hits(turb_plain, p.entry_uv, p.dir_step,
+                                                        p.direction, f, t, iso_med)
+                                             for p, (f, t) in zip(plans, hits)]) / N_FRAMES
+    # samples per ray the unbound march takes, and those the bound one gathers
+    per_ray = {name: sum(float(iso_samples(p, f, t, b).sum())
+                         for p, (f, t) in zip(plans, hits)) / (N_FRAMES * W * H)
+               for name, b in (("samples", None), ("gathered", iso_bound))}
     emit({"phase": "iso_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
-          "frames": N_FRAMES, "kernel_ms_per_launch": ms, "plain_ms_per_launch": plain_ms,
-          "gpu": smi})
+          "frames": N_FRAMES, "plain_frames": list(ends), "kernel_ms_per_launch": ms,
+          "plain_ms_per_launch": plain_ms, "per_ray": per_ray, "gpu": smi})
     rays0, plan0, (f0, t0) = bundles[0], plans[0], hits[0]
     emit({"phase": "iso_layers", "ms": {
         "volume_median": time_ms(lambda: IK.volume_median(turb)),
         "plan": time_ms(lambda: IK.IsosurfacePlan(rays0.entry_uv, rays0.direction, rays0.hit,
                                                   VOLUME[::-1])),
         "quantize_u8": time_ms(lambda: quantize_u8(turb)),
+        "bind": time_ms(lambda: plan0.bind(turb, iso_med)),
         "march_kernel": time_ms(lambda: IK.iso_march_cuda(turb_u8, plan0.entry_uv,
-                                                          plan0.dir_step, plan0.hit, iso_med)),
+                                                          plan0.dir_step, plan0.hit, iso_med,
+                                                          bound=iso_bound)),
+        "march_kernel_unbound": time_ms(lambda: IK.iso_march_cuda(
+            turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit, iso_med)),
         "shade_kernel": time_ms(lambda: IK.iso_shade_cuda(turb_u8, plan0.entry_uv,
                                                           plan0.dir_step, plan0.direction,
                                                           f0, t0, iso_med))},
@@ -471,15 +563,28 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
         shade_ops += float((SHADE_OPS_PER_STEP * (t.float() + 2.0) + SHADE_OPS_PER_HIT)[found].sum())
         io["iso_march"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.hit, f, t)
         io["iso_shade"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.direction, f, t) + 12 * W * H
-    bounds = {"iso_march": bound(io["iso_march"] / N_FRAMES,
-                                 OPS_PER_STEP["iso"] * samples / N_FRAMES, samples / N_FRAMES,
-                                 W * H),
-              "iso_shade": bound(io["iso_shade"] / N_FRAMES, shade_ops / N_FRAMES,
-                                 10.0 * sum(float(f.sum()) for f, _ in hits) / N_FRAMES, W * H)}
+    # the march's bound is the bound march's (the main path's launch): its
+    # gathered and skipped samples and the grid's bytes; the formula of the
+    # march without the skip beside it, with the unbound launch's time
+    gathered = per_ray["gathered"] * W * H
+    skipped = samples / N_FRAMES - gathered
+    unskipped = bound(io["iso_march"] / N_FRAMES, OPS_PER_STEP["iso"] * samples / N_FRAMES,
+                      samples / N_FRAMES, W * H)
+    roof = {"iso_march": bound(io["iso_march"] / N_FRAMES + nbytes(iso_bound.grid),
+                               ISO_GATHERED_OPS * gathered + ISO_SKIPPED_OPS * skipped,
+                               samples / N_FRAMES, W * H),
+            "iso_shade": bound(io["iso_shade"] / N_FRAMES, shade_ops / N_FRAMES,
+                               10.0 * sum(float(f.sum()) for f, _ in hits) / N_FRAMES, W * H)}
+    extra = {"iso_march": {"gathered_per_ray": per_ray["gathered"],
+                           "bound_ms_unskipped_formula": unskipped["bound_ms"],
+                           "ops_unskipped_formula": unskipped["ops"],
+                           "ms_unbound": ms["iso_march_unbound"],
+                           "plain_ms_unbound": plain_ms["iso_march_unbound"]},
+             "iso_shade": {}}
     return [{"name": name, "route": "cuda", "source": ISO_SOURCES[name],
              "replaces": ISO_REPLACES[name], "launches": launches[name],
              "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
-             **bounds[name]}
+             **roof[name], **extra[name]}
             for name in ("iso_march", "iso_shade")]
 
 
@@ -734,7 +839,7 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
         _launch.launch(VK._launcher, "voxel_grad", dev, plan0.entry_uv.data_ptr(),
                        plan0.dir_step.data_ptr(), plan0.hit.data_ptr(), turb_u8.data_ptr(),
                        tf.data_ptr(), gc0.data_ptr(), gaT0.data_ptr(), k0[3].data_ptr(),
-                       H, W, X, Y, Z, plan0.max_samples, g_buf.data_ptr())
+                       H, W, X, Y, Z, plan0.max_samples, g_buf.data_ptr(), None)
 
     def loss_and_cotangent():
         rgb = (reference.flip_sign * k0[0][..., None] + reference.flip_bias).requires_grad_(True)
@@ -758,6 +863,37 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
     emit({"phase": "grad_layers", "ms": layers,
           "sum_of_layers": sum(v for n, v in layers.items() if n != "whole_step_events"),
           "gpu": smi})
+
+    # B5's blocks: how many accumulated in their shared tile and how many
+    # added to device memory, the launch's global atomicAdds (and the 8 per
+    # alive step a launch without the tile would make) and the blocks'
+    # boxes, on orbit frames 0 and 15 (the main path's cotangents), and on
+    # frame 0 of a volume dimmed to 25 % and to 2 %, whose deeper rays
+    # overflow the tile
+    for name, vol_u8, plan, c in (("orbit_frame0", turb_u8, plans[0], cots[0]),
+                                  ("orbit_frame15", turb_u8, plans[-1], cots[-1]),
+                                  ("dim25_frame0", RK.quantize_u8(turb * 0.25), plans[0], None),
+                                  ("dim2_frame0", RK.quantize_u8(turb * 0.02), plans[0], None)):
+        if c is None:  # the dimmed volume's own forward and cotangents
+            kd = TK.tf_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf)
+            rgb_d = reference.flip_sign * kd[0][..., None] + reference.flip_bias
+            c = (*CF.cotangent_images(reference, (rgb_d - target) * (2.0 / rgb_d.numel()), None,
+                                      kd[1]), kd[3])
+        args = (vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf, *c)
+        g_k, stats = VK.voxel_grad_block_stats(*args)
+        # the kernel alone (no zero fill)
+        tensors = dict(zip(("vol_u8", "entry_uv", "dir_step", "hit", "tf_scalars", "gc",
+                            "gaT_term", "P_tot"), args))
+        ms_case = time_ms(lambda: VK._launch_vg(tensors, plan.max_samples, g_buf, None))
+        g_p = CF.voxel_grad_steps(as_normalized_volume(vol_u8), plan.entry_uv, plan.dir_step,
+                                  plan.hit.bool(), tf, *c)
+        torch.cuda.synchronize()
+        rel = float((g_k - g_p).abs().max()) / float(g_p.abs().max())
+        if not rel <= VG_REL:
+            raise AssertionError(f"voxel_grad {name} with its block counters: max |d| / max |g| "
+                                 f"{rel} (bar {VG_REL})")
+        emit({"phase": "vg_tile", "case": name, **stats, "kernel_ms": ms_case, "rel_err": rel,
+              "gpu": smi})
 
     # the main path went through both kernels: B4 once per forward, B5 once
     # per backward
@@ -871,11 +1007,22 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
         args = (plan.entry_uv, plan.dir_step)
         c_d, a_d = RK.composite_march_cuda(vol_u8, *args, plan.hit)
         f_d, t_d = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso)
+        dense_grid = plan.bind(vol_u8, iso).grid
         for fmt, (comp, isom) in marches.items():
             pool, smap = pools[vname, fmt]
             sampler = slab_pool_sampler(pool, smap, VOLUME[::-1])
             c_k, a_k = comp(pool, smap, *args, plan.hit)
             f_k, t_k = isom(pool, smap, *args, plan.hit, iso)
+            # bound from the pool's own bytes (the grid of the volume it was
+            # built from) and from the volume's mip8
+            iso_bounds = {"pool": plan.bind(iso_value=iso, pool=(pool, smap)),
+                          "mip8": plan.bind(iso_value=iso, pool=(pool, smap),
+                                            mip8=RK.block_max8(vol_u8))}
+            bound_equal = {"pool_grid_is_volume_grid": bool(torch.equal(iso_bounds["pool"].grid,
+                                                                        dense_grid))}
+            for bname, ib in iso_bounds.items():
+                f_b, t_b = isom(pool, smap, *args, plan.hit, iso, bound=ib)
+                bound_equal[bname] = bool(torch.equal(f_b, f_k) and torch.equal(t_b, t_k))
             rgb_k = IK.iso_shade_pooled_cuda(pool, smap, *args, plan.direction, f_k, t_k, iso)
             rgb_d = IK.iso_shade_cuda(vol_u8, *args, plan.direction, f_k, t_k, iso)
             c_p, a_p = composite_march_steps(sampler, *args, plan.hit.bool())
@@ -889,11 +1036,13 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
             px_differ = int(((f_k != f_p) | (t_k != t_p)).sum())
             t_err = float((t_k - t_p).abs().max())
             rgb_err = float((rgb_k - rgb_p).abs().max())
-            if not dense_equal or px_differ > res["px_allowed"] or rgb_err > ISO_RGB_TOL:
+            if not dense_equal or not all(bound_equal.values()) \
+                    or px_differ > res["px_allowed"] or rgb_err > ISO_RGB_TOL:
                 raise AssertionError(f"pooled {case} {fmt}: equal to the dense kernels "
-                                     f"{dense_equal}; vs plain {px_differ} px differ in "
-                                     f"found/t_hit (allowed {res['px_allowed']:g}), rgb max "
-                                     f"|d| {rgb_err} (bar {ISO_RGB_TOL})")
+                                     f"{dense_equal}; bound equal to unbound {bound_equal}; "
+                                     f"vs plain {px_differ} px differ in found/t_hit (allowed "
+                                     f"{res['px_allowed']:g}), rgb max |d| {rgb_err} (bar "
+                                     f"{ISO_RGB_TOL})")
             err[f"composite_march_pooled_{fmt}"] = max(err[f"composite_march_pooled_{fmt}"],
                                                       res["max_abs_err"])
             err[f"iso_march_pooled_{fmt}"] = max(err[f"iso_march_pooled_{fmt}"], t_err)
@@ -902,7 +1051,7 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
                   "equal_to_dense_kernels": dense_equal, **res,
                   "iso_px_differ_found_t_hit": px_differ, "t_hit_max_abs_err": t_err,
                   "rgb_max_abs_err": rgb_err, "hits_kernel": int(f_k.sum()),
-                  "alpha_sum_kernel": float(a_k.sum())})
+                  "alpha_sum_kernel": float(a_k.sum()), "bound_bit_equal": bound_equal})
             if case != "entry_sphere":
                 plain_inputs.append((fmt, sampler, plan, f_k, t_k))
 
@@ -919,6 +1068,11 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
     cplans = [RK.CompositingPlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
     iplans = [IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
 
+    # the isosurface bound from each pool's bytes, once for the pool and
+    # isovalue and shared by the plans, and unbound
+    pbounds = {fmt: iplans[0].bind(iso_value=iso_med, pool=pools["turbulence", fmt])
+               for fmt in ("narrow", "pair16")}
+
     def sweep(fmt, mode):
         pool, smap = pools["turbulence", fmt]
         acc = torch.zeros((), device=dev)
@@ -927,14 +1081,17 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
                 rgb, _ = cp.render_pooled(pool, smap)
                 renders[f"composite_march_pooled_{fmt}"] += 1
             else:
-                rgb, _ = ip.render_pooled(pool, smap, iso_med)
+                rgb, _ = ip.render_pooled(pool, smap, iso_med,
+                                          bound=pbounds[fmt] if mode == "isosurface_bound"
+                                          else None)
                 renders[f"iso_march_pooled_{fmt}"] += 1
                 renders["iso_shade_pooled"] += 1
             acc = acc + rgb.sum()
         return float(acc)
 
     sweep_s = {(fmt, mode): sweep_seconds(lambda: sweep(fmt, mode))
-               for mode in ("compositing", "isosurface") for fmt in ("narrow", "pair16")}
+               for mode in ("compositing", "isosurface", "isosurface_bound")
+               for fmt in ("narrow", "pair16")}
     main_launches = {n: f.launches for n, f in zip(names, pooled)}
     if any(main_launches[n] != renders[n] or not renders[n] for n in names):
         raise AssertionError(f"pooled main path: launches {main_launches}, renders {renders}")
@@ -944,6 +1101,8 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
           "pooled_pair16_rays_per_s_per_chip_1024sq_256cube": rate["pair16", "compositing"],
           "pooled_iso_rays_per_s_per_chip_1024sq_256cube": rate["narrow", "isosurface"],
           "pooled_pair16_iso_rays_per_s_per_chip_1024sq_256cube": rate["pair16", "isosurface"],
+          "pooled_iso_bound_rays_per_s": {fmt: rate[fmt, "isosurface_bound"]
+                                          for fmt in ("narrow", "pair16")},
           "ms_per_frame": {f"{mode}_{fmt}": 1e3 * v / N_FRAMES
                            for (fmt, mode), v in sweep_s.items()},
           "iso": iso_med, "launches": main_launches, "renders": dict(renders), "gpu": smi})
@@ -1034,6 +1193,15 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
         "iso_shade_pooled": time_ms(lambda: [
             IK.iso_shade_pooled_cuda(pool_n, smap_n, p.entry_uv, p.dir_step, p.direction, f, t,
                                      iso_med) for p, (f, t) in zip(iplans, hits)]) / N_FRAMES}
+    # B8 and B9 bound from their pool's grid (B2's grid and positions, so
+    # B2's gathers)
+    bound_ms = {
+        f"iso_march_pooled_{fmt}": time_ms(
+            lambda: [march(pool, smap, p.entry_uv, p.dir_step, p.hit, iso_med,
+                           bound=pbounds[fmt]) for p in iplans]) / N_FRAMES
+        for fmt, march, (pool, smap) in (
+            ("narrow", IK.iso_march_pooled_narrow_cuda, (pool_n, smap_n)),
+            ("pair16", IK.iso_march_pooled_pair16_cuda, (pool_16, smap_16)))}
     plain_ms = dict.fromkeys(names, 0.0)
     for fmt, sampler, plan, f_k, t_k in plain_inputs:
         args = (plan.entry_uv, plan.dir_step)
@@ -1047,8 +1215,10 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
                 reps=1) / 2
     emit({"phase": "pooled_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
           "frames": N_FRAMES, "plain_frames": [0, N_FRAMES - 1],
-          "kernel_ms_per_launch": ms, "plain_ms_per_launch": plain_ms,
-          "dense_kernel_ms_per_launch": {n: e["ms"] for n, e in dense.items()}, "gpu": smi})
+          "kernel_ms_per_launch": ms, "bound_kernel_ms_per_launch": bound_ms,
+          "plain_ms_per_launch": plain_ms,
+          "dense_kernel_ms_per_launch": {n: e["ms"] for n, e in dense.items()},
+          "dense_iso_march_ms_unbound": dense["iso_march"]["ms_unbound"], "gpu": smi})
 
     launches = {n: main_launches[n] + comp_launches[n] for n in names}
     emit({"phase": "pooled_launch_count", "pooled_main_path": main_launches,
@@ -1066,10 +1236,20 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
 
     bounds = {f"composite_march_pooled_{fmt}": like(comp, pool_io[fmt] + rays_io + 8 * W * H)
               for fmt in pool_io}
-    bounds.update({f"iso_march_pooled_{fmt}": like(iso, pool_io[fmt] + rays_io + hit_io)
+    bounds.update({f"iso_march_pooled_{fmt}": bound(pool_io[fmt] + rays_io + hit_io,
+                                                    iso["ops_unskipped_formula"],
+                                                    iso["samples_per_ray"] * W * H, W * H)
                    for fmt in pool_io})
     shade_io = sum(nbytes(p.entry_uv, p.dir_step, p.direction) for p in iplans) / N_FRAMES
     bounds["iso_shade_pooled"] = like(shade, pool_io["narrow"] + shade_io + hit_io + 12 * W * H)
+    # ms and bound_ms are the unbound march's (the compressed path binds
+    # nothing yet); the bound march gathers what B2's does, its bound from
+    # B2's bound operations and the pool's bytes
+    for fmt in pool_io:
+        n = f"iso_march_pooled_{fmt}"
+        by = like(iso, pool_io[fmt] + rays_io + hit_io + nbytes(pbounds[fmt].grid))
+        bounds[n].update({"ms_bound": bound_ms[n], "bound_ms_bound": by["bound_ms"],
+                          "gathered_per_ray": iso["gathered_per_ray"]})
     return [{"name": n, "route": "cuda", "source": POOLED_SOURCES[n],
              "replaces": POOLED_REPLACES[n], "launches": launches[n], "max_abs_err": err[n],
              "ms": ms[n], "plain_ms": plain_ms[n], **bounds[n]} for n in names]

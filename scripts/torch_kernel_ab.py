@@ -1,8 +1,11 @@
 """Per-launch times of the port's kernels that share csrc/trilinear.cuh (B1,
-B4, B5) and of the segment marches (B10, B11) on both volume-sharded
-layouts (z-slabs n = 4, bricks (2, 2, 1)), over the 16-frame orbit at 1024^2
-rays on the 256^3 turbulence (seed 0), min of 5 after a warm call, for the
-``volumerenderer_tpu_torch`` package found under ROOT.  Prints one JSON line.
+B2 at the volume's median, B4, B5) and of the segment marches (B10, B11) on
+both volume-sharded layouts (z-slabs n = 4, bricks (2, 2, 1)), over the
+16-frame orbit at 1024^2 rays on the 256^3 turbulence (seed 0), min of 5
+after a warm call, for the ``volumerenderer_tpu_torch`` package found under
+ROOT.  Prints one JSON line.  Where the package has ``IsosurfacePlan.bind``,
+``B2_bound`` is B2 with one bound of the volume and isovalue, which every
+plan shares (bound once, outside the timing).
 
 B10 and B11 are timed three ways: one launch per shard (``*_launch``, ms per
 launch, from each shard's cached entry table where the package has one),
@@ -30,6 +33,7 @@ from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, gen
 from volumerenderer_tpu_torch.diff import closed_form as CF  # noqa: E402
 from volumerenderer_tpu_torch.io.synthetic import turbulence_volume  # noqa: E402
 from volumerenderer_tpu_torch.models import plan_compositing  # noqa: E402
+from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK  # noqa: E402
@@ -63,10 +67,12 @@ def time_ms(fn, reps=5):
 
 turb = as_normalized_volume(turbulence_volume((256, 256, 256), seed=0), device=dev)
 u8 = RK.quantize_u8(turb)
-plans = []
+plans, iplans = [], []
 for i in range(16):
     r = generate_rays(orbit(2.0 * i), device=dev)
     plans.append(plan_compositing(r.entry_uv, r.direction, r.hit, (256, 256, 256)))
+    iplans.append(IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, (256, 256, 256)))
+iso = IK.volume_median(turb)
 ref = TFParams.reference(dev)
 tf = CF.tf_scalars(ref)
 target = torch.full((H, W, 3), 0.5, device=dev)
@@ -83,7 +89,14 @@ ms = {
                            for p in plans]) / 16,
     "B5": time_ms(lambda: [VK.voxel_grad_cuda(u8, p.entry_uv, p.dir_step, p.hit, tf, *c)
                            for p, c in zip(plans, cots)]) / 16,
+    "B2": time_ms(lambda: [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso)
+                           for p in iplans]) / 16,
 }
+if hasattr(IK.IsosurfacePlan, "bind"):
+    bound = iplans[0].bind(turb, iso)
+    ms["B2_bound"] = time_ms(lambda: [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso,
+                                                        bound=bound)
+                                      for p in iplans]) / 16
 
 has_table = hasattr(KS, "shard_starts")
 meshes = {"z4": PC.make_z_mesh(4), "bricks221": PB.make_brick_mesh((2, 2, 1))}

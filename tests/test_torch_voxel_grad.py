@@ -227,6 +227,75 @@ def test_repeat_plan_is_refused():
         VK.make_render_tf_voxel(plan)
 
 
+def _alive_positions(vol_u8, rays, dims, K, max_samples):
+    """numpy float32 replay of the voxel-gradient march's alive steps: per
+    ray, the positions p_i = p_{i-1} + d while inside the open cube, up to
+    and including the step whose alpha a = a + (s - s*a)*K passes 0.99."""
+    from volumerenderer_tpu_torch.ops.sampling import sample_trilinear
+
+    vol = as_normalized_volume(vol_u8, device="cpu")
+    entry = rays.entry_uv.numpy().reshape(-1, 3).astype(np.float32)
+    d = (rays.direction * step_sizes(dims, "cpu")).numpy().reshape(-1, 3).astype(np.float32)
+    hit = rays.hit.numpy().reshape(-1)
+    p = entry.copy()
+    a = np.zeros(len(p), np.float32)
+    alive = hit.copy()
+    steps = []
+    for _ in range(max_samples):
+        p = p + d
+        alive &= ((p > 0) & (p < 1)).all(axis=1)
+        if not alive.any():
+            break
+        steps.append((p.copy(), alive.copy()))
+        s = sample_trilinear(vol, torch.from_numpy(p)).numpy()
+        a = np.where(alive, a + (s - s * a) * np.float32(K), a).astype(np.float32)
+        alive &= a <= np.float32(0.99)
+    return steps
+
+
+@pytest.mark.parametrize("block", [(8, 8), (16, 8)])
+def test_block_box_holds_every_alive_tap(block):
+    """The tile design of csrc/voxel_grad.cu: a ray's positions are monotone
+    per axis, so every tap of its alive steps lies in the box of its first
+    and last alive anchors (clamped, the upper one + 1), and a block's union
+    of those boxes holds all of its rays' taps (the kernel's 8x8 blocks, and
+    16x8)."""
+    bw, bh = block
+    rng = np.random.default_rng(11)
+    vol_u8 = np.round(rng.random((24, 40, 56)) * 60.0).astype(np.uint8)  # dim: deep rays
+    Z, Y, X = vol_u8.shape
+    n = np.array([X, Y, Z])
+    H, W = 24, 32
+    rays = generate_rays(Camera(width=W, height=H, position=(0.3, 0.1, -0.7),
+                                front=(-0.3, -0.1, 0.7)), device="cpu")
+    steps = _alive_positions(vol_u8, rays, (X, Y, Z), 0.45, 96)
+    anchors = [np.floor(p * n.astype(np.float32) - np.float32(0.5)).astype(np.int64)
+               for p, _ in steps]
+    alive = np.stack([al for _, al in steps])                       # (steps, rays)
+    anc = np.stack(anchors)                                         # (steps, rays, 3)
+    assert alive.sum(axis=0).max() > 20
+    first = np.argmax(alive, axis=0)
+    last = alive.shape[0] - 1 - np.argmax(alive[::-1], axis=0)
+    rows = np.arange(anc.shape[1])
+    f, l = anc[first, rows], anc[last, rows]
+    lo = np.clip(np.minimum(f, l), 0, n - 1)
+    hi = np.clip(np.maximum(f, l) + 1, 0, n - 1)
+    has = alive.any(axis=0)
+    rows, cols = np.arange(H)[:, None] // bh, np.arange(W)[None] // bw
+    for by in range(H // bh):
+        for bx in range(W // bw):
+            sel = ((rows == by) & (cols == bx)).reshape(-1) & has
+            box_lo, box_hi = lo[sel].min(axis=0), hi[sel].max(axis=0)
+            taps = np.concatenate([np.clip(anc + off, 0, n - 1)[alive & sel[None]]
+                                   for off in (0, 1)])
+            assert (taps >= box_lo).all() and (taps <= box_hi).all(), (by, bx)
+
+
+def test_block_stats_need_the_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        VK.voxel_grad_block_stats(**_wrapper_inputs())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -292,3 +361,43 @@ def test_render_tf_voxel_matches_o1_on_cuda(cuda_device):
     for name, k, r in zip(TFParams._fields, gp_k, gp_r):
         bar = 2e-4 * r.abs() + 2e-4 * max(1.0, float(r.abs().max()))
         assert bool(((k - r).abs() <= bar).all()), name
+
+
+def _deep_scene(device, dim):
+    """Orbit-like 256x192 rays over a 64x48x96 turbulence scaled by ``dim``,
+    reference params, MSE cotangents: the inputs of one voxel-grad launch."""
+    vol_u8 = torch.from_numpy(turbulence_volume((64, 48, 96), seed=1)).to(device)
+    vol_u8 = RK.quantize_u8(as_normalized_volume(vol_u8) * dim)
+    rays = generate_rays(Camera(width=256, height=192, position=(0.3, 0.1, -0.7),
+                                front=(-0.3, -0.1, 0.7)), device=device)
+    Z, Y, X = vol_u8.shape
+    dir_step = (rays.direction * step_sizes((X, Y, Z), device)).contiguous()
+    params = TFParams.reference(device)
+    tf = tf_scalars(params)
+    vol = as_normalized_volume(vol_u8)
+    partials = tf_march_steps(vol, rays.entry_uv, dir_step, rays.hit, tf)
+    rgb = params.flip_sign * partials[0][..., None] + params.flip_bias
+    gc, gaT_term = cotangent_images(params, (rgb - 0.5) * (2.0 / rgb.numel()), None, partials[1])
+    kw = dict(vol_u8=vol_u8, entry_uv=rays.entry_uv, dir_step=dir_step,
+              hit=rays.hit.to(torch.uint8), tf_scalars=tf, gc=gc, gaT_term=gaT_term,
+              P_tot=partials[3])
+    ref = voxel_grad_steps(vol, rays.entry_uv, dir_step, rays.hit, tf, gc, gaT_term, partials[3])
+    return kw, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,path", [(1.0, "tiled"), (0.02, "global")])
+def test_kernel_paths_match_plain_on_cuda(cuda_device, dim, path):
+    """An oblique camera on the turbulence: every block accumulates in its
+    shared tile; dimmed to 2 %, the rays run deep, the boxes overflow the
+    tile budget and every block adds to device memory.  Both within 2e-5 of
+    max |g| of the plain version."""
+    kw, ref = _deep_scene(cuda_device, dim)
+    g, stats = VK.voxel_grad_block_stats(**kw)
+    got = VK.voxel_grad_cuda(**kw)
+    torch.cuda.synchronize()
+    assert stats[path] >= 0.9 * (stats["blocks"] - stats["empty"]) > 0, stats
+    scale = float(ref.abs().max())
+    assert scale > 0
+    for out in (g, got):
+        assert float((out - ref).abs().max()) <= 2e-5 * scale

@@ -11,6 +11,7 @@
 //        resampling: both positions are pos_{i-1} + dir_step);
 //   s2 = sample at pos + dir_step (a lookahead, sampled even outside the cube);
 //   if (s - iso) < 0 && (s2 - iso) >= 0: found = 1, t_hit = i - 1, leave.
+// (iso_march_steps(..., bound=) with a block grid: the same result.)
 // t_hit is -1 for a miss; the near bracket of a hit is entry + (t_hit + 1)
 // repeated additions of dir_step, as iso_shade.cu rebuilds it.
 //
@@ -20,13 +21,29 @@
 // per ray; and the rays of one warp leave at different steps.  The flops per
 // step are small beside the gather latency.
 //
-// What this simple design does about it: one thread per ray in 16x8-pixel
-// blocks (neighbouring rays share cache lines), taps through __ldg from the u8
-// volume, the lookahead carried so each step gathers once, and a thread leaves
-// as soon as its ray hits or exits.  The TPU design's occupancy word tables
-// (bind), window DMAs, lane groups, texr rows and resumable state rows feed
-// VMEM windows and change no result; none is carried over.  Left for later:
-// empty-space skipping.
+// What this design does about it: one thread per ray in 16x8-pixel blocks
+// (neighbouring rays share cache lines), taps through __ldg from the u8
+// volume, the lookahead carried so each step gathers once, and a thread
+// leaves as soon as its ray hits or exits.  With a block grid (an IsoBound
+// of ops/isosurface.py: per 8^3 block of tap anchors the least and largest
+// byte its taps read, 2 bytes a block, 64 KB at 256^3, read through __ldg)
+// the march skips exactly, as the TPU plan's bind does with its word tables.
+// The crossing test needs only each sample's side of iso.  A sample whose
+// anchor block lies wholly below iso (max + 0.5 < iso*255) or above it (min -
+// 0.5 >= iso*255) has a known side, so it is not gathered: -inf or +inf
+// stands in for it.  The half-byte margin covers the ulps by which a lerp
+// may leave its taps' range.  Positions still advance by one addition per
+// step, skipped steps included, so (found, t_hit) are bit for bit the
+// unbound march's.  A skipped sample still costs its block's classification
+// (the texel math and one 2-byte load), and a warp gathers whenever one of
+// its lanes needs a sample, so the time falls less than the gathers do.
+// Measured on the H100 and not kept: a tight loop of additions while the
+// lookahead stays in a one-sided block; the same with a float range test in
+// place of the classification; 2, 4 or 8 steps at a time with their gathers
+// issued together; 8x8, 8x16 and 32x4 blocks; a floor on blocks per SM; the
+// block coordinates in float arithmetic; the side carried as a bool.  The
+// TPU design's window DMAs, lane groups, texr rows and resumable state rows
+// feed VMEM windows and change no result; none is carried over.
 //
 // The pooled marches are the same body with the slab-pool sampler
 // (trilinear.cuh, sample_trilinear_pool): they replace isosurface_kernel.py::
@@ -40,6 +57,7 @@
 // samples with iso rounded once to f32 (not the TPU kernel's 0-255 scale),
 // as the plain version does.  Literals are float.
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -52,11 +70,43 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
-template <class Sampler>
+// The block grid: cells (nbz, nby, nbx) of 2 bytes, the least byte low and
+// the largest high; null for an unbound march.
+struct BlockGrid {
+  const uint16_t* cells;
+  int X, Y, Z, nbx, nby;
+  bool repeat;
+  // a block lies below iso iff its largest byte is under below_under (max +
+  // 0.5 < iso*255), above it iff its least byte is at least above_from (min -
+  // 0.5 >= iso*255): the float tests, counted once per launch
+  unsigned below_under, above_from;
+
+  // The side of iso of the block of the lower tap anchor of the sample at
+  // (u, v, w) (the anchor clamped or wrapped onto the volume): -1 every
+  // sample there is below iso, 1 none is, 0 mixed.
+  __device__ __forceinline__ int side(float u, float v, float w) const {
+    if (repeat) {
+      u = u - floorf(u);
+      v = v - floorf(v);
+      w = w - floorf(w);
+    }
+    float f;
+    const int bx = vrt::wrap_index(vrt::texel(u, X, f), X, repeat) >> 3;
+    const int by = vrt::wrap_index(vrt::texel(v, Y, f), Y, repeat) >> 3;
+    const int bz = vrt::wrap_index(vrt::texel(w, Z, f), Z, repeat) >> 3;
+    const unsigned bytes = __ldg(cells + (bz * nby + by) * nbx + bx);
+    if ((bytes >> 8) < below_under) return -1;
+    if ((bytes & 255u) >= above_from) return 1;
+    return 0;
+  }
+};
+
+template <bool kBound, class Sampler>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 iso_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
-                 const uint8_t* __restrict__ hit, Sampler sample, int H, int W, int max_samples,
-                 float iso, uint8_t* __restrict__ found_out, int32_t* __restrict__ t_hit_out) {
+                 const uint8_t* __restrict__ hit, Sampler sample, BlockGrid grid, int H, int W,
+                 int max_samples, float iso, uint8_t* __restrict__ found_out,
+                 int32_t* __restrict__ t_hit_out) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= W || py >= H) return;
@@ -71,14 +121,23 @@ iso_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ d
     const float d0 = dir_step[3 * ray + 0];
     const float d1 = dir_step[3 * ray + 1];
     const float d2 = dir_step[3 * ray + 2];
+    // the sample at (u, v, w); with a grid, in a one-sided block -inf or
+    // +inf in its place, which lies on the same side of iso
+    auto sample_or_side = [&](float u, float v, float w) -> float {
+      if constexpr (kBound) {
+        const int side = grid.side(u, v, w);
+        if (side != 0) return side < 0 ? -INFINITY : INFINITY;
+      }
+      return sample(u, v, w);
+    };
     float s = 0.0f;
     for (int i = 1; i <= max_samples; ++i) {
       p0 = p0 + d0;
       p1 = p1 + d1;
       p2 = p2 + d2;
       if (!(p0 > 0.0f && p0 < 1.0f && p1 > 0.0f && p1 < 1.0f && p2 > 0.0f && p2 < 1.0f)) break;
-      if (i == 1) s = sample(p0, p1, p2);
-      const float s2 = sample(p0 + d0, p1 + d1, p2 + d2);
+      if (i == 1) s = sample_or_side(p0, p1, p2);
+      const float s2 = sample_or_side(p0 + d0, p1 + d1, p2 + d2);
       if ((s - iso) < 0.0f && (s2 - iso) >= 0.0f) {
         found = 1;
         t_hit = i - 1;
@@ -92,23 +151,33 @@ iso_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ d
 }
 
 template <class Sampler>
-int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample, int H,
-           int W, int max_samples, float iso, void* found, void* t_hit, void* stream) {
+int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
+           const void* grid, int X, int Y, int Z, bool repeat, int H, int W, int max_samples,
+           float iso, void* found, void* t_hit, void* stream) {
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
-  iso_march_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 blocks((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+  const float iso255 = iso * 255.0f;
+  unsigned below_under = 0, above_from = 0;
+  while (below_under < 256 && static_cast<float>(below_under) + 0.5f < iso255) ++below_under;
+  while (above_from < 256 && !(static_cast<float>(above_from) - 0.5f >= iso255)) ++above_from;
+  const BlockGrid cells{static_cast<const uint16_t*>(grid), X, Y, Z, (X + 7) / 8, (Y + 7) / 8,
+                        repeat, below_under, above_from};
+  auto* kernel = grid ? iso_march_kernel<true, Sampler> : iso_march_kernel<false, Sampler>;
+  kernel<<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
-      static_cast<const uint8_t*>(hit), sample, H, W, max_samples, iso,
+      static_cast<const uint8_t*>(hit), sample, cells, H, W, max_samples, iso,
       static_cast<uint8_t*>(found), static_cast<int32_t*>(t_hit));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <vrt::PoolFormat F>
 int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, const void* pool,
-                  const void* slab_map, int H, int W, int X, int Y, int Z, int n_slots,
-                  int max_samples, float iso, void* found, void* t_hit, void* stream) {
+                  const void* slab_map, const void* grid, int H, int W, int X, int Y, int Z,
+                  int n_slots, int max_samples, float iso, void* found, void* t_hit,
+                  void* stream) {
   const vrt::PoolSampler<F> sample{pool, static_cast<const int32_t*>(slab_map), n_slots, X, Y, Z};
-  return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, iso, found, t_hit, stream);
+  return launch(entry_uv, dir_step, hit, sample, grid, X, Y, Z, false, H, W, max_samples, iso,
+                found, t_hit, stream);
 }
 
 }  // namespace
@@ -116,37 +185,42 @@ int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, c
 // Each launch runs the march on `stream` for an H x W ray image and returns
 // cudaGetLastError() (0 on success).  Pointers are device pointers:
 // entry_uv and dir_step (H*W*3 f32), hit (H*W u8), found (H*W u8) and t_hit
-// (H*W i32).
+// (H*W i32); grid is null (every sample is taken) or the block grid of the
+// volume for this iso and wrap, ceil(Z/8)*ceil(Y/8)*ceil(X/8) pairs of u8
+// (least, largest).
 
 // B2: vol (Z*Y*X u8, x fastest); repeat != 0 selects GL_REPEAT wrapping.
 extern "C" int iso_march_launch(const void* entry_uv, const void* dir_step, const void* hit,
-                                const void* vol, int H, int W, int X, int Y, int Z,
-                                int max_samples, int repeat, float iso, void* found,
+                                const void* vol, const void* grid, int H, int W, int X, int Y,
+                                int Z, int max_samples, int repeat, float iso, void* found,
                                 void* t_hit, void* stream) {
   const vrt::DenseSampler sample{static_cast<const uint8_t*>(vol), X, Y, Z, repeat != 0};
-  return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, iso, found, t_hit, stream);
+  return launch(entry_uv, dir_step, hit, sample, grid, X, Y, Z, repeat != 0, H, W, max_samples,
+                iso, found, t_hit, stream);
 }
 
 // B8: pool (n_slots*16*Y*X f32 pair values), slab_map (Z/8 i32), clamp.
 extern "C" int iso_march_pooled_narrow_launch(const void* entry_uv, const void* dir_step,
                                               const void* hit, const void* pool,
-                                              const void* slab_map, int H, int W, int X, int Y,
-                                              int Z, int n_slots, int max_samples, float iso,
-                                              void* found, void* t_hit, void* stream) {
-  return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, hit, pool, slab_map, H,
-                                                    W, X, Y, Z, n_slots, max_samples, iso,
-                                                    found, t_hit, stream);
+                                              const void* slab_map, const void* grid, int H,
+                                              int W, int X, int Y, int Z, int n_slots,
+                                              int max_samples, float iso, void* found,
+                                              void* t_hit, void* stream) {
+  return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, hit, pool, slab_map,
+                                                    grid, H, W, X, Y, Z, n_slots, max_samples,
+                                                    iso, found, t_hit, stream);
 }
 
 // B9: pool (n_slots*16*Y*(X/2) i32 pair16 words), slab_map (Z/8 i32), clamp.
 extern "C" int iso_march_pooled_pair16_launch(const void* entry_uv, const void* dir_step,
                                               const void* hit, const void* pool,
-                                              const void* slab_map, int H, int W, int X, int Y,
-                                              int Z, int n_slots, int max_samples, float iso,
-                                              void* found, void* t_hit, void* stream) {
-  return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, hit, pool, slab_map, H, W,
-                                                 X, Y, Z, n_slots, max_samples, iso, found,
-                                                 t_hit, stream);
+                                              const void* slab_map, const void* grid, int H,
+                                              int W, int X, int Y, int Z, int n_slots,
+                                              int max_samples, float iso, void* found,
+                                              void* t_hit, void* stream) {
+  return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, hit, pool, slab_map, grid,
+                                                 H, W, X, Y, Z, n_slots, max_samples, iso,
+                                                 found, t_hit, stream);
 }
 
 extern "C" const char* iso_march_error_string(int code) {

@@ -182,25 +182,28 @@ struct PoolSampler {
   }
 };
 
-// The adjoint of clamp-mode sample_trilinear at (u, v, w): the flat offsets
-// of the 8 taps and the cotangent g times each tap's weight, g*wz*wy*wx in
-// that order, z outermost and x innermost (the order of
+// The adjoint of clamp-mode sample_trilinear at (u, v, w): the clamped
+// indices of each axis's two taps and the cotangent g times each tap's
+// weight, g*wz*wy*wx in that order; tap k = 4a + 2b + c lies at (zs[a],
+// ys[b], xs[c]), z outermost and x innermost (the order of
 // volumerenderer_tpu_torch/ops/sampling.py::trilinear_scatter_add_ and of
 // the JAX package's diff/vjp.py::_trilinear_scatter).  Two taps clamped onto
 // one voxel keep their own entries, so both add.  The index arithmetic is
 // sample_trilinear's, which stays as it is.
 __device__ __forceinline__ void trilinear_adjoint(float u, float v, float w, int X, int Y, int Z,
-                                                  float g, size_t offset[8], float weight[8]) {
+                                                  float g, int xs[2], int ys[2], int zs[2],
+                                                  float weight[8]) {
   float fx, fy, fz;
   const int i0x = texel(u, X, fx);
   const int i0y = texel(v, Y, fy);
   const int i0z = texel(w, Z, fz);
 
-  const size_t sy = static_cast<size_t>(X);
-  const size_t sz = static_cast<size_t>(X) * static_cast<size_t>(Y);
-  const size_t xs[2] = {wrapped(i0x, X, false, 1), wrapped(i0x + 1, X, false, 1)};
-  const size_t ys[2] = {wrapped(i0y, Y, false, sy), wrapped(i0y + 1, Y, false, sy)};
-  const size_t zs[2] = {wrapped(i0z, Z, false, sz), wrapped(i0z + 1, Z, false, sz)};
+  xs[0] = wrap_index(i0x, X, false);
+  xs[1] = wrap_index(i0x + 1, X, false);
+  ys[0] = wrap_index(i0y, Y, false);
+  ys[1] = wrap_index(i0y + 1, Y, false);
+  zs[0] = wrap_index(i0z, Z, false);
+  zs[1] = wrap_index(i0z + 1, Z, false);
   const float wxs[2] = {1.0f - fx, fx};
   const float wys[2] = {1.0f - fy, fy};
   const float wzs[2] = {1.0f - fz, fz};
@@ -209,11 +212,7 @@ __device__ __forceinline__ void trilinear_adjoint(float u, float v, float w, int
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int k = 4 * a + 2 * b + c;
-        offset[k] = zs[a] + ys[b] + xs[c];
-        weight[k] = g * wzs[a] * wys[b] * wxs[c];
-      }
+      for (int c = 0; c < 2; ++c) weight[4 * a + 2 * b + c] = g * wzs[a] * wys[b] * wxs[c];
     }
   }
 }

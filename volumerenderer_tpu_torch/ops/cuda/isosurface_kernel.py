@@ -8,7 +8,12 @@ kernels' DMA windows and are not carried over, and neither are the shade
 windows and their pads: the CUDA kernels read the volume straight from device
 memory.  A plan here is the ray tensors on the device plus the per-step
 increment; ``render`` quantizes the volume to 8 bits once and runs the march
-and then the shade pass on it.
+and then the shade pass on it.  ``bind`` is the exact empty-space skip: one
+``IsoBound`` (isovalue, dims, wrap, the min/max block grid of a volume or a
+slab pool, in place of the TPU plan's word tables, and that data's
+identity) that ``render`` and ``render_pooled`` take and check against
+their isovalue and data.  The grid depends only on the data and the wrap,
+so one bound serves every plan of the same dims and wrap.
 
 The pooled render (``IsosurfacePlan.render_pooled``) marches a slab pool
 (``raycast_kernel.py::build_slab_pool_narrow`` for B8,
@@ -32,7 +37,8 @@ import numbers
 
 import torch
 
-from ..isosurface import MAX_SAMPLES, iso_march_steps, shade_hits
+from ..isosurface import (ISO_BLOCK, MAX_SAMPLES, IsoBound, data_source, iso_block_grid,
+                          iso_grid_from_mip8, iso_grid_from_pool, iso_march_steps, shade_hits)
 from ..raycast import step_sizes
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
@@ -42,13 +48,14 @@ from .raycast_kernel import pool_dims, quantize_u8
 
 __all__ = ["iso_march_cuda", "iso_shade_cuda", "iso_march_pooled_narrow_cuda",
            "iso_march_pooled_pair16_cuda", "iso_shade_pooled_cuda", "IsosurfacePlan",
-           "render_isosurface_kernel", "volume_median", "load_kernels"]
+           "render_isosurface_kernel", "volume_median", "load_kernels", "IsoBound"]
 
 
 @functools.cache
 def _march_launcher():
-    # entry_uv, dir_step, hit, vol; H, W, X, Y, Z, max_samples, repeat; iso; found, t_hit, stream
-    return bind("iso_march", 4, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3)
+    # entry_uv, dir_step, hit, vol, grid; H, W, X, Y, Z, max_samples, repeat; iso; found,
+    # t_hit, stream
+    return bind("iso_march", 5, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3)
 
 
 @functools.cache
@@ -59,9 +66,9 @@ def _shade_launcher():
 
 @functools.cache
 def _pooled_march_launcher(fmt: str):
-    # entry_uv, dir_step, hit, pool, slab_map; H, W, X, Y, Z, n_slots,
+    # entry_uv, dir_step, hit, pool, slab_map, grid; H, W, X, Y, Z, n_slots,
     # max_samples; iso; found, t_hit, stream
-    return bind("iso_march", 5, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3,
+    return bind("iso_march", 6, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3,
                 entry=f"iso_march_pooled_{fmt}")
 
 
@@ -87,9 +94,31 @@ def _check_scalars(iso, wrap):
         raise ValueError(f"unknown wrap mode: {wrap}")
 
 
+def _grid(bound, iso, dims, wrap, device=None, data=None):
+    """The block grid of ``bound`` after checking that it was made for this
+    march (iso, (X, Y, Z) dims, wrap, and, given ``data``, from those
+    tensors) and, given ``device``, lies there; None for no bound."""
+    if bound is None:
+        return None
+    if not isinstance(bound, IsoBound):
+        raise TypeError(f"bound must be an IsoBound (IsosurfacePlan.bind), got "
+                        f"{type(bound).__name__}")
+    bound.check(iso, dims, wrap)
+    if data is not None:
+        bound.check_source(*data)
+    grid = bound.grid
+    want = tuple(-(-int(n) // ISO_BLOCK) for n in dims[::-1]) + (2,)
+    if not isinstance(grid, torch.Tensor) or grid.dtype != torch.uint8 \
+            or tuple(grid.shape) != want or not grid.is_contiguous():
+        raise ValueError(f"the bound's grid must be a contiguous {want} uint8 tensor")
+    if device is not None and grid.device != device:
+        raise ValueError(f"the bound's grid is on {grid.device} but the march runs on {device}")
+    return grid
+
+
 def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                    hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                   wrap: str = "clamp"):
+                   wrap: str = "clamp", bound: IsoBound | None = None):
     """March an (H, W) ray image through the 8-bit volume to the first upward
     crossing of ``iso`` (on the normalized [0, 1] scale).
 
@@ -99,6 +128,12 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
       dir_step: (H, W, 3) float32 per-step increment (direction / dims).
       hit: (H, W) uint8, nonzero where the ray enters the cube.
       wrap: "clamp" (clamp-to-edge) or "repeat" (GL_REPEAT).
+      bound: None, or an :class:`IsoBound` of this volume made for ``iso``
+        and ``wrap`` (``IsosurfacePlan.bind``): samples in blocks wholly
+        below or above iso are skipped, the result is the same bit for bit.
+        A bound for another isovalue, dims or wrap raises ValueError; that
+        it describes this volume, the caller answers for
+        (``IsosurfacePlan.render`` checks it).
 
     Returns (found (H, W) bool, t_hit (H, W) int32, -1 for a miss).  CUDA
     tensors run the kernel and add one to ``iso_march_cuda.launches``; CPU
@@ -111,19 +146,20 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
     check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
     check_max_samples(max_samples)
     _check_scalars(iso, wrap)
+    Z, Y, X = vol_u8.shape
+    grid = _grid(bound, iso, (X, Y, Z), wrap, vol_u8.device)
     if vol_u8.device.type == "cpu":
         return iso_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
-                               hit.to(torch.bool), iso, max_samples, wrap)
+                               hit.to(torch.bool), iso, max_samples, wrap, bound)
     H, W = hit.shape
-    Z, Y, X = vol_u8.shape
     found = torch.empty((H, W), dtype=torch.uint8, device=vol_u8.device)
     t_hit = torch.empty((H, W), dtype=torch.int32, device=vol_u8.device)
     if H * W == 0:
         return found.view(torch.bool), t_hit
     launch(_march_launcher, "iso_march", vol_u8.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), vol_u8.data_ptr(),
-           H, W, X, Y, Z, max_samples, int(wrap == "repeat"), float(iso),
-           found.data_ptr(), t_hit.data_ptr())
+           None if grid is None else grid.data_ptr(), H, W, X, Y, Z, max_samples,
+           int(wrap == "repeat"), float(iso), found.data_ptr(), t_hit.data_ptr())
     iso_march_cuda.launches += 1
     return found.view(torch.bool), t_hit
 
@@ -177,7 +213,7 @@ iso_shade_cuda.launches = 0
 
 
 def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso,
-                      max_samples, wrap):
+                      max_samples, wrap, bound):
     tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv,
                "dir_step": dir_step, "hit": hit}
     check_tensors(tensors, "pool")
@@ -187,9 +223,10 @@ def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso
     check_max_samples(max_samples)
     _check_scalars(iso, wrap)
     check_clamp(wrap, "the pooled marches")
+    grid = _grid(bound, iso, dims, wrap, pool.device)
     if pool.device.type == "cpu":
         return iso_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv, dir_step,
-                               hit.to(torch.bool), iso, max_samples)
+                               hit.to(torch.bool), iso, max_samples, bound=bound)
     H, W = hit.shape
     X, Y, Z = dims
     found = torch.empty((H, W), dtype=torch.uint8, device=pool.device)
@@ -198,8 +235,8 @@ def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso
         return found.view(torch.bool), t_hit
     launch(lambda: _pooled_march_launcher(fmt), "iso_march", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), pool.data_ptr(),
-           slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), max_samples, float(iso),
-           found.data_ptr(), t_hit.data_ptr())
+           slab_map.data_ptr(), None if grid is None else grid.data_ptr(), H, W, X, Y, Z,
+           int(pool.shape[0]), max_samples, float(iso), found.data_ptr(), t_hit.data_ptr())
     wrapper.launches += 1
     return found.view(torch.bool), t_hit
 
@@ -207,15 +244,17 @@ def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso
 def iso_march_pooled_narrow_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                  entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                  hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                                 wrap: str = "clamp"):
+                                 wrap: str = "clamp", bound: IsoBound | None = None):
     """B8: :func:`iso_march_cuda`'s march, sampling the narrow f32 slab pool
     (``build_slab_pool_narrow``) through its slab map.  Equal bit for bit to
     the dense march on the volume the pool was built from.  ``wrap`` must be
-    "clamp".  Returns (found (H, W) bool, t_hit (H, W) int32).  CUDA tensors
-    run the kernel and add one to ``iso_march_pooled_narrow_cuda.launches``;
-    CPU tensors run the plain version."""
+    "clamp"; ``bound``, as for :func:`iso_march_cuda`, describes this pool
+    (``IsosurfacePlan.render_pooled`` checks that it was bound from it).  Returns (found (H, W) bool, t_hit
+    (H, W) int32).  CUDA tensors run the kernel and add one to
+    ``iso_march_pooled_narrow_cuda.launches``; CPU tensors run the plain
+    version."""
     return _iso_march_pooled(iso_march_pooled_narrow_cuda, "narrow", pool, slab_map, entry_uv,
-                             dir_step, hit, iso, max_samples, wrap)
+                             dir_step, hit, iso, max_samples, wrap, bound)
 
 
 iso_march_pooled_narrow_cuda.launches = 0
@@ -224,12 +263,12 @@ iso_march_pooled_narrow_cuda.launches = 0
 def iso_march_pooled_pair16_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                  entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                  hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                                 wrap: str = "clamp"):
+                                 wrap: str = "clamp", bound: IsoBound | None = None):
     """B9: as :func:`iso_march_pooled_narrow_cuda`, on the pair16 pool
     (``build_slab_pool``); adds one to ``iso_march_pooled_pair16_cuda.launches``
     per kernel launch."""
     return _iso_march_pooled(iso_march_pooled_pair16_cuda, "pair16", pool, slab_map, entry_uv,
-                             dir_step, hit, iso, max_samples, wrap)
+                             dir_step, hit, iso, max_samples, wrap, bound)
 
 
 iso_march_pooled_pair16_cuda.launches = 0
@@ -311,38 +350,91 @@ class IsosurfacePlan:
         self.dir_step = (self.direction * step_sizes(self.dims, direction.device)).contiguous()
         self.hit = hit.to(torch.uint8).contiguous()
 
-    def render(self, volume: torch.Tensor, iso_value: float = 40.0 / 255.0):
-        """volume: (Z, Y, X) float32 in [0, 1], on the plan's device.  It is
-        quantized to 8 bits, marched and shaded.  Returns (rgb (H, W, 3),
-        found (H, W) bool); pixels without a hit are white."""
+    def _check_volume(self, volume):
         X, Y, Z = self.dims
         if tuple(volume.shape) != (Z, Y, X):
             raise ValueError(f"volume shape {tuple(volume.shape)} does not match the "
                              f"plan's (Z, Y, X) = {(Z, Y, X)}")
+
+    def bind(self, volume: torch.Tensor | None = None, iso_value: float = 40.0 / 255.0,
+             mip8: torch.Tensor | None = None, pool=None) -> IsoBound:
+        """The exact empty-space skip of this plan's marches at ``iso_value``
+        (the port of the JAX plan's ``bind``): an :class:`IsoBound` holding
+        the isovalue, the dims, the wrap, the block grid and the identity of
+        the data it describes, exactly one of ``volume`` ((Z, Y, X) float32
+        in [0, 1] or uint8, the tensor later passed to :meth:`render`) and
+        ``pool`` (a ``(pool, slab_map)`` pair, later passed to
+        :meth:`render_pooled`; clamp only).  The grid comes from that data's
+        bytes, or, given ``mip8`` (per-8^3-block maxima of the same data,
+        ``codecs/device.tree_occupancy_mip8``), from the mip: max gates
+        only, so it skips only blocks wholly below iso.
+
+        Pass the bound with the same isovalue and data: a bound made for
+        another isovalue, dims or wrap, or from another tensor (or one
+        written in place since), raises ValueError there, so two binds
+        cannot be crossed.  The grid depends only on the data and the wrap:
+        one bound serves every plan of the same dims and wrap, and a bind
+        (plain torch reductions on the data's device) pays only where a
+        (data, isovalue) pair is rendered more than once."""
+        _check_scalars(iso_value, self.wrap)
+        if (volume is None) == (pool is None):
+            raise ValueError("bind takes a volume or a (pool, slab_map) pair, exactly one of "
+                             "the two")
+        if volume is not None:
+            self._check_volume(volume)
+            data = (volume,)
+        else:
+            check_clamp(self.wrap, "pooled binds")
+            data = tuple(pool)
+            if len(data) != 2 or pool_dims(*data) != self.dims:
+                raise ValueError(f"pool must be a (pool, slab_map) pair holding a volume of "
+                                 f"(X, Y, Z) = {self.dims}")
+        if mip8 is not None:
+            grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
+        elif volume is not None:
+            grid = iso_block_grid(volume, self.wrap)
+        else:
+            grid = iso_grid_from_pool(*data, self.dims)
+        return IsoBound(float(iso_value), self.dims, self.wrap, grid.to(self.hit.device),
+                        data_source(*data))
+
+    def render(self, volume: torch.Tensor, iso_value: float = 40.0 / 255.0,
+               bound: IsoBound | None = None):
+        """volume: (Z, Y, X) float32 in [0, 1], on the plan's device.  It is
+        quantized to 8 bits, marched and shaded.  ``bound``: None, or
+        :meth:`bind`'s result from this very volume tensor for
+        ``iso_value`` (the march skips exactly; the image is the same).
+        Returns (rgb (H, W, 3), found (H, W) bool); pixels without a hit are
+        white."""
+        self._check_volume(volume)
+        _grid(bound, iso_value, self.dims, self.wrap, data=(volume,))
         vol_u8 = quantize_u8(volume)
         found, t_hit = iso_march_cuda(vol_u8, self.entry_uv, self.dir_step, self.hit,
-                                      iso_value, self.max_samples, self.wrap)
+                                      iso_value, self.max_samples, self.wrap, bound)
         rgb = iso_shade_cuda(vol_u8, self.entry_uv, self.dir_step, self.direction, found, t_hit,
                              iso_value, self.wrap)
         return rgb, found
 
     def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
-                      iso_value: float = 40.0 / 255.0):
+                      iso_value: float = 40.0 / 255.0, bound: IsoBound | None = None):
         """Compressed-domain isosurface render from a slab pool on the
         plan's device: B8 marches a float32 narrow pool
         (``build_slab_pool_narrow``), B9 an int32 pair16 pool
         (``build_slab_pool``), and the pooled shade reads the same pool.
         Equal bit for bit to :meth:`render` of the volume the pool was built
-        from.  Clamp-only: a plan with ``wrap="repeat"`` raises.  Returns
-        (rgb (H, W, 3), found (H, W) bool)."""
+        from.  ``bound``: None, or :meth:`bind`'s result from this very pool
+        and slab map (``bind(pool=(pool, slab_map))``) for ``iso_value``.
+        Clamp-only: a plan with ``wrap="repeat"`` raises.  Returns (rgb (H,
+        W, 3), found (H, W) bool)."""
         dims = pool_dims(pool, slab_map)
         if dims != self.dims:
             raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's is "
                              f"{self.dims}")
+        _grid(bound, iso_value, dims, self.wrap, data=(pool, slab_map))
         march = (iso_march_pooled_pair16_cuda if pool.dtype == torch.int32
                  else iso_march_pooled_narrow_cuda)
         found, t_hit = march(pool, slab_map, self.entry_uv, self.dir_step, self.hit, iso_value,
-                             self.max_samples, self.wrap)
+                             self.max_samples, self.wrap, bound)
         rgb = iso_shade_pooled_cuda(pool, slab_map, self.entry_uv, self.dir_step,
                                     self.direction, found, t_hit, iso_value, self.wrap)
         return rgb, found

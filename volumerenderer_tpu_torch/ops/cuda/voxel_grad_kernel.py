@@ -31,14 +31,15 @@ from ._launch import bind, check_image, launch
 from .raycast_kernel import CompositingPlan, quantize_u8
 from .tf_kernel import bind_render_tf, check_march_inputs, check_plan
 
-__all__ = ["voxel_grad_cuda", "voxel_grad_kernel", "make_render_tf_voxel", "load_kernel"]
+__all__ = ["voxel_grad_cuda", "voxel_grad_block_stats", "voxel_grad_kernel",
+           "make_render_tf_voxel", "load_kernel"]
 
 
 @functools.cache
 def _launcher():
     # entry_uv, dir_step, hit, vol, tf, gc, gaT_term, P_tot; H, W, X, Y, Z, max_samples;
-    # g_vol, stream
-    return bind("voxel_grad", 8, 6, [ctypes.c_void_p] * 2)
+    # g_vol, stats, stream
+    return bind("voxel_grad", 8, 6, [ctypes.c_void_p] * 3)
 
 
 def load_kernel() -> _build.BuiltLibrary:
@@ -72,19 +73,64 @@ def voxel_grad_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
     if vol_u8.device.type == "cpu":
         return voxel_grad_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
                                 hit.to(torch.bool), tf_scalars, gc, gaT_term, P_tot, max_samples)
-    H, W = hit.shape
-    Z, Y, X = vol_u8.shape
-    g_vol = torch.zeros((Z, Y, X), dtype=torch.float32, device=vol_u8.device)
-    if H * W > 0:
-        launch(_launcher, "voxel_grad", vol_u8.device,
-               entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), vol_u8.data_ptr(),
-               tf_scalars.data_ptr(), gc.data_ptr(), gaT_term.data_ptr(), P_tot.data_ptr(),
-               H, W, X, Y, Z, max_samples, g_vol.data_ptr())
-        voxel_grad_cuda.launches += 1
+    g_vol = torch.zeros(vol_u8.shape, dtype=torch.float32, device=vol_u8.device)
+    if hit.numel() > 0:
+        _launch_vg(tensors, max_samples, g_vol, None)
     return g_vol
 
 
 voxel_grad_cuda.launches = 0
+
+
+def _launch_vg(tensors: dict, max_samples: int, g_vol: torch.Tensor,
+               stats: torch.Tensor | None) -> None:
+    H, W = tensors["hit"].shape
+    Z, Y, X = tensors["vol_u8"].shape
+    launch(_launcher, "voxel_grad", g_vol.device,
+           *(tensors[n].data_ptr() for n in ("entry_uv", "dir_step", "hit", "vol_u8",
+                                              "tf_scalars", "gc", "gaT_term", "P_tot")),
+           H, W, X, Y, Z, max_samples, g_vol.data_ptr(),
+           None if stats is None else stats.data_ptr())
+    voxel_grad_cuda.launches += 1
+
+
+def voxel_grad_block_stats(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
+                           hit: torch.Tensor, tf_scalars: torch.Tensor, gc: torch.Tensor,
+                           gaT_term: torch.Tensor, P_tot: torch.Tensor,
+                           max_samples: int = MAX_SAMPLES):
+    """One launch of :func:`voxel_grad_cuda`'s kernel (CUDA tensors only)
+    with its per-block counters.  Returns (g_vol, dict): the blocks that
+    accumulated in their shared tile (``tiled``), those that added to device
+    memory directly (``global``, their box beyond the kernel's tile of
+    ``tile_budget_floats``) and those without an alive step (``empty``); the
+    global atomicAdds of the launch, and the 8 per alive step a launch
+    without the tile would make (``global_atomics_untiled``); and the median
+    and largest box (voxels) of the nonempty blocks.  Adds one to
+    ``voxel_grad_cuda.launches``."""
+    tensors = {"vol_u8": vol_u8, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit,
+               "tf_scalars": tf_scalars, "gc": gc, "gaT_term": gaT_term, "P_tot": P_tot}
+    check_march_inputs(tensors, max_samples, "clamp")
+    check_image(tensors, hit.shape, torch.float32, ("gc", "gaT_term", "P_tot"))
+    if vol_u8.device.type != "cuda":
+        raise ValueError("voxel_grad_block_stats counts the kernel's blocks: CUDA tensors only")
+    lib = load_kernel().lib
+    H, W = hit.shape
+    bx, by = lib.voxel_grad_block_x(), lib.voxel_grad_block_y()
+    budget = lib.voxel_grad_tile_budget()
+    stats = torch.zeros((-(-H // by) * -(-W // bx), 3), dtype=torch.int32, device=vol_u8.device)
+    g_vol = torch.zeros(vol_u8.shape, dtype=torch.float32, device=vol_u8.device)
+    _launch_vg(tensors, max_samples, g_vol, stats)
+    box = stats[:, 0].long()
+    nonempty = box[box > 0]
+    n_tiled = int(((box > 0) & (box <= budget)).sum())
+    return g_vol, {
+        "block": [by, bx], "tile_budget_floats": budget, "blocks": int(box.numel()),
+        "tiled": n_tiled, "global": int(nonempty.numel()) - n_tiled,
+        "empty": int(box.numel() - nonempty.numel()),
+        "global_atomics": int(stats[:, 1].long().sum()),
+        "global_atomics_untiled": 8 * int(stats[:, 2].long().sum()),
+        "box_voxels_median": float(nonempty.float().median()) if nonempty.numel() else 0.0,
+        "box_voxels_max": int(nonempty.max()) if nonempty.numel() else 0}
 
 
 def _voxel_grad_u8(params: TFParams, vol_u8: torch.Tensor, plan: CompositingPlan,
