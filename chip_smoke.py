@@ -6,8 +6,9 @@ Drives the port's render and gradient paths over a 1024x1024 image of a
 calls:
 
 * compositing, over a 16-frame orbit: ``generate_rays`` ->
-  ``plan_compositing`` -> ``CompositingPlan.render`` (kernel
-  ``csrc/composite_march.cu``);
+  ``plan_compositing`` -> ``CompositingPlan.render``: one launch of
+  ``csrc/composite_march.cu`` (B1) per frame, on the float32 volume, each tap
+  quantized to 8 bits as it is read, the transfer in its epilogue;
 * isosurface at the volume's median, over the same orbit: ``generate_rays``
   -> ``IsosurfacePlan`` -> ``IsosurfacePlan.bind`` (once for the volume and
   isovalue, shared by the 16 plans) -> ``IsosurfacePlan.render(..., bound=)``
@@ -46,7 +47,8 @@ kernels once per render, forward or backward.
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
 Each phase prints one JSON line (device, build, goldens, parity, main_path,
-kernel_timing, layers, launch_count, then iso_goldens, iso_parity,
+kernel_timing, layers, launch_count, main_path_profile, b1_warps,
+b1_routes, then iso_goldens, iso_parity,
 iso_main_path, iso_timing, iso_layers, iso_launch_count, then tf_parity,
 vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
 vg_tile, grad_launch_count, then codec, decode, pools, pooled_parity,
@@ -56,16 +58,18 @@ sharded_timing, seg_starts, sharded_layers, sharded_launch_count).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
 kernels line's ``max_abs_err`` is over the parity cases, kernel against
-plain version: |color|, |alpha| for the compositing marches, |t_hit| in
-steps (-1 for a miss) for the isosurface marches, |rgb| for the shade
-passes, the largest |d| of the seven images for the TF march, |g_vol| for
-the voxel-gradient march, |position| and |i0| of the segment entry table.  Without a CUDA device, or away from the repository's package, it
-exits non-zero and prints no result.  Any failed check raises.
+plain version: |rgb| (B1) or |color|, and |alpha| for the compositing
+marches, |t_hit| in steps (-1 for a miss) for the isosurface marches, |rgb|
+for the shade passes, the largest |d| of the seven images for the TF march,
+|g_vol| for the voxel-gradient march, |position| and |i0| of the segment
+entry table.  Without a CUDA device, or away from the repository's package,
+it exits non-zero and prints no result.  Any failed check raises.
 """
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -134,7 +138,9 @@ NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
 # data sheet, at 700 W).  Operations per step, from each kernel's arithmetic:
 # a trilinear sample 41 (texel coordinates 6, floors 3, fractions 3, byte
 # scales 8, seven lerps 21); a position step 3; compositing 6; the TF sums
-# 16 more; the iso crossing test and lookahead step 5; the segment anchor
+# 16 more; B1 and B4 on the float32 volume quantize each of the 8 taps
+# (max, min, product, round: 4 each) and B1 writes 1 - c once per ray; the
+# iso crossing test and lookahead step 5; the segment anchor
 # test 6 (a segment step before the sample: a position step and the anchor
 # test, 9); the voxel gradient's replayed step, cotangent, tap weights and 8
 # atomic adds 94 in all; the shade 3 per rebuilt step and per hit 4
@@ -144,8 +150,14 @@ NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
 # are not counted) and gathers only in a mixed block: a gathered sample 49 +
 # 9, a skipped one 49 - 41 + 9.
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+QUANTIZE_OPS_PER_TAP, TRANSFER_OPS_PER_RAY = 4, 1
 OPS_PER_STEP = {"composite": 50, "tf": 66, "voxel_grad": 94, "iso": 49, "seg_walk": 9,
                 "seg_owned": 47, "seg_tf_owned": 63}
+OPS_PER_STEP["composite_f32"] = OPS_PER_STEP["composite"] + 8 * QUANTIZE_OPS_PER_TAP
+OPS_PER_STEP["tf_f32"] = OPS_PER_STEP["tf"] + 8 * QUANTIZE_OPS_PER_TAP
+# bytes per ray: the rays read (entry_uv, dir_step, hit) and B1's displayed
+# image written (rgb and alpha)
+RAY_BYTES, RGBA_BYTES = 25, 16
 TRILINEAR_OPS, ISO_CLASSIFY_OPS = 41, 9
 ISO_GATHERED_OPS = OPS_PER_STEP["iso"] + ISO_CLASSIFY_OPS
 ISO_SKIPPED_OPS = OPS_PER_STEP["iso"] - TRILINEAR_OPS + ISO_CLASSIFY_OPS
@@ -183,11 +195,13 @@ def nvidia_smi() -> str:
 
 
 def compare(kernel_out, plain_out, n_px: int) -> dict:
-    """Largest |kernel - plain| over color and alpha, and how many pixels
+    """Largest |kernel - plain| over color (or rgb) and alpha, and how many pixels
     exceed the tight bar; raises if the bars are missed."""
     d = None
     for k, p in zip(kernel_out, plain_out):
         dk = (k - p).abs()
+        if dk.dim() == 3:  # an (H, W, 3) image: the largest channel of each pixel
+            dk = dk.amax(dim=-1)
         d = dk if d is None else torch.maximum(d, dk)
     max_abs = float(d.max())
     n_over = int((d > TIGHT).sum())
@@ -227,9 +241,48 @@ def bound(n_bytes: float, ops: float, samples: float, rays: int) -> dict:
             "library_ms": None, "bytes": n_bytes, "ops": ops, "samples_per_ray": samples / rays}
 
 
-def composite_samples(plan, vol_plain, K: float = 0.6) -> torch.Tensor:
+def tap_indices(pos: torch.Tensor, dims) -> torch.Tensor:
+    """The flat (z, y, x) indices of the 8 clamp-mode taps of each position
+    of ``pos`` (N, 3) on a volume of ``dims`` = (X, Y, Z)."""
+    from volumerenderer_tpu_torch.ops.sampling import texel_coords
+
+    X, Y, Z = dims
+    i0, _ = texel_coords(pos, dims)
+
+    def axis(k, n, stride):
+        return [torch.clamp(i0[:, k] + j, 0, n - 1) * stride for j in (0, 1)]
+
+    return torch.cat([z + y + x for z in axis(2, Z, X * Y) for y in axis(1, Y, X)
+                      for x in axis(0, X, 1)])
+
+
+def pool_tap_words(pos: torch.Tensor, dims, pool: torch.Tensor, slab_map: torch.Tensor):
+    """The flat indices of the 4 slab-pool words (one per (z, y) row, both
+    x taps in it) that the pooled sampler fetches for each position of
+    ``pos`` (N, 3): ``ops/sampling.py::sample_trilinear_slab_pool``'s index
+    math, for either pool format."""
+    from volumerenderer_tpu_torch.ops.sampling import texel_coords
+
+    X, Y, Z = dims
+    i0, _ = texel_coords(pos, dims)
+    words_per_row = pool.shape[-1]  # X // 2 (pair16) or X (narrow)
+    xw = torch.clamp(i0[:, 0], 0, X - 1) // (X // words_per_row)
+    ys = [torch.clamp(i0[:, 1] + j, 0, Y - 1) for j in (0, 1)]
+    z0 = torch.clamp(i0[:, 2], 0, Z - 1)
+    block = z0 >> 3
+    slot = torch.clamp(slab_map.reshape(-1).to(torch.int64)[block], 0, pool.shape[0] - 1)
+    rows = [(slot * 16 + torch.clamp(z0 + j, 0, Z - 1) - 8 * block) * Y for j in (0, 1)]
+    return torch.cat([(r + y) * words_per_row + xw for r in rows for y in ys])
+
+
+def composite_samples(plan, vol_plain, K: float = 0.6, touched: torch.Tensor | None = None,
+                      pools: tuple = ()):
     """Per-ray samples of the compositing march with its a > 0.99 early-out
-    (B1; B4 and B5 at alpha scale ``K``), counted by its plain arithmetic."""
+    (B1; B4 and B5 at alpha scale ``K``), counted by its plain arithmetic.
+    With ``touched`` (a flat bool tensor of the volume's voxels) every voxel
+    a sample's taps read is set in it; for each (mask, pool, slab_map) of
+    ``pools`` every pool word the pooled march (B6, B7) fetches for those
+    samples is set in the mask, a flat bool tensor of the pool's words."""
     from volumerenderer_tpu_torch.ops.sampling import sample_trilinear
 
     pos, alive = plan.entry_uv, plan.hit.bool()
@@ -243,8 +296,26 @@ def composite_samples(plan, vol_plain, K: float = 0.6) -> torch.Tensor:
         s = sample_trilinear(vol_plain, pos)
         alpha = torch.where(alive, alpha + (s - s * alpha) * K, alpha)
         n = n + alive
+        if touched is not None:
+            touched[tap_indices(pos[alive], plan.dims)] = True
+        for mask, pool, slab_map in pools:
+            mask[pool_tap_words(pos[alive], plan.dims, pool, slab_map)] = True
         alive = alive & (alpha <= 0.99)
     return n
+
+
+def warp_steps(n: torch.Tensor, warp_hw) -> dict:
+    """How the per-ray samples ``n`` (H, W) fill warps of ``warp_hw`` (rows,
+    columns) pixels, as a warp runs until its slowest lane ends: the mean
+    and the largest per-warp max and mean, and the lanes' share of the
+    warps' steps (sum of means over sum of maxima)."""
+    h, w = warp_hw
+    H_, W_ = n.shape
+    g = n.reshape(H_ // h, h, W_ // w, w).permute(0, 2, 1, 3).reshape(-1, h * w)
+    mx, mean = g.amax(dim=1), g.mean(dim=1)
+    return {"mean_of_warp_max": float(mx.mean()), "mean_of_warp_mean": float(mean.mean()),
+            "max_of_warp_max": float(mx.max()),
+            "lane_share": float(mean.sum() / mx.sum()) if float(mx.sum()) > 0 else None}
 
 
 def march_steps(plan, boxes=None):
@@ -331,20 +402,70 @@ def device_profile(fn, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # host ops: their kernels are listed apart
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
+        counts[e.key[:60]] = counts.get(e.key[:60], 0) + e.count
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
     device_ms = sum(by_name.values())
     worst = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"device_ms": device_ms, "wall_ms": wall_ms,
             "idle_share": 1.0 - device_ms / wall_ms if wall_ms > 0 else None,
-            "top_device_ms": {k[:60]: v for k, v in worst}}
+            "top_device_ms": {k[:60]: v for k, v in worst}, "device_events": counts}
+
+
+def adversarial_volume(dev) -> torch.Tensor:
+    """The 256^3 turbulence (seed 0) with, at seeded places, values below 0,
+    above 1, and at (k + 0.5)/255 and one ulp either side: where a per-tap
+    quantize could part from quantize_u8."""
+    from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
+
+    rng = np.random.default_rng(8)
+    v = turbulence_volume(VOLUME, seed=0).astype(np.float32) / np.float32(255)
+    half = ((rng.integers(0, 255, VOLUME) + 0.5) / 255.0).astype(np.float32)
+    pick = rng.integers(0, 8, VOLUME)
+    for k, value in enumerate((-rng.random(VOLUME, dtype=np.float32),
+                               np.float32(1) + rng.random(VOLUME, dtype=np.float32),
+                               np.nextafter(half, np.float32(-1)), half,
+                               np.nextafter(half, np.float32(2)))):
+        v = np.where(pick == k, value, v)
+    return torch.from_numpy(v.astype(np.float32)).to(dev)
+
+
+def run_routes(dev, smi: str, turb, plans) -> None:
+    """The fused B1 (float32 taps) against the byte route (a quantize pass,
+    then B1 on the bytes, then the transfer) per frame over the orbit, on the
+    turbulence and on it dimmed to 25 % and 2 %, whose rays run deeper: the
+    float32 volume (67 MB) does not fit the 50 MB L2, the byte one does."""
+    from volumerenderer_tpu_torch import as_normalized_volume
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+
+    quantize_bound_ms = 1e3 * 5 * turb.numel() / HBM_BYTES_PER_S  # read f32, write u8
+    for name, vol in (("turbulence", turb), ("dim25", turb * 0.25), ("dim2", turb * 0.02)):
+        u8 = RK.quantize_u8(vol)
+
+        def byte_frame(p):
+            c, a = RK.composite_march_cuda(RK.quantize_u8(vol), p.entry_uv, p.dir_step, p.hit)
+            return RK.apply_reference_transfer(c, a), a
+
+        ms = {"fused_frame": time_ms(lambda: [p.render(vol) for p in plans]) / N_FRAMES,
+              "byte_route_frame": time_ms(lambda: [byte_frame(p) for p in plans]) / N_FRAMES,
+              "byte_route_march": time_ms(lambda: [RK.composite_march_cuda(
+                  u8, p.entry_uv, p.dir_step, p.hit) for p in plans]) / N_FRAMES,
+              "quantize_u8": time_ms(lambda: RK.quantize_u8(vol))}
+        ms["byte_march_plus_quantize_at_bound"] = ms["byte_route_march"] + quantize_bound_ms
+        mask = torch.zeros(vol.numel(), dtype=torch.bool, device=dev)
+        n = composite_samples(plans[0], as_normalized_volume(u8), touched=mask)
+        emit({"phase": "b1_routes", "volume": name, "ms_per_frame": ms,
+              "fused_faster_than_byte_route_at_bound": ms["fused_frame"] <
+              ms["byte_march_plus_quantize_at_bound"],
+              "frame0_samples_per_ray": float(n.mean()),
+              "frame0_touched_voxels": int(mask.sum()), "gpu": smi})
 
 
 def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
@@ -588,10 +709,13 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
             for name in ("iso_march", "iso_shade")]
 
 
-def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float) -> list:
+def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
+                  touched: float, adversarial) -> list:
     """The gradient phases; returns the kernels line's two entries.
-    ``samples`` is B1's per launch over the orbit: at reference params B4
-    and B5 take the same steps."""
+    ``samples`` and ``touched`` (the voxels the taps read) are B1's per
+    launch over the orbit: at reference params B4 and B5 take the same
+    steps.  ``adversarial`` is the main phase's volume made to part a
+    per-tap quantize from quantize_u8."""
     from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
     from volumerenderer_tpu_torch.diff import closed_form as CF
     from volumerenderer_tpu_torch.diff.vjp import render_tf_o1
@@ -610,10 +734,12 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
                   "non_reference": TFParams(f32(0.45), f32(0.9), f32(0.05),
                                             f32([-0.8, 0.6, 0.3]), f32([0.9, 0.2, 0.4]))}
     cases = [("entry_sphere", sphere, Camera(width=W, height=H)),
-             ("orbit_frame0", turb, cameras[0]), ("orbit_frame15", turb, cameras[-1])]
+             ("orbit_frame0", turb, cameras[0]), ("orbit_frame15", turb, cameras[-1]),
+             ("adversarial_frame0", adversarial, cameras[0])]
 
-    # B4 vs its plain version: all seven images; at reference params color
-    # and alpha also equal B1's
+    # B4 vs its plain version: all seven images; the fused B4 (float32
+    # taps quantized as read) bit for bit B4 on quantize_u8 of the volume;
+    # at reference params color and alpha also equal B1's
     err = {"tf_march": 0.0, "voxel_grad": 0.0}
     vg_inputs = []
     for name, v, cam in cases:
@@ -624,9 +750,15 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
         plain_vol = as_normalized_volume(vol_u8)
         for pname, params in param_sets.items():
             tf = CF.tf_scalars(params)
-            k = TK.tf_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf)
+            k = TK.tf_march_f32_cuda(v, plan.entry_uv, plan.dir_step, plan.hit, tf)
+            kb = TK.tf_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf)
             p = CF.tf_march_steps(plain_vol, plan.entry_uv, plan.dir_step, plan.hit.bool(), tf)
             torch.cuda.synchronize()
+            bit_equal = {"fused_vs_byte_route": all(torch.equal(a, b) for a, b in zip(k, kb)),
+                         "fused_vs_plain": all(torch.equal(a, b) for a, b in zip(k, p))}
+            if not bit_equal["fused_vs_byte_route"]:
+                raise AssertionError(f"tf {name} {pname}: the fused B4 differs from B4 on "
+                                     f"quantize_u8 of the volume")
             res = compare(k[:2], p[:2], cam.width * cam.height)
             rel = torch.stack([(a - b).abs() / torch.clamp(b.abs(), min=1.0)
                                for a, b in zip(k[2:], p[2:])]).amax(dim=0)
@@ -639,7 +771,9 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
             line = {"phase": "tf_parity", "case": name, "params": pname,
                     "hw": [cam.height, cam.width], **res, "max_abs_err_7": max_abs,
                     "sums_max_rel_err": float(rel.max()), "sums_px_beyond": sums_over,
-                    "alpha_sum_kernel": float(k[1].sum()), "R_sum_kernel": float(k[2].sum())}
+                    "alpha_sum_kernel": float(k[1].sum()), "R_sum_kernel": float(k[2].sum()),
+                    "bit_equal": bit_equal,
+                    "px_differ_plain": int(sum((a != b) for a, b in zip(k, p)).gt(0).sum())}
             if pname == "reference":
                 c1, a1 = RK.composite_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit)
                 line["color_alpha_equal_b1"] = bool(torch.equal(c1, k[0]) and torch.equal(a1, k[1]))
@@ -647,7 +781,8 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
                     raise AssertionError(f"tf {name}: at reference params B4's color/alpha "
                                          f"differ from B1's")
             emit(line)
-            vg_inputs.append((name, pname, params, plan, vol_u8, plain_vol, k))
+            if not name.startswith("adversarial"):  # B5 is held on the earlier cases
+                vg_inputs.append((name, pname, params, plan, vol_u8, plain_vol, k))
 
     # B5 vs its plain version on the same cases, seeded cotangents, fed B4's
     # alpha_T and P_total; and the conservation check: the 8 trilinear
@@ -719,7 +854,9 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
 
     # the main path on orbit frame 0: the config-4 TF fit, then the voxel
     # grad step against one forward frame (bench.py's protocol).  The launch
-    # counts cover exactly this run.
+    # counts cover exactly this run: every forward is one launch of the
+    # fused B4 and none of its byte route.
+    TK.tf_march_f32_cuda.launches = 0
     TK.tf_march_cuda.launches = 0
     VK.voxel_grad_cuda.launches = 0
     forwards = backwards = 0
@@ -761,7 +898,9 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
 
     frame_s = sweep_seconds(fwd_frame)
     step_s = sweep_seconds(grad_step)
-    launches = {"tf_march": TK.tf_march_cuda.launches, "voxel_grad": VK.voxel_grad_cuda.launches}
+    launches = {"tf_march": TK.tf_march_f32_cuda.launches,
+                "voxel_grad": VK.voxel_grad_cuda.launches}
+    tf_byte_launches = TK.tf_march_cuda.launches
     runs = {"forwards": forwards, "backwards": backwards}
     gp, gv = last["gp"], last["gv"]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -810,8 +949,11 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
         g_rgb = (rgb - target) * (2.0 / rgb.numel())
         cots.append((*CF.cotangent_images(reference, g_rgb, None, k[1]), k[3]))
     ms = {
-        "tf_march": time_ms(lambda: [TK.tf_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, tf)
+        "tf_march": time_ms(lambda: [TK.tf_march_f32_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf)
                                      for p in plans]) / N_FRAMES,
+        "tf_march_byte_route": time_ms(lambda: [
+            TK.tf_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, tf)
+            for p in plans]) / N_FRAMES,
         "voxel_grad": time_ms(lambda: [VK.voxel_grad_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit,
                                                           tf, *c)
                                        for p, c in zip(plans, cots)]) / N_FRAMES}
@@ -850,8 +992,10 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
 
     layers = {
         "quantize_u8": time_ms(lambda: RK.quantize_u8(turb)),
-        "tf_march_kernel": time_ms(lambda: TK.tf_march_cuda(turb_u8, plan0.entry_uv,
-                                                            plan0.dir_step, plan0.hit, tf)),
+        "tf_march_kernel": time_ms(lambda: TK.tf_march_f32_cuda(turb, plan0.entry_uv,
+                                                                plan0.dir_step, plan0.hit, tf)),
+        "tf_march_kernel_byte_route": time_ms(lambda: TK.tf_march_cuda(
+            turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit, tf)),
         "transfer_loss_and_cotangent": time_ms(loss_and_cotangent),
         "cotangent_images": time_ms(lambda: CF.cotangent_images(reference, g_rgb0, None, k0[1])),
         "param_grad_reductions": time_ms(lambda: CF.tf_param_grads(reference, k0, g_rgb0, gc0,
@@ -860,9 +1004,12 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
         "voxel_grad_kernel": time_ms(b5_alone),
         "sgd_update": time_ms(sgd_update),
         "whole_step_events": time_ms(grad_step)}
+    tf_fit_step_ms = time_ms(lambda: TK.tf_fit_step_fast(f_tf, reference, turb, target,
+                                                         lr=FIT_LR))
     emit({"phase": "grad_layers", "ms": layers,
-          "sum_of_layers": sum(v for n, v in layers.items() if n != "whole_step_events"),
-          "gpu": smi})
+          "sum_of_layers": sum(v for n, v in layers.items()
+                               if n not in ("whole_step_events", "tf_march_kernel_byte_route")),
+          "tf_fit_step_events_ms": tf_fit_step_ms, "gpu": smi})
 
     # B5's blocks: how many accumulated in their shared tile and how many
     # added to device memory, the launch's global atomicAdds (and the 8 per
@@ -898,12 +1045,24 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
     # the main path went through both kernels: B4 once per forward, B5 once
     # per backward
     if launches["tf_march"] != runs["forwards"] or launches["voxel_grad"] != runs["backwards"] \
-            or not runs["forwards"] or not runs["backwards"]:
-        raise AssertionError(f"gradient kernels launched {launches} times for {runs}")
-    emit({"phase": "grad_launch_count", **launches, **runs})
+            or not runs["forwards"] or not runs["backwards"] or tf_byte_launches:
+        raise AssertionError(f"gradient kernels launched {launches} times for {runs}, B4's "
+                             f"byte route {tf_byte_launches} times")
+    emit({"phase": "grad_launch_count", **launches, **runs,
+          "tf_march_byte_route": tf_byte_launches})
+    # B4's bound as B1's: the float32 voxels its taps read (B1's at
+    # reference params), the rays, the TF scalars and the seven planes
     rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
-    bounds = {"tf_march": bound(nbytes(turb_u8, tf) + rays_io + 7 * 4 * W * H,
-                                OPS_PER_STEP["tf"] * samples, samples, W * H),
+    tf_io = nbytes(tf) + rays_io + 7 * 4 * W * H
+    tf_ops = OPS_PER_STEP["tf_f32"] * samples
+    bounds = {"tf_march": {**bound(4 * touched + tf_io, tf_ops, samples, W * H),
+                           "volume_route": "float32, each tap quantized as read",
+                           "bound_ms_whole_volume": bound(nbytes(turb) + tf_io, tf_ops, samples,
+                                                          W * H)["bound_ms"],
+                           "byte_route_ms": ms["tf_march_byte_route"],
+                           "byte_route_bound_ms": bound(touched + tf_io,
+                                                        OPS_PER_STEP["tf"] * samples, samples,
+                                                        W * H)["bound_ms"]},
               "voxel_grad": bound(nbytes(turb_u8, tf, *cots[0]) + rays_io + 4 * turb.numel(),
                                   OPS_PER_STEP["voxel_grad"] * samples, samples, W * H)}
     return [{"name": name, "route": "cuda", "source": GRAD_SOURCES[name],
@@ -913,11 +1072,13 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float)
             for name in ("tf_march", "voxel_grad")]
 
 
-def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -> list:
+def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
+                   samples: float) -> list:
     """The compressed-domain phases; returns the kernels line's five entries.
     ``dense`` holds the kernels line's entries of B1, B2 and B3: each pooled
-    kernel's output, and so its samples, are its dense kernel's."""
-    from volumerenderer_tpu_torch import Camera, generate_rays
+    kernel's output, and so its samples, are its dense kernel's; ``samples``
+    is B1's per launch over the orbit."""
+    from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
     from volumerenderer_tpu_torch.codecs import device as CD
     from volumerenderer_tpu_torch.codecs import kdtree as KT
     from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
@@ -925,7 +1086,7 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
     from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
     from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
     from volumerenderer_tpu_torch.ops.isosurface import iso_march_steps, shade_hits
-    from volumerenderer_tpu_torch.ops.raycast import composite_march_steps
+    from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
     from volumerenderer_tpu_torch.ops.sampling import slab_pool_sampler
 
     # 1. the tree, built on the host from the 256^3 turbulence
@@ -992,7 +1153,10 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
     # 4. every pooled kernel vs its plain version (the pool sampler through
     # the plain marches) and vs its dense kernel, bit for bit, on the same
     # u8 volume: orbit frames 0 and 15 on the turbulence, the default
-    # camera on the sphere (mostly slot-0 reads)
+    # camera on the sphere (mostly slot-0 reads).  B6 and B7 with the
+    # transfer in their epilogue (render_pooled's launch) equal
+    # apply_reference_transfer of their color and the fused dense B1 on the
+    # float32 volume, bit for bit.
     iso_med = IK.volume_median(turb)
     marches = {"narrow": (RK.composite_march_pooled_narrow_cuda, IK.iso_march_pooled_narrow_cuda),
                "pair16": (RK.composite_march_pooled_pair16_cuda, IK.iso_march_pooled_pair16_cuda)}
@@ -1006,12 +1170,15 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
         vol_u8 = dense_u8[vname]
         args = (plan.entry_uv, plan.dir_step)
         c_d, a_d = RK.composite_march_cuda(vol_u8, *args, plan.hit)
+        rgb_f, a_f = RK.composite_march_f32_cuda({"turbulence": turb, "sphere": sphere}[vname],
+                                                 *args, plan.hit, transfer=True)
         f_d, t_d = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso)
         dense_grid = plan.bind(vol_u8, iso).grid
         for fmt, (comp, isom) in marches.items():
             pool, smap = pools[vname, fmt]
             sampler = slab_pool_sampler(pool, smap, VOLUME[::-1])
             c_k, a_k = comp(pool, smap, *args, plan.hit)
+            rgb_e, a_e = comp(pool, smap, *args, plan.hit, transfer=True)
             f_k, t_k = isom(pool, smap, *args, plan.hit, iso)
             # bound from the pool's own bytes (the grid of the volume it was
             # built from) and from the volume's mip8
@@ -1032,14 +1199,19 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
             dense_equal = bool(torch.equal(c_k, c_d) and torch.equal(a_k, a_d)
                                and torch.equal(f_k, f_d) and torch.equal(t_k, t_d)
                                and torch.equal(rgb_k, rgb_d))
+            epilogue_equal = bool(torch.equal(rgb_e, apply_reference_transfer(c_k, a_k))
+                                  and torch.equal(a_e, a_k) and torch.equal(rgb_e, rgb_f)
+                                  and torch.equal(a_e, a_f))
             res = compare((c_k, a_k), (c_p, a_p), W * H)
             px_differ = int(((f_k != f_p) | (t_k != t_p)).sum())
             t_err = float((t_k - t_p).abs().max())
             rgb_err = float((rgb_k - rgb_p).abs().max())
-            if not dense_equal or not all(bound_equal.values()) \
+            if not dense_equal or not epilogue_equal or not all(bound_equal.values()) \
                     or px_differ > res["px_allowed"] or rgb_err > ISO_RGB_TOL:
                 raise AssertionError(f"pooled {case} {fmt}: equal to the dense kernels "
-                                     f"{dense_equal}; bound equal to unbound {bound_equal}; "
+                                     f"{dense_equal}; the epilogue's image equal to the "
+                                     f"transfer's and the fused dense B1's {epilogue_equal}; "
+                                     f"bound equal to unbound {bound_equal}; "
                                      f"vs plain {px_differ} px differ in found/t_hit (allowed "
                                      f"{res['px_allowed']:g}), rgb max |d| {rgb_err} (bar "
                                      f"{ISO_RGB_TOL})")
@@ -1048,7 +1220,8 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
             err[f"iso_march_pooled_{fmt}"] = max(err[f"iso_march_pooled_{fmt}"], t_err)
             err["iso_shade_pooled"] = max(err["iso_shade_pooled"], rgb_err)
             emit({"phase": "pooled_parity", "case": case, "pool": fmt, "iso": iso,
-                  "equal_to_dense_kernels": dense_equal, **res,
+                  "equal_to_dense_kernels": dense_equal,
+                  "epilogue_equal_to_transfer_and_fused_b1": epilogue_equal, **res,
                   "iso_px_differ_found_t_hit": px_differ, "t_hit_max_abs_err": t_err,
                   "rgb_max_abs_err": rgb_err, "hits_kernel": int(f_k.sum()),
                   "alpha_sum_kernel": float(a_k.sum()), "bound_bit_equal": bound_equal})
@@ -1177,13 +1350,24 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
     def per_frame(fn, plans):
         return time_ms(lambda: [fn(p) for p in plans]) / len(plans)
 
-    ms = {
+    # B6 and B7 as render_pooled launches them (the transfer in the
+    # epilogue), the color alone beside them
+    color_ms = {
         "composite_march_pooled_narrow": per_frame(
             lambda p: RK.composite_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv,
                                                             p.dir_step, p.hit), cplans),
         "composite_march_pooled_pair16": per_frame(
             lambda p: RK.composite_march_pooled_pair16_cuda(pool_16, smap_16, p.entry_uv,
-                                                            p.dir_step, p.hit), cplans),
+                                                            p.dir_step, p.hit), cplans)}
+    ms = {
+        "composite_march_pooled_narrow": per_frame(
+            lambda p: RK.composite_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv,
+                                                            p.dir_step, p.hit, transfer=True),
+            cplans),
+        "composite_march_pooled_pair16": per_frame(
+            lambda p: RK.composite_march_pooled_pair16_cuda(pool_16, smap_16, p.entry_uv,
+                                                            p.dir_step, p.hit, transfer=True),
+            cplans),
         "iso_march_pooled_narrow": per_frame(
             lambda p: IK.iso_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv, p.dir_step,
                                                       p.hit, iso_med), iplans),
@@ -1215,7 +1399,8 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
                 reps=1) / 2
     emit({"phase": "pooled_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
           "frames": N_FRAMES, "plain_frames": [0, N_FRAMES - 1],
-          "kernel_ms_per_launch": ms, "bound_kernel_ms_per_launch": bound_ms,
+          "kernel_ms_per_launch": ms, "color_only_ms_per_launch": color_ms,
+          "bound_kernel_ms_per_launch": bound_ms,
           "plain_ms_per_launch": plain_ms,
           "dense_kernel_ms_per_launch": {n: e["ms"] for n, e in dense.items()},
           "dense_iso_march_ms_unbound": dense["iso_march"]["ms_unbound"], "gpu": smi})
@@ -1228,14 +1413,37 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict) -
     # samples and operations
     pool_io = {fmt: nbytes(*pools["turbulence", fmt]) for fmt in ("narrow", "pair16")}
     rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in iplans) / N_FRAMES
-    comp, iso, shade = dense["composite_march"], dense["iso_march"], dense["iso_shade"]
+    iso, shade = dense["iso_march"], dense["iso_shade"]
     hit_io = sum(nbytes(f, t) for f, t in hits) / N_FRAMES
 
     def like(entry, n_bytes):
         return bound(n_bytes, entry["ops"], entry["samples_per_ray"] * W * H, W * H)
 
-    bounds = {f"composite_march_pooled_{fmt}": like(comp, pool_io[fmt] + rays_io + 8 * W * H)
-              for fmt in pool_io}
+    # B6/B7: the dense march's samples on byte taps, the image written; the
+    # pool words their taps fetch over the orbit (a boolean scatter of every
+    # sample's 4 word indices, per frame), as B1's bound counts its voxels,
+    # the whole pool's bytes beside it
+    comp_ops = OPS_PER_STEP["composite"] * samples + TRANSFER_OPS_PER_RAY * W * H
+    turb_plain = as_normalized_volume(dense_u8["turbulence"])
+    words = dict.fromkeys(pool_io, 0.0)
+    for p in cplans:
+        masks = {fmt: torch.zeros(pools["turbulence", fmt][0].numel(), dtype=torch.bool,
+                                  device=dev) for fmt in pool_io}
+        composite_samples(p, turb_plain, pools=[(masks[fmt], *pools["turbulence", fmt])
+                                                for fmt in pool_io])
+        for fmt in pool_io:
+            words[fmt] += float(masks[fmt].sum()) / N_FRAMES
+    out_io = rays_io + RGBA_BYTES * W * H
+    bounds = {}
+    for fmt in pool_io:
+        pool, smap = pools["turbulence", fmt]
+        n = f"composite_march_pooled_{fmt}"
+        bounds[n] = {**bound(words[fmt] * pool.element_size() + nbytes(smap) + out_io, comp_ops,
+                             samples, W * H),
+                     "touched_pool_words_per_launch": words[fmt],
+                     "bound_ms_whole_pool": bound(pool_io[fmt] + out_io, comp_ops, samples,
+                                                  W * H)["bound_ms"],
+                     "color_only_ms": color_ms[n]}
     bounds.update({f"iso_march_pooled_{fmt}": bound(pool_io[fmt] + rays_io + hit_io,
                                                     iso["ops_unskipped_formula"],
                                                     iso["samples_per_ray"] * W * H, W * H)
@@ -1653,7 +1861,7 @@ def main() -> int:
     from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK
     from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
     from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
-    from volumerenderer_tpu_torch.ops.raycast import composite_march_steps
+    from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1691,32 +1899,56 @@ def main() -> int:
                              f"({GOLDEN_RGB}, {GOLDEN_ALPHA}) within {GOLDEN_TOL}")
     emit({"phase": "goldens", "sum_rgb": sums[0], "sum_alpha": sums[1], "tol": GOLDEN_TOL})
 
-    # 4. kernel vs plain march on the card, same inputs, at the main path's shapes
+    # 4. kernel vs plain march on the card, same inputs, at the main path's
+    # shapes: the fused B1 (the float32 volume, each tap quantized as it is
+    # read, the transfer in its epilogue) and the byte route (B1 on
+    # quantize_u8 of the volume) against the plain march on quantize_u8 of
+    # the volume and apply_reference_transfer, bit for bit; on the four
+    # cases of the earlier slices and on a volume made to part a per-tap
+    # quantize from quantize_u8 (values below 0, above 1 and at (k + 0.5)/255
+    # and one ulp either side), both wraps
     sphere = as_normalized_volume(sphere_volume(VOLUME), device=dev)
     turb = as_normalized_volume(turbulence_volume(VOLUME, seed=0), device=dev)
+    adversarial = adversarial_volume(dev)
     cases = [("entry_sphere", sphere, Camera(width=W, height=H), "clamp"),
              ("orbit_frame0", turb, orbit_camera(Camera, 0.0, W, H), "clamp"),
              ("orbit_frame15", turb, orbit_camera(Camera, 2.0 * (N_FRAMES - 1), W, H), "clamp"),
-             ("repeat_128", turb, orbit_camera(Camera, 30.0, 128, 128), "repeat")]
+             ("repeat_128", turb, orbit_camera(Camera, 30.0, 128, 128), "repeat"),
+             ("adversarial_frame0", adversarial, orbit_camera(Camera, 0.0, W, H), "clamp"),
+             ("adversarial_repeat_128", adversarial, orbit_camera(Camera, 30.0, 128, 128),
+              "repeat")]
     max_abs_err = 0.0
     for name, v, cam, wrap in cases:
         rays = generate_rays(cam, device=dev)
         Z, Y, X = v.shape
-        plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z))
+        plan = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z), wrap=wrap)
         vol_u8 = RK.quantize_u8(v)
-        k = RK.composite_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit,
-                                    plan.max_samples, wrap)
-        p = composite_march_steps(as_normalized_volume(vol_u8), plan.entry_uv, plan.dir_step,
-                                  plan.hit.bool(), plan.max_samples, wrap)
+        args = (plan.entry_uv, plan.dir_step, plan.hit, plan.max_samples, wrap)
+        rgb_k, a_k = RK.composite_march_f32_cuda(v, *args, transfer=True)
+        rgb_b, a_b = RK.composite_march_cuda(vol_u8, *args, transfer=True)
+        c_b, a_b0 = RK.composite_march_cuda(vol_u8, *args)
+        c_p, a_p = composite_march_steps(as_normalized_volume(vol_u8), plan.entry_uv,
+                                         plan.dir_step, plan.hit.bool(), plan.max_samples, wrap)
+        rgb_p = apply_reference_transfer(c_p, a_p)
         torch.cuda.synchronize()
-        res = compare(k, p, cam.width * cam.height)
+        equal = {"fused_vs_plain": torch.equal(rgb_k, rgb_p) and torch.equal(a_k, a_p),
+                 "byte_route_vs_plain": torch.equal(rgb_b, rgb_p) and torch.equal(a_b, a_p),
+                 "byte_color_vs_plain": torch.equal(c_b, c_p) and torch.equal(a_b0, a_p),
+                 "plan_render_is_fused": all(torch.equal(x, y) for x, y in
+                                             zip(plan.render(v), (rgb_k, a_k)))}
+        res = compare((rgb_k, a_k), (rgb_p, a_p), cam.width * cam.height)
+        if not all(equal.values()):
+            raise AssertionError(f"B1 parity {name}: bit-equal {equal}, {res}")
         max_abs_err = max(max_abs_err, res["max_abs_err"])
         emit({"phase": "parity", "case": name, "wrap": wrap, "hw": [cam.height, cam.width],
-              "alpha_sum_kernel": float(k[1].sum()), "alpha_sum_plain": float(p[1].sum()), **res})
+              "alpha_sum_kernel": float(a_k.sum()), "alpha_sum_plain": float(a_p.sum()),
+              "bit_equal": equal, **res})
 
     # 5. the main path, as a user drives it: camera -> rays -> plan (once per
     # camera) -> render, over the 16-frame orbit; min of REPS sweeps after a
-    # warm sweep.  The launch count covers exactly this run.
+    # warm sweep.  The launch counts cover exactly this run: every render is
+    # one launch of the fused B1 and none of the byte route.
+    RK.composite_march_f32_cuda.launches = 0
     RK.composite_march_cuda.launches = 0
     renders = 0
     cameras = [orbit_camera(Camera, 2.0 * i, W, H) for i in range(N_FRAMES)]
@@ -1742,7 +1974,8 @@ def main() -> int:
         return float(acc)
 
     kernel_sweep_s = sweep_seconds(kernel_sweep)
-    launches = RK.composite_march_cuda.launches
+    launches = RK.composite_march_f32_cuda.launches
+    byte_launches = RK.composite_march_cuda.launches
     plain_sweep_s = sweep_seconds(plain_sweep)
     rgb, alpha = last["rgb"], last["alpha"]
     if rgb.shape != (H, W, 3) or alpha.shape != (H, W) or not bool(torch.isfinite(rgb).all()) \
@@ -1756,46 +1989,105 @@ def main() -> int:
           "plain_ms_per_frame": 1e3 * plain_sweep_s / N_FRAMES,
           "frames": N_FRAMES, "reps": REPS, "gpu": smi})
 
-    # per-launch times of the kernel and its plain version on the orbit's
-    # inputs, then each layer of one frame alone (orbit frame 0)
+    # per-launch times of the fused B1 (the main path's launch), of B1's
+    # byte route (the march the parent frame ran after its quantize) and of
+    # the plain version on the orbit's inputs, then each layer of one frame
+    # alone (orbit frame 0): the one-launch frame beside the byte route's
+    # quantize, march and transfer
     turb_u8 = RK.quantize_u8(turb)
     turb_plain = as_normalized_volume(turb_u8)
-    kernel_ms = time_ms(lambda: [RK.composite_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit)
-                                 for p in plans]) / N_FRAMES
+
+    def fused(v, p):
+        return RK.composite_march_f32_cuda(v, p.entry_uv, p.dir_step, p.hit, transfer=True)
+
+    kernel_ms = time_ms(lambda: [fused(turb, p) for p in plans]) / N_FRAMES
+    byte_ms = time_ms(lambda: [RK.composite_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit)
+                               for p in plans]) / N_FRAMES
     plain_ms = time_ms(lambda: [composite_march_steps(turb_plain, p.entry_uv, p.dir_step,
                                                       p.hit.bool()) for p in plans]) / N_FRAMES
     emit({"phase": "kernel_timing", "shape": [H, W], "volume": list(VOLUME),
           "frames": N_FRAMES, "kernel_ms_per_launch": kernel_ms,
-          "plain_ms_per_launch": plain_ms, "gpu": smi})
+          "byte_route_march_ms_per_launch": byte_ms, "plain_ms_per_launch": plain_ms,
+          "gpu": smi})
     cam0, rays0, plan0 = cameras[0], bundles[0], plans[0]
     c0, a0 = RK.composite_march_cuda(turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit)
+
+    def byte_route_frame():
+        c, a = RK.composite_march_cuda(RK.quantize_u8(turb), plan0.entry_uv, plan0.dir_step,
+                                       plan0.hit)
+        return RK.apply_reference_transfer(c, a), a
+
     emit({"phase": "layers", "ms": {
         "generate_rays": time_ms(lambda: generate_rays(cam0, device=dev)),
         "plan": time_ms(lambda: plan_compositing(rays0.entry_uv, rays0.direction, rays0.hit,
                                                  VOLUME[::-1])),
-        "quantize_u8": time_ms(lambda: RK.quantize_u8(turb)),
-        "march_kernel": time_ms(lambda: RK.composite_march_cuda(turb_u8, plan0.entry_uv,
-                                                                plan0.dir_step, plan0.hit)),
-        "transfer": time_ms(lambda: RK.apply_reference_transfer(c0, a0))}, "gpu": smi})
+        "frame_one_launch": time_ms(lambda: plan0.render(turb)),
+        "byte_route_frame": time_ms(byte_route_frame),
+        "byte_route_quantize_u8": time_ms(lambda: RK.quantize_u8(turb)),
+        "byte_route_march": time_ms(lambda: RK.composite_march_cuda(
+            turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit)),
+        "byte_route_transfer": time_ms(lambda: RK.apply_reference_transfer(c0, a0))},
+        "gpu": smi})
 
-    # 6. the main path went through the kernel, once per render
-    if launches == 0 or launches != renders:
-        raise AssertionError(f"composite_march launched {launches} times for {renders} renders")
-    emit({"phase": "launch_count", "composite_march": launches, "renders": renders})
+    # 6. the main path went through the fused kernel, once per render and
+    # never the byte route; under the profiler, one sweep of renders alone
+    # (no sums) runs exactly one device kernel per render, B1
+    if launches == 0 or launches != renders or byte_launches != 0:
+        raise AssertionError(f"fused B1 launched {launches} times for {renders} renders, the "
+                             f"byte route {byte_launches} times")
+    emit({"phase": "launch_count", "composite_march": launches, "renders": renders,
+          "composite_march_byte_route": byte_launches})
 
-    # B1's bound, per launch over the orbit
-    samples = sum(float(composite_samples(p, turb_plain).sum()) for p in plans) / N_FRAMES
+    def render_sweep():
+        for plan in plans:
+            plan.render(turb)
+
+    prof = device_profile(render_sweep)
+    events = prof["device_events"]
+    if sum(events.values()) != N_FRAMES or not all("composite_march_kernel" in k for k in events):
+        raise AssertionError(f"a main-path sweep of {N_FRAMES} renders ran the device work "
+                             f"{events}; expected {N_FRAMES} launches of B1 and nothing else")
+    emit({"phase": "main_path_profile", "renders": N_FRAMES,
+          "device_kernels_per_render": sum(events.values()) / N_FRAMES, **prof, "gpu": smi})
+
+    # B1's bound, per launch over the orbit: the float32 voxels its taps
+    # read (a boolean scatter of every sample's 8 tap indices, per frame),
+    # the rays read and the image written; the whole volume's bytes beside
+    # it.  Frame 0's samples per ray, grouped as the kernel's warps run them
+    # (16x2 pixels in its 16x8 blocks; 32x1 in 32x4 blocks, 8x4 in 8x8).
+    samples, touched = 0.0, 0.0
+    for i, p in enumerate(plans):
+        mask = torch.zeros(turb.numel(), dtype=torch.bool, device=dev)
+        n = composite_samples(p, turb_plain, touched=mask)
+        samples += float(n.sum()) / N_FRAMES
+        touched += float(mask.sum()) / N_FRAMES
+        if i == 0:
+            emit({"phase": "b1_warps", "frame": 0, "samples_per_ray": float(n.mean()),
+                  "warps": {f"{h}x{w}": warp_steps(n, (h, w))
+                            for h, w in ((2, 16), (1, 32), (4, 8))},
+                  "ncu": shutil.which("ncu") or
+                  next((str(q) for q in Path("/usr/local/cuda/bin").glob("ncu*")), None)})
     rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
+    f32_ops = OPS_PER_STEP["composite_f32"] * samples + TRANSFER_OPS_PER_RAY * W * H
     b1 = {"name": "composite_march", "route": "cuda", "source": KERNEL_SOURCE,
           "replaces": REPLACES, "launches": launches, "max_abs_err": max_abs_err,
           "ms": kernel_ms, "plain_ms": plain_ms,
-          **bound(nbytes(turb_u8) + rays_io + 8 * W * H, OPS_PER_STEP["composite"] * samples,
-                  samples, W * H)}
+          **bound(4 * touched + rays_io + RGBA_BYTES * W * H, f32_ops, samples, W * H),
+          "volume_route": "float32, each tap quantized as read; rgb written in the epilogue",
+          "touched_voxels_per_launch": touched,
+          "bound_ms_whole_volume": bound(nbytes(turb) + rays_io + RGBA_BYTES * W * H, f32_ops,
+                                         samples, W * H)["bound_ms"],
+          "byte_route_march_ms": byte_ms,
+          "byte_route_march_bound_ms": bound(touched + rays_io + 8 * W * H,
+                                             OPS_PER_STEP["composite"] * samples, samples,
+                                             W * H)["bound_ms"]}
+    run_routes(dev, smi, turb, plans)
 
     iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles)
-    grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles, samples)
+    grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles, samples, touched,
+                                 adversarial)
     pooled_kernels = run_compressed(dev, smi, turb, sphere, cameras, bundles,
-                                    {k["name"]: k for k in (b1, *iso_kernels)})
+                                    {k["name"]: k for k in (b1, *iso_kernels)}, samples)
     sharded_kernels = run_sharded(dev, smi, turb, sphere, cameras, bundles)
 
     emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *sharded_kernels]})

@@ -181,9 +181,9 @@ def test_kernel_goldens_on_cuda(cuda_device):
 
     vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99), device=cuda_device)
     rays = generate_rays(Camera(width=64, height=48), device=cuda_device)
-    before = RK.composite_march_cuda.launches
+    before = RK.composite_march_f32_cuda.launches  # render: B1 on the float32 volume
     rgb, a = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (32, 32, 32)).render(vol)
-    assert RK.composite_march_cuda.launches == before + 1
+    assert RK.composite_march_f32_cuda.launches == before + 1
     assert abs(float(rgb.sum()) - 3667.208252) < 0.02
     assert abs(float(a.sum()) - 3046.968750) < 0.02
 

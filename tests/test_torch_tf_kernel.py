@@ -125,7 +125,7 @@ def test_render_tf_kernel_on_cpu_matches_jax_render_tf_and_grad():
     g_ref = jax.grad(loss_ref)(_jax_params())
     rgb_ref, a_ref = render_tf_jax(_jax_params(), vol_j, e, d, h, max_samples=24)
 
-    before = TK.tf_march_cuda.launches
+    before = (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches)
     f = TK.make_render_tf_kernel(_plan((e, d, h)))
     params = TFParams(*(t.requires_grad_(True) for t in _params()))
     rgb, a = f(params, as_normalized_volume(vol_u8, device="cpu"))
@@ -138,7 +138,8 @@ def test_render_tf_kernel_on_cpu_matches_jax_render_tf_and_grad():
         assert g_t.shape == g_r.shape, name
         np.testing.assert_allclose(g_t.numpy(), g_r, rtol=2e-4,
                                    atol=2e-4 * max(1.0, np.abs(g_r).max()), err_msg=name)
-    assert TK.tf_march_cuda.launches == before  # no kernel launched on CPU
+    # no kernel launched on CPU, on either route
+    assert (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches) == before
 
 
 def test_tf_fit_step_fast_matches_jax_step():
@@ -213,14 +214,18 @@ def _wrapper_inputs():
 
 
 def test_wrapper_cpu_runs_plain_version():
-    before = TK.tf_march_cuda.launches
+    before = (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches)
     kw = _wrapper_inputs()
     got = TK.tf_march_cuda(**kw, max_samples=16)
     ref = tf_march_steps(as_normalized_volume(kw["vol_u8"]), kw["entry_uv"], kw["dir_step"],
                          kw["hit"].bool(), kw["tf_scalars"], 16)
     assert len(got) == 7 and all(torch.equal(g, r) for g, r in zip(got, ref))
     assert float(got[2].max()) > 0
-    assert TK.tf_march_cuda.launches == before  # no kernel launched on CPU
+    vol = as_normalized_volume(kw.pop("vol_u8"))
+    got_f32 = TK.tf_march_f32_cuda(vol, **kw, max_samples=16)
+    assert all(torch.equal(g, r) for g, r in zip(got_f32, ref))
+    # no kernel launched on CPU, on either route
+    assert (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches) == before
 
 
 @pytest.mark.parametrize("field,value,match", [

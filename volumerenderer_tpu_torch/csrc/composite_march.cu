@@ -12,19 +12,34 @@
 //   pa = s - s*a;  c += pa*s;  a += pa*0.6;  leave once a > 0.99.
 //
 // What bounds it on this card: every step is a data-dependent 8-tap gather
-// whose addresses spread across a warp as the rays fan out, served by L1/L2
-// (a 256^3 u8 volume is 16.8 MB and stays resident in the 50 MB L2); each ray
-// runs up to ~300 dependent steps; and the rays of one warp terminate at
-// different steps (bounds exit, early-out), idling the lanes that finished.
-// The ~40 flops per step are small beside the gather latency.
+// whose addresses spread across a warp as the rays fan out; each ray runs up
+// to ~300 dependent steps; the rays of one warp may end at different steps.
+// Measured on the benchmark orbit (1024^2 rays, 256^3 turbulence): a frame's
+// taps read ~40 K voxels, each by hundreds of rays, so the gathers hit L1; a
+// warp's lanes are busy 99.5 % of its steps; a one-step tap prefetch is
+// slower.  What is left is the instructions of a step (texel math, index
+// clamps and offsets, 8 loads, the taps' scale or quantize, 7 lerps): their
+// count tracks the time (PERF.md, the B1 variants).
 //
-// What this simple design does about it: one thread per ray in 16x8-pixel
-// blocks, so a warp holds neighbouring rays whose taps overlap in the cache;
-// taps come through the read-only data path (__ldg) from the u8 volume, a
-// quarter of the bytes of f32; a thread leaves its loop as soon as its ray
-// terminates.  The TPU design's pair-packed volume, DMA windows, word tables
-// and lane groups are not carried over.  Left for later: empty-space
-// skipping, shared-memory bricks, a fused transfer.
+// What this design does about it: one thread per ray in 16x8-pixel blocks,
+// so a warp holds neighbouring rays whose taps overlap in the cache; taps
+// come through the read-only data path (__ldg); a thread leaves its loop as
+// soon as its ray terminates.  The TPU design's pair-packed volume, DMA
+// windows, word tables and lane groups are not carried over.
+//
+// The whole TPU launch is one kernel here.  The TPU launch quantizes the
+// float volume to 8 bits inside its jit (raycast_kernel.py::pack_pairs); a
+// separate quantize pass reads the 67 MB float32 volume and writes a 16.8 MB
+// byte copy every frame, three times the march's own time.  The main path's
+// entry (composite_march_f32_launch) reads the float32 volume instead and
+// quantizes each tap as it reads it (trilinear.cuh, VolumeSampler<float>),
+// so a frame touches only the voxels its rays sample.  The f32 volume does
+// not fit the 50 MB L2, so a field whose rays run deep reads up to four
+// times the bytes of the u8 route.  With rgb != 0 the epilogue also writes
+// the displayed image (the reference transfer), so a frame is one launch.
+// The wrap and the width of the voxel offsets are compile-time choices of
+// the sampler, so the per-tap index math carries no wrap test and no 64-bit
+// sums where the volume has at most 2^32 voxels.
 //
 // The pooled marches are the same body with the slab-pool sampler
 // (trilinear.cuh, sample_trilinear_pool): they replace raycast_kernel.py::
@@ -55,11 +70,14 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
-template <class Sampler>
+// kRgb: the epilogue writes the displayed image, rgb (H, W, 3) = (1 - c,
+// 1 - c, 1) (ops/raycast.py::apply_reference_transfer, bit for bit), into
+// `out`, with alpha; otherwise `out` is the (H, W) color c.
+template <class Sampler, bool kRgb>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 composite_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
                        const uint8_t* __restrict__ hit, Sampler sample, int H, int W,
-                       int max_samples, float* __restrict__ color, float* __restrict__ alpha) {
+                       int max_samples, float* __restrict__ out, float* __restrict__ alpha) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= W || py >= H) return;
@@ -87,43 +105,80 @@ composite_march_kernel(const float* __restrict__ entry_uv, const float* __restri
       if (!(a <= 0.99f)) break;
     }
   }
-  color[ray] = c;
+  if constexpr (kRgb) {
+    const float inv = 1.0f - c;
+    out[3 * ray + 0] = inv;
+    out[3 * ray + 1] = inv;
+    out[3 * ray + 2] = 1.0f;
+  } else {
+    out[ray] = c;
+  }
   alpha[ray] = a;
 }
 
 template <class Sampler>
 int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample, int H,
-           int W, int max_samples, void* color, void* alpha, void* stream) {
+           int W, int max_samples, int rgb, void* out, void* alpha, void* stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
-  composite_march_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
-      static_cast<const uint8_t*>(hit), sample, H, W, max_samples, static_cast<float*>(color),
-      static_cast<float*>(alpha));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto e = static_cast<const float*>(entry_uv);
+  const auto d = static_cast<const float*>(dir_step);
+  const auto h = static_cast<const uint8_t*>(hit);
+  if (rgb) {
+    composite_march_kernel<Sampler, true><<<grid, block, 0, s>>>(
+        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha));
+  } else {
+    composite_march_kernel<Sampler, false><<<grid, block, 0, s>>>(
+        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <vrt::PoolFormat F>
 int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, const void* pool,
                   const void* slab_map, int H, int W, int X, int Y, int Z, int n_slots,
-                  int max_samples, void* color, void* alpha, void* stream) {
+                  int max_samples, int rgb, void* out, void* alpha, void* stream) {
   const vrt::PoolSampler<F> sample{pool, static_cast<const int32_t*>(slab_map), n_slots, X, Y, Z};
-  return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, color, alpha, stream);
+  return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, rgb, out, alpha, stream);
+}
+
+// B1 on a dense volume of T (uint8_t: bytes; float: taps quantized as read),
+// the wrap and the offset type fixed at compile time in the kernel.
+template <class T>
+int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, const void* vol,
+                 int H, int W, int X, int Y, int Z, int max_samples, int repeat, int rgb,
+                 void* out, void* alpha, void* stream) {
+  return vrt::with_volume_sampler<T>(vol, X, Y, Z, repeat != 0, [&](auto sample) {
+    return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, rgb, out, alpha, stream);
+  });
 }
 
 }  // namespace
 
 // Each launch runs the march on `stream` for an H x W ray image and returns
 // cudaGetLastError() (0 on success).  Pointers are device pointers:
-// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), color and alpha (H*W f32).
+// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), alpha (H*W f32), and out:
+// the color (H*W f32), or with rgb != 0 the displayed image (H*W*3 f32).
 
 // B1: vol (Z*Y*X u8, x fastest); repeat != 0 selects GL_REPEAT wrapping.
 extern "C" int composite_march_launch(const void* entry_uv, const void* dir_step, const void* hit,
                                       const void* vol, int H, int W, int X, int Y, int Z,
-                                      int max_samples, int repeat, void* color, void* alpha,
-                                      void* stream) {
-  const vrt::DenseSampler sample{static_cast<const uint8_t*>(vol), X, Y, Z, repeat != 0};
-  return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, color, alpha, stream);
+                                      int max_samples, int repeat, int rgb, void* out,
+                                      void* alpha, void* stream) {
+  return launch_dense<uint8_t>(entry_uv, dir_step, hit, vol, H, W, X, Y, Z, max_samples, repeat,
+                               rgb, out, alpha, stream);
+}
+
+// B1 on the float32 volume (Z*Y*X f32, x fastest), each tap quantized to 8
+// bits as it is read (trilinear.cuh, VolumeSampler<float>): bit for bit B1
+// on quantize_u8 of the volume, with no quantize pass before it.
+extern "C" int composite_march_f32_launch(const void* entry_uv, const void* dir_step,
+                                          const void* hit, const void* vol, int H, int W, int X,
+                                          int Y, int Z, int max_samples, int repeat, int rgb,
+                                          void* out, void* alpha, void* stream) {
+  return launch_dense<float>(entry_uv, dir_step, hit, vol, H, W, X, Y, Z, max_samples, repeat,
+                             rgb, out, alpha, stream);
 }
 
 // B6: pool (n_slots*16*Y*X f32 pair values), slab_map (Z/8 i32), clamp.
@@ -131,9 +186,10 @@ extern "C" int composite_march_pooled_narrow_launch(const void* entry_uv, const 
                                                     const void* hit, const void* pool,
                                                     const void* slab_map, int H, int W, int X,
                                                     int Y, int Z, int n_slots, int max_samples,
-                                                    void* color, void* alpha, void* stream) {
+                                                    int rgb, void* out, void* alpha,
+                                                    void* stream) {
   return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, hit, pool, slab_map, H,
-                                                    W, X, Y, Z, n_slots, max_samples, color,
+                                                    W, X, Y, Z, n_slots, max_samples, rgb, out,
                                                     alpha, stream);
 }
 
@@ -142,9 +198,10 @@ extern "C" int composite_march_pooled_pair16_launch(const void* entry_uv, const 
                                                     const void* hit, const void* pool,
                                                     const void* slab_map, int H, int W, int X,
                                                     int Y, int Z, int n_slots, int max_samples,
-                                                    void* color, void* alpha, void* stream) {
+                                                    int rgb, void* out, void* alpha,
+                                                    void* stream) {
   return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, hit, pool, slab_map, H, W,
-                                                 X, Y, Z, n_slots, max_samples, color, alpha,
+                                                 X, Y, Z, n_slots, max_samples, rgb, out, alpha,
                                                  stream);
 }
 

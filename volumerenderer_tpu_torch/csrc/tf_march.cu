@@ -23,10 +23,12 @@
 // flops and 5 registers per step and 20 bytes more of output per ray.
 //
 // What this simple design does about it: B1's design (composite_march.cu):
-// one thread per ray in 16x8-pixel blocks, taps through __ldg from the u8
-// volume, the loop left as soon as the ray stops, with the sums in registers.
-// The TPU design's field-major state rows, DMA windows and word tables are
-// not carried over.
+// one thread per ray in 16x8-pixel blocks, taps through __ldg, the loop left
+// as soon as the ray stops, with the sums in registers.  As B1 does, the fit
+// step's entry (tf_march_f32_launch) reads the float32 volume and quantizes
+// each tap as it reads it, so a step makes no byte copy of the volume.  The
+// TPU design's field-major state rows, DMA windows and word tables are not
+// carried over.
 //
 // Rounding: built with --fmad=false, every product and sum rounds on its own
 // as in the plain version, in its order; the division is IEEE (no fast math).
@@ -46,11 +48,11 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
+template <class Sampler>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 tf_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
-                const uint8_t* __restrict__ hit, const uint8_t* __restrict__ vol,
-                const float* __restrict__ tf, int H, int W, int X, int Y, int Z,
-                int max_samples, float* __restrict__ out) {
+                const uint8_t* __restrict__ hit, Sampler sample, const float* __restrict__ tf,
+                int H, int W, int max_samples, float* __restrict__ out) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= W || py >= H) return;
@@ -79,7 +81,7 @@ tf_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ di
       p2 = p2 + d2;
       if (!(p0 > 0.0f && p0 < 1.0f && p1 > 0.0f && p1 < 1.0f && p2 > 0.0f && p2 < 1.0f)) break;
 
-      const float s = vrt::sample_trilinear(vol, p0, p1, p2, X, Y, Z, false);
+      const float s = sample(p0, p1, p2);
       const float sc = s * G + B;
       const float pa = s - s * a;
       const float r = s / fmaxf(1.0f - K * s, 1e-12f);
@@ -103,22 +105,52 @@ tf_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ di
   out[6 * plane + ray] = SB;
 }
 
-}  // namespace
-
-// Launches the march on `stream` for an H x W ray image and returns
-// cudaGetLastError() (0 on success).  Pointers are device pointers:
-// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), vol (Z*Y*X u8, x fastest),
-// tf (3 f32: K, G, B), out (7*H*W f32, the seven images plane after plane).
-extern "C" int tf_march_launch(const void* entry_uv, const void* dir_step, const void* hit,
-                               const void* vol, const void* tf, int H, int W, int X, int Y,
-                               int Z, int max_samples, void* out, void* stream) {
+template <class Sampler>
+int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
+           const void* tf, int H, int W, int max_samples, void* out, void* stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
   tf_march_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
-      static_cast<const uint8_t*>(hit), static_cast<const uint8_t*>(vol),
-      static_cast<const float*>(tf), H, W, X, Y, Z, max_samples, static_cast<float*>(out));
+      static_cast<const uint8_t*>(hit), sample, static_cast<const float*>(tf), H, W,
+      max_samples, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// B4 on a dense volume of T (uint8_t: bytes; float: taps quantized as read),
+// clamp-only, with B1's sampler.
+template <class T>
+int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, const void* vol,
+                 const void* tf, int H, int W, int X, int Y, int Z, int max_samples, void* out,
+                 void* stream) {
+  return vrt::with_volume_sampler<T>(vol, X, Y, Z, false, [&](auto sample) {
+    return launch(entry_uv, dir_step, hit, sample, tf, H, W, max_samples, out, stream);
+  });
+}
+
+}  // namespace
+
+// Each launch runs the march on `stream` for an H x W ray image and returns
+// cudaGetLastError() (0 on success).  Pointers are device pointers:
+// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), tf (3 f32: K, G, B), out
+// (7*H*W f32, the seven images plane after plane).
+
+// vol: Z*Y*X u8, x fastest.
+extern "C" int tf_march_launch(const void* entry_uv, const void* dir_step, const void* hit,
+                               const void* vol, const void* tf, int H, int W, int X, int Y,
+                               int Z, int max_samples, void* out, void* stream) {
+  return launch_dense<uint8_t>(entry_uv, dir_step, hit, vol, tf, H, W, X, Y, Z, max_samples, out,
+                               stream);
+}
+
+// vol: Z*Y*X f32, x fastest, each tap quantized to 8 bits as it is read
+// (trilinear.cuh, VolumeSampler<float>): bit for bit tf_march_launch on
+// quantize_u8 of the volume, with no quantize pass before it.
+extern "C" int tf_march_f32_launch(const void* entry_uv, const void* dir_step, const void* hit,
+                                   const void* vol, const void* tf, int H, int W, int X, int Y,
+                                   int Z, int max_samples, void* out, void* stream) {
+  return launch_dense<float>(entry_uv, dir_step, hit, vol, tf, H, W, X, Y, Z, max_samples, out,
+                             stream);
 }
 
 extern "C" const char* tf_march_error_string(int code) {

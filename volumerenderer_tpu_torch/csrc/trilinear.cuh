@@ -1,12 +1,14 @@
 // Trilinear sampling of the 8-bit volume with OpenGL texture semantics, shared
 // by the march, shade and gradient kernels (composite_march.cu, iso_march.cu,
 // iso_shade.cu, tf_march.cu, voxel_grad.cu), its adjoint for the voxel
-// gradient, and the same sampler fetching from a sparse z-slab pool
-// (sample_trilinear_pool, for the pooled marches and shade).  The samplers
-// differ only in how they fetch: the texel math (texel) and the seven lerps
-// (trilerp) are written once, so their bit-for-bit agreement rests on one
-// copy.  The segment marches (seg_march.cu) take their taps from the anchors
-// of their ownership test and share trilerp.
+// gradient, the same sampler reading the float32 volume and quantizing each
+// tap to 8 bits as it reads it (VolumeSampler<float>, for B1 and B4), and the
+// same sampler fetching from a sparse z-slab pool (sample_trilinear_pool, for
+// the pooled marches and shade).  The samplers differ only in how they fetch:
+// the texel math (texel) and the seven lerps (trilerp) are written once, so
+// their bit-for-bit agreement rests on one copy.  The segment marches
+// (seg_march.cu) take their taps from the anchors of their ownership test
+// and share trilerp.
 //
 // The device counterpart of volumerenderer_tpu_torch/ops/sampling.py::
 // sample_trilinear on the 8-bit grid: texel centers at (i + 0.5) / N, bytes
@@ -61,23 +63,41 @@ __device__ __forceinline__ float tap(const uint8_t* __restrict__ vol, size_t off
   return static_cast<float>(__ldg(vol + offset)) * (1.0f / 255.0f);
 }
 
-// trilerp of the bytes vol[z + y + x], given the flat offsets of each axis's
-// lower and upper tap (64-bit: z*Y*X overflows int32 past 2^31 voxels).
-__device__ __forceinline__ float gather_trilerp(const uint8_t* __restrict__ vol, size_t x0,
-                                                size_t x1, size_t y0, size_t y1, size_t z0,
-                                                size_t z1, float fx, float fy, float fz) {
+// A tap of the float32 volume, quantized as it is read: the voxel v as
+// volumerenderer_tpu_torch/ops/cuda/raycast_kernel.py::quantize_u8 makes its
+// byte (clamp to [0, 1], times 255, rounded half to even), then scaled as a
+// byte tap is.  Clamp, product and rounding each round on their own
+// (--fmad=false) and rintf rounds half to even as torch.round does, so for
+// every finite v and for +-inf this is the float the byte tap gives for
+// quantize_u8(v).  A NaN reads as 0.
+__device__ __forceinline__ float tap(const float* __restrict__ vol, size_t offset) {
+  return rintf(fminf(fmaxf(__ldg(vol + offset), 0.0f), 1.0f) * 255.0f) * (1.0f / 255.0f);
+}
+
+// trilerp of the taps vol[z + y + x], given the flat offsets of each axis's
+// lower and upper tap.  Offset is size_t (z*Y*X overflows int32 past 2^31
+// voxels), or uint32_t where the caller knows the volume has at most 2^32
+// voxels: fewer instructions per tap.
+template <class T, class Offset>
+__device__ __forceinline__ float gather_trilerp(const T* __restrict__ vol, Offset x0, Offset x1,
+                                                Offset y0, Offset y1, Offset z0, Offset z1,
+                                                float fx, float fy, float fz) {
   return trilerp(tap(vol, z0 + y0 + x0), tap(vol, z0 + y0 + x1), tap(vol, z0 + y1 + x0),
                  tap(vol, z0 + y1 + x1), tap(vol, z1 + y0 + x0), tap(vol, z1 + y0 + x1),
                  tap(vol, z1 + y1 + x0), tap(vol, z1 + y1 + x1), fx, fy, fz);
 }
 
-__device__ __forceinline__ size_t wrapped(int i, int n, bool repeat, size_t stride) {
-  return static_cast<size_t>(wrap_index(i, n, repeat)) * stride;
+template <class Offset>
+__device__ __forceinline__ Offset wrapped(int i, int n, bool repeat, Offset stride) {
+  return static_cast<Offset>(wrap_index(i, n, repeat)) * stride;
 }
 
-__device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vol, float u,
-                                                  float v, float w, int X, int Y, int Z,
-                                                  bool repeat) {
+// T = uint8_t: the 8-bit volume; T = float: the float32 volume, each tap
+// quantized to 8 bits as it is read (the same samples as the 8-bit volume
+// quantize_u8 makes of it).  Offset as for gather_trilerp.
+template <class Offset = size_t, class T>
+__device__ __forceinline__ float sample_trilinear(const T* __restrict__ vol, float u, float v,
+                                                  float w, int X, int Y, int Z, bool repeat) {
   if (repeat) {
     u = u - floorf(u);
     v = v - floorf(v);
@@ -87,15 +107,19 @@ __device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vo
   const int i0x = texel(u, X, fx);
   const int i0y = texel(v, Y, fy);
   const int i0z = texel(w, Z, fz);
-  const size_t sy = static_cast<size_t>(X);
-  const size_t sz = static_cast<size_t>(X) * static_cast<size_t>(Y);
-  return gather_trilerp(vol, wrapped(i0x, X, repeat, 1), wrapped(i0x + 1, X, repeat, 1),
+  const Offset sx = 1;
+  const Offset sy = static_cast<Offset>(X);
+  const Offset sz = static_cast<Offset>(X) * static_cast<Offset>(Y);
+  return gather_trilerp(vol, wrapped(i0x, X, repeat, sx), wrapped(i0x + 1, X, repeat, sx),
                         wrapped(i0y, Y, repeat, sy), wrapped(i0y + 1, Y, repeat, sy),
                         wrapped(i0z, Z, repeat, sz), wrapped(i0z + 1, Z, repeat, sz), fx, fy, fz);
 }
 
 // The dense volume as a sampler object: the march and shade bodies are
-// templates on their sampler (DenseSampler, PoolSampler below).
+// templates on their sampler (DenseSampler, VolumeSampler, PoolSampler
+// below).  DenseSampler, the wrap tested at run time and 64-bit offsets,
+// serves the isosurface march and shade (B2, B3); VolumeSampler<uint8_t>
+// takes the same taps with those two fixed at compile time.
 struct DenseSampler {
   const uint8_t* vol;
   int X, Y, Z;
@@ -104,6 +128,35 @@ struct DenseSampler {
     return sample_trilinear(vol, u, v, w, X, Y, Z, repeat);
   }
 };
+
+// The dense volume with its wrap and its offset type fixed at compile time
+// (B1 and B4): T = uint8_t reads the 8-bit volume as DenseSampler does, T =
+// float reads the float32 volume and quantizes each tap to 8 bits as it reads
+// it, bit for bit DenseSampler on quantize_u8 of the volume with no byte copy
+// made.  Offset = uint32_t needs a volume of at most 2^32 voxels.
+template <class T, bool kRepeat, class Offset>
+struct VolumeSampler {
+  const T* vol;
+  int X, Y, Z;
+  __device__ __forceinline__ float operator()(float u, float v, float w) const {
+    return sample_trilinear<Offset>(vol, u, v, w, X, Y, Z, kRepeat);
+  }
+};
+
+// Host side: returns launch(sampler) with the VolumeSampler of the dense
+// (Z, Y, X) volume of T at vol, its wrap and its offset type (uint32_t where
+// the volume has at most 2^32 voxels) chosen here from the run-time values.
+template <class T, class Launch>
+inline int with_volume_sampler(const void* vol, int X, int Y, int Z, bool repeat,
+                               Launch&& launch) {
+  const auto v = static_cast<const T*>(vol);
+  const bool small = static_cast<size_t>(X) * static_cast<size_t>(Y) * static_cast<size_t>(Z) <=
+                     (size_t{1} << 32);
+  if (small && repeat) return launch(VolumeSampler<T, true, uint32_t>{v, X, Y, Z});
+  if (small) return launch(VolumeSampler<T, false, uint32_t>{v, X, Y, Z});
+  if (repeat) return launch(VolumeSampler<T, true, size_t>{v, X, Y, Z});
+  return launch(VolumeSampler<T, false, size_t>{v, X, Y, Z});
+}
 
 // The two slab-pool layouts of volumerenderer_tpu_torch/ops/cuda/
 // raycast_kernel.py: slot s holds z rows [8b, 8b + 16) of the z-block b that

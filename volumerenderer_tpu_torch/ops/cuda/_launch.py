@@ -54,12 +54,12 @@ def check_tensors(tensors: dict, ref: str):
             raise ValueError(f"{name} is on {t.device} but {ref} is on {device}")
 
 
-def check_volume(vol_u8):
-    if vol_u8.dtype != torch.uint8 or vol_u8.dim() != 3 or min(vol_u8.shape) < 1:
-        raise ValueError(f"vol_u8 must be a non-empty (Z, Y, X) uint8 tensor, got "
-                         f"{tuple(vol_u8.shape)} {vol_u8.dtype}")
-    if max(vol_u8.shape) > INT32_MAX:
-        raise ValueError(f"volume extent {tuple(vol_u8.shape)} exceeds int32")
+def check_volume(vol, dtype=torch.uint8, name: str = "vol_u8"):
+    if vol.dtype != dtype or vol.dim() != 3 or min(vol.shape) < 1:
+        raise ValueError(f"{name} must be a non-empty (Z, Y, X) {str(dtype)[6:]} tensor, got "
+                         f"{tuple(vol.shape)} {vol.dtype}")
+    if max(vol.shape) > INT32_MAX:
+        raise ValueError(f"volume extent {tuple(vol.shape)} exceeds int32")
 
 
 def _check_index(name: str, value) -> int:

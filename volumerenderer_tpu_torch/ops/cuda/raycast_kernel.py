@@ -6,7 +6,11 @@ Counterpart of ``volumerenderer_tpu/ops/pallas/raycast_kernel.py``
 prepasses (footprint scan, DMA word tables, ray packing into lane tiles, the
 window-height cost model) only feed the TPU kernel's DMA windows; the CUDA
 kernel reads the volume straight from device memory, so a plan here is the
-ray tensors on the device plus the per-step increment.
+ray tensors on the device plus the per-step increment.  ``render`` is one
+launch, as the TPU launch is: B1 reads the float32 volume, quantizing each
+tap to 8 bits as it reads it (``composite_march_f32_cuda``), and writes the
+displayed image in its epilogue; ``composite_march_cuda`` is B1 on a byte
+volume.
 
 The compressed-domain render state lives here too: ``build_slab_pool``
 (pair16 words) and ``build_slab_pool_narrow`` (f32 pair values) keep only the
@@ -34,10 +38,11 @@ from ..raycast import (MAX_SAMPLES, apply_reference_transfer, composite_march_st
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
 from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
-                      check_tensors, launch)
+                      check_tensors, check_volume, launch)
 
-__all__ = ["composite_march_cuda", "composite_march_pooled_narrow_cuda",
-           "composite_march_pooled_pair16_cuda", "quantize_u8", "CompositingPlan",
+__all__ = ["composite_march_cuda", "composite_march_f32_cuda",
+           "composite_march_pooled_narrow_cuda", "composite_march_pooled_pair16_cuda",
+           "quantize_u8", "CompositingPlan",
            "render_compositing_kernel", "load_kernel", "block_max8", "pack_pairs",
            "pack_pairs16", "build_slab_pool", "build_slab_pool_narrow", "pool_dims", "SLAB_H"]
 
@@ -46,58 +51,52 @@ _INT32_MAX = 2**31 - 1
 
 def load_kernel() -> _build.BuiltLibrary:
     """Build (at first use) and load the march kernel's library (B1, B6, B7)."""
-    return _launcher()[1]
+    return _dense_launcher("composite_march")[1]
 
 
 @functools.cache
-def _launcher():
-    built = _build.load("composite_march")
-    fn = built.lib.composite_march_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    err = built.lib.composite_march_error_string
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, built
+def _dense_launcher(entry: str):
+    # entry_uv, dir_step, hit, vol; H, W, X, Y, Z, max_samples, repeat, rgb;
+    # out, alpha, stream
+    return bind("composite_march", 4, 8, [ctypes.c_void_p] * 3, entry=entry)
 
 
-def _check_inputs(vol_u8, entry_uv, dir_step, hit, max_samples, wrap):
-    tensors = {"vol_u8": vol_u8, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit}
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    device = vol_u8.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device} but vol_u8 is on {device}")
-    if vol_u8.dtype != torch.uint8 or vol_u8.dim() != 3 or min(vol_u8.shape) < 1:
-        raise ValueError(f"vol_u8 must be a non-empty (Z, Y, X) uint8 tensor, got "
-                         f"{tuple(vol_u8.shape)} {vol_u8.dtype}")
-    if max(vol_u8.shape) > _INT32_MAX:
-        raise ValueError(f"volume extent {tuple(vol_u8.shape)} exceeds int32")
-    if hit.dtype != torch.uint8 or hit.dim() != 2:
-        raise ValueError(f"hit must be an (H, W) uint8 tensor, got {tuple(hit.shape)} {hit.dtype}")
-    H, W = hit.shape
-    for name in ("entry_uv", "dir_step"):
-        t = tensors[name]
-        if t.dtype != torch.float32 or tuple(t.shape) != (H, W, 3):
-            raise ValueError(f"{name} must be an ({H}, {W}, 3) float32 tensor, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    if isinstance(max_samples, bool) or not isinstance(max_samples, int) \
-            or not 0 <= max_samples <= _INT32_MAX:
-        raise ValueError(f"max_samples must be a non-negative int, got {max_samples!r}")
+def _march_dense(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, max_samples, wrap,
+                 transfer: bool):
+    name = "vol_u8" if dtype == torch.uint8 else "volume"
+    tensors = {name: volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit}
+    check_tensors(tensors, name)
+    check_volume(volume, dtype, name)
+    check_hit(hit)
+    check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
+    check_max_samples(max_samples)
     if wrap not in WRAP_MODES:
         raise ValueError(f"unknown wrap mode: {wrap}")
+    if volume.device.type == "cpu":
+        vol_u8 = volume if dtype == torch.uint8 else quantize_u8(volume)
+        color, alpha = composite_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
+                                             hit.to(torch.bool), max_samples, wrap,
+                                             early_exit=True)
+        return (apply_reference_transfer(color, alpha) if transfer else color), alpha
+    H, W = hit.shape
+    Z, Y, X = volume.shape
+    out = torch.empty((H, W, 3) if transfer else (H, W), dtype=torch.float32,
+                      device=volume.device)
+    alpha = torch.empty((H, W), dtype=torch.float32, device=volume.device)
+    if H * W == 0:
+        return out, alpha
+    launch(lambda: _dense_launcher(entry), "composite_march", volume.device,
+           entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), volume.data_ptr(), H, W,
+           X, Y, Z, max_samples, int(wrap == "repeat"), int(transfer), out.data_ptr(),
+           alpha.data_ptr())
+    wrapper.launches += 1
+    return out, alpha
 
 
 def composite_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                          hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                         wrap: str = "clamp"):
-    """March an (H, W) ray image through the 8-bit volume.
+                         wrap: str = "clamp", transfer: bool = False):
+    """March an (H, W) ray image through the 8-bit volume (B1).
 
     Args:
       vol_u8: (Z, Y, X) uint8 volume, x fastest.
@@ -105,35 +104,36 @@ def composite_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step:
       dir_step: (H, W, 3) float32 per-step increment (direction / dims).
       hit: (H, W) uint8, nonzero where the ray enters the cube.
       wrap: "clamp" (clamp-to-edge) or "repeat" (GL_REPEAT).
+      transfer: write the displayed image in the kernel's epilogue.
 
-    Returns (color, alpha), each (H, W) float32.  CUDA tensors run the kernel
-    and add one to ``composite_march_cuda.launches``; CPU tensors run the
-    plain version.
+    Returns (color, alpha), each (H, W) float32; with ``transfer`` (rgb
+    (H, W, 3), alpha), rgb bit for bit ``apply_reference_transfer(color,
+    alpha)``.  CUDA tensors run the kernel and add one to
+    ``composite_march_cuda.launches``; CPU tensors run the plain version.
     """
-    _check_inputs(vol_u8, entry_uv, dir_step, hit, max_samples, wrap)
-    if vol_u8.device.type == "cpu":
-        return composite_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
-                                     hit.to(torch.bool), max_samples, wrap, early_exit=True)
-    H, W = hit.shape
-    Z, Y, X = vol_u8.shape
-    color = torch.empty((H, W), dtype=torch.float32, device=vol_u8.device)
-    alpha = torch.empty_like(color)
-    if H * W == 0:
-        return color, alpha
-    launch, built = _launcher()
-    with torch.cuda.device(vol_u8.device):
-        stream = torch.cuda.current_stream(vol_u8.device).cuda_stream
-        err = launch(entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(),
-                     vol_u8.data_ptr(), H, W, X, Y, Z, max_samples,
-                     int(wrap == "repeat"), color.data_ptr(), alpha.data_ptr(), stream)
-    if err != 0:
-        msg = built.lib.composite_march_error_string(err).decode(errors="replace")
-        raise RuntimeError(f"composite_march kernel launch failed: CUDA error {err} ({msg})")
-    composite_march_cuda.launches += 1
-    return color, alpha
+    return _march_dense(composite_march_cuda, "composite_march", torch.uint8, vol_u8, entry_uv,
+                        dir_step, hit, max_samples, wrap, transfer)
 
 
 composite_march_cuda.launches = 0
+
+
+def composite_march_f32_cuda(volume: torch.Tensor, entry_uv: torch.Tensor,
+                             dir_step: torch.Tensor, hit: torch.Tensor,
+                             max_samples: int = MAX_SAMPLES, wrap: str = "clamp",
+                             transfer: bool = False):
+    """B1 on the (Z, Y, X) float32 volume: the kernel quantizes each tap to 8
+    bits as it reads it, so the result is :func:`composite_march_cuda`'s on
+    ``quantize_u8(volume)``, bit for bit, with no quantize pass and no byte
+    copy.  The other arguments and the returns are
+    :func:`composite_march_cuda`'s.  CUDA tensors run the kernel and add one
+    to ``composite_march_f32_cuda.launches``; CPU tensors run the plain
+    version on ``quantize_u8(volume)``."""
+    return _march_dense(composite_march_f32_cuda, "composite_march_f32", torch.float32, volume,
+                        entry_uv, dir_step, hit, max_samples, wrap, transfer)
+
+
+composite_march_f32_cuda.launches = 0
 
 
 def quantize_u8(volume: torch.Tensor) -> torch.Tensor:
@@ -141,6 +141,16 @@ def quantize_u8(volume: torch.Tensor) -> torch.Tensor:
     the 8-bit grid the TPU kernel samples too.  Exact for volumes made by
     ``as_normalized_volume`` from bytes."""
     return torch.round(torch.clamp(volume, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _dense_march_for(volume: torch.Tensor):
+    """The dense march wrapper for ``volume``'s dtype: float32 ->
+    :func:`composite_march_f32_cuda` (taps quantized as they are read),
+    uint8 -> :func:`composite_march_cuda`; any other dtype raises."""
+    marches = {torch.float32: composite_march_f32_cuda, torch.uint8: composite_march_cuda}
+    if volume.dtype not in marches:
+        raise ValueError(f"the volume must be float32 in [0, 1] or uint8, got {volume.dtype}")
+    return marches[volume.dtype]
 
 
 class CompositingPlan:
@@ -194,13 +204,18 @@ class CompositingPlan:
                              f"plan's (Z, Y, X) = {(Z, Y, X)}")
 
     def render(self, volume: torch.Tensor):
-        """volume: (Z, Y, X) float32 in [0, 1], on the plan's device.  It is
-        quantized to 8 bits, marched, and passed through the reference
-        transfer.  Returns (rgb (H, W, 3), alpha (H, W))."""
+        """volume: (Z, Y, X) on the plan's device, float32 in [0, 1] or
+        uint8.  One launch of B1 marches it and writes the displayed image
+        (the reference transfer in its epilogue): it quantizes a float32
+        volume's taps to 8 bits as it reads them (no quantize pass; bit for
+        bit the march on ``quantize_u8(volume)``) and reads a uint8 volume's
+        bytes.  Any other dtype raises.  A view (a slice of a larger volume)
+        is copied first, as the kernel reads the volume in place.  Returns
+        (rgb (H, W, 3), alpha (H, W))."""
         self.check_volume(volume)
-        color, alpha = composite_march_cuda(quantize_u8(volume), self.entry_uv, self.dir_step,
-                                            self.hit, self.max_samples, self.wrap)
-        return apply_reference_transfer(color, alpha), alpha
+        volume = volume.contiguous()
+        return _dense_march_for(volume)(volume, self.entry_uv, self.dir_step, self.hit,
+                                        self.max_samples, self.wrap, transfer=True)
 
     def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor):
         """Compressed-domain render from a slab pool on the plan's device:
@@ -208,16 +223,16 @@ class CompositingPlan:
         (``build_slab_pool``), B6 for a float32 narrow pool
         (``build_slab_pool_narrow``).  Equal bit for bit to :meth:`render`
         of the volume the pool was built from.  Clamp-only: a plan with
-        ``wrap="repeat"`` raises.  Returns (rgb (H, W, 3), alpha (H, W))."""
+        ``wrap="repeat"`` raises.  The kernel writes the displayed image, as
+        for :meth:`render`.  Returns (rgb (H, W, 3), alpha (H, W))."""
         dims = pool_dims(pool, slab_map)
         if dims != self.dims:
             raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's is "
                              f"{self.dims}")
         march = (composite_march_pooled_pair16_cuda if pool.dtype == torch.int32
                  else composite_march_pooled_narrow_cuda)
-        color, alpha = march(pool, slab_map, self.entry_uv, self.dir_step, self.hit,
-                             self.max_samples, self.wrap)
-        return apply_reference_transfer(color, alpha), alpha
+        return march(pool, slab_map, self.entry_uv, self.dir_step, self.hit, self.max_samples,
+                     self.wrap, transfer=True)
 
 
 def _byte_values(volume: torch.Tensor) -> torch.Tensor:
@@ -371,13 +386,13 @@ def pool_dims(pool: torch.Tensor, slab_map: torch.Tensor, fmt: str | None = None
 @functools.cache
 def _pooled_launcher(fmt: str):
     # entry_uv, dir_step, hit, pool, slab_map; H, W, X, Y, Z, n_slots,
-    # max_samples; color, alpha, stream
-    return bind("composite_march", 5, 7, [ctypes.c_void_p] * 3,
+    # max_samples, rgb; out, alpha, stream
+    return bind("composite_march", 5, 8, [ctypes.c_void_p] * 3,
                 entry=f"composite_march_pooled_{fmt}")
 
 
 def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit,
-                            max_samples, wrap):
+                            max_samples, wrap, transfer):
     tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv,
                "dir_step": dir_step, "hit": hit}
     check_tensors(tensors, "pool")
@@ -387,35 +402,39 @@ def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hi
     check_max_samples(max_samples)
     check_clamp(wrap, "the pooled marches")
     if pool.device.type == "cpu":
-        return composite_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv,
-                                     dir_step, hit.to(torch.bool), max_samples, early_exit=True)
+        color, alpha = composite_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv,
+                                             dir_step, hit.to(torch.bool), max_samples,
+                                             early_exit=True)
+        return (apply_reference_transfer(color, alpha) if transfer else color), alpha
     H, W = hit.shape
     X, Y, Z = dims
-    color = torch.empty((H, W), dtype=torch.float32, device=pool.device)
-    alpha = torch.empty_like(color)
+    out = torch.empty((H, W, 3) if transfer else (H, W), dtype=torch.float32, device=pool.device)
+    alpha = torch.empty((H, W), dtype=torch.float32, device=pool.device)
     if H * W == 0:
-        return color, alpha
+        return out, alpha
     launch(lambda: _pooled_launcher(fmt), "composite_march", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), pool.data_ptr(),
-           slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), max_samples,
-           color.data_ptr(), alpha.data_ptr())
+           slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), max_samples, int(transfer),
+           out.data_ptr(), alpha.data_ptr())
     wrapper.launches += 1
-    return color, alpha
+    return out, alpha
 
 
 def composite_march_pooled_narrow_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                        entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                        hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                                       wrap: str = "clamp"):
+                                       wrap: str = "clamp", transfer: bool = False):
     """B6: :func:`composite_march_cuda`'s march, sampling the narrow f32
     slab pool (``build_slab_pool_narrow``) through its slab map.  Equal bit
     for bit to the dense march on the volume the pool was built from.
-    ``wrap`` must be "clamp".  Returns (color, alpha), each (H, W) float32.
+    ``wrap`` must be "clamp".  Returns (color, alpha), each (H, W) float32,
+    or with ``transfer`` (rgb (H, W, 3), alpha) as the dense march does.
     CUDA tensors run the kernel and add one to
     ``composite_march_pooled_narrow_cuda.launches``; CPU tensors run the
     plain version."""
     return _composite_march_pooled(composite_march_pooled_narrow_cuda, "narrow", pool,
-                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap)
+                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap,
+                                   transfer)
 
 
 composite_march_pooled_narrow_cuda.launches = 0
@@ -424,12 +443,13 @@ composite_march_pooled_narrow_cuda.launches = 0
 def composite_march_pooled_pair16_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                        entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                        hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                                       wrap: str = "clamp"):
+                                       wrap: str = "clamp", transfer: bool = False):
     """B7: as :func:`composite_march_pooled_narrow_cuda`, on the pair16 pool
     (``build_slab_pool``); adds one to
     ``composite_march_pooled_pair16_cuda.launches`` per kernel launch."""
     return _composite_march_pooled(composite_march_pooled_pair16_cuda, "pair16", pool,
-                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap)
+                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap,
+                                   transfer)
 
 
 composite_march_pooled_pair16_cuda.launches = 0
@@ -438,7 +458,8 @@ composite_march_pooled_pair16_cuda.launches = 0
 def render_compositing_kernel(volume, entry_uv, direction, hit,
                               max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
     """Drop-in replacement for ``render_compositing`` through the march
-    kernel (both wrap modes); the volume is sampled on its 8-bit grid."""
+    kernel (both wrap modes); the volume (float32 or uint8) is sampled on
+    its 8-bit grid."""
     Z, Y, X = volume.shape
     plan = CompositingPlan(entry_uv, direction, hit, (X, Y, Z), max_samples, wrap)
     return plan.render(volume)

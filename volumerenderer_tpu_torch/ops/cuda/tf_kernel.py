@@ -31,14 +31,14 @@ from ._launch import (bind, check_hit, check_image, check_max_samples, check_ten
                       check_volume, launch)
 from .raycast_kernel import CompositingPlan, quantize_u8
 
-__all__ = ["tf_march_cuda", "render_tf_grads_kernel", "make_render_tf_kernel",
-           "tf_fit_step_fast", "load_kernel"]
+__all__ = ["tf_march_cuda", "tf_march_f32_cuda", "render_tf_grads_kernel",
+           "make_render_tf_kernel", "tf_fit_step_fast", "load_kernel"]
 
 
 @functools.cache
-def _launcher():
+def _launcher(entry: str = "tf_march"):
     # entry_uv, dir_step, hit, vol, tf; H, W, X, Y, Z, max_samples; out, stream
-    return bind("tf_march", 5, 6, [ctypes.c_void_p] * 2)
+    return bind("tf_march", 5, 6, [ctypes.c_void_p] * 2, entry=entry)
 
 
 def load_kernel() -> _build.BuiltLibrary:
@@ -51,11 +51,13 @@ def check_clamp(wrap: str) -> None:
     _launch.check_clamp(wrap, "the TF and voxel-gradient marches")
 
 
-def check_march_inputs(tensors: dict, max_samples, wrap) -> None:
+def check_march_inputs(tensors: dict, max_samples, wrap, dtype=torch.uint8,
+                       vol_name: str = "vol_u8") -> None:
     """The checks shared by both gradient kernels' wrappers: ``tensors``
-    holds vol_u8, entry_uv, dir_step, hit and tf_scalars (and may hold more)."""
-    check_tensors(tensors, "vol_u8")
-    check_volume(tensors["vol_u8"])
+    holds the volume (``vol_name``, of ``dtype``), entry_uv, dir_step, hit
+    and tf_scalars (and may hold more)."""
+    check_tensors(tensors, vol_name)
+    check_volume(tensors[vol_name], dtype, vol_name)
     hit = tensors["hit"]
     check_hit(hit)
     check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
@@ -82,24 +84,58 @@ def tf_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.
     QP, SG, SB).  CUDA tensors run the kernel and add one to
     ``tf_march_cuda.launches``; CPU tensors run the plain version.
     """
-    tensors = {"vol_u8": vol_u8, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit,
-               "tf_scalars": tf_scalars}
-    check_march_inputs(tensors, max_samples, wrap)
-    if vol_u8.device.type == "cpu":
-        return tf_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
-                              hit.to(torch.bool), tf_scalars, max_samples)
-    H, W = hit.shape
-    Z, Y, X = vol_u8.shape
-    out = torch.empty((7, H, W), dtype=torch.float32, device=vol_u8.device)
-    if H * W > 0:
-        launch(_launcher, "tf_march", vol_u8.device,
-               entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), vol_u8.data_ptr(),
-               tf_scalars.data_ptr(), H, W, X, Y, Z, max_samples, out.data_ptr())
-        tf_march_cuda.launches += 1
-    return tuple(out.unbind(0))
+    return _tf_march(tf_march_cuda, "tf_march", torch.uint8, vol_u8, entry_uv, dir_step, hit,
+                     tf_scalars, max_samples, wrap)
 
 
 tf_march_cuda.launches = 0
+
+
+def tf_march_f32_cuda(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
+                      hit: torch.Tensor, tf_scalars: torch.Tensor,
+                      max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
+    """B4 on the (Z, Y, X) float32 volume: the kernel quantizes each tap to 8
+    bits as it reads it, so the seven images are :func:`tf_march_cuda`'s on
+    ``quantize_u8(volume)``, bit for bit, with no quantize pass and no byte
+    copy.  The other arguments and the returns are :func:`tf_march_cuda`'s.
+    CUDA tensors run the kernel and add one to ``tf_march_f32_cuda.launches``;
+    CPU tensors run the plain version on ``quantize_u8(volume)``."""
+    return _tf_march(tf_march_f32_cuda, "tf_march_f32", torch.float32, volume, entry_uv,
+                     dir_step, hit, tf_scalars, max_samples, wrap)
+
+
+tf_march_f32_cuda.launches = 0
+
+
+def _tf_march(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, tf_scalars,
+              max_samples, wrap):
+    name = "vol_u8" if dtype == torch.uint8 else "volume"
+    tensors = {name: volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit,
+               "tf_scalars": tf_scalars}
+    check_march_inputs(tensors, max_samples, wrap, dtype, name)
+    if volume.device.type == "cpu":
+        vol_u8 = volume if dtype == torch.uint8 else quantize_u8(volume)
+        return tf_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
+                              hit.to(torch.bool), tf_scalars, max_samples)
+    H, W = hit.shape
+    Z, Y, X = volume.shape
+    out = torch.empty((7, H, W), dtype=torch.float32, device=volume.device)
+    if H * W > 0:
+        launch(lambda: _launcher(entry), "tf_march", volume.device,
+               entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), volume.data_ptr(),
+               tf_scalars.data_ptr(), H, W, X, Y, Z, max_samples, out.data_ptr())
+        wrapper.launches += 1
+    return tuple(out.unbind(0))
+
+
+def _tf_march_for(volume: torch.Tensor):
+    """The TF march wrapper for ``volume``'s dtype: float32 ->
+    :func:`tf_march_f32_cuda` (taps quantized as they are read), uint8 ->
+    :func:`tf_march_cuda`; any other dtype raises."""
+    marches = {torch.float32: tf_march_f32_cuda, torch.uint8: tf_march_cuda}
+    if volume.dtype not in marches:
+        raise ValueError(f"the volume must be float32 in [0, 1] or uint8, got {volume.dtype}")
+    return marches[volume.dtype]
 
 
 def check_plan(plan: CompositingPlan) -> None:
@@ -109,9 +145,12 @@ def check_plan(plan: CompositingPlan) -> None:
     check_clamp(plan.wrap)
 
 
-def _march_u8(params: TFParams, vol_u8: torch.Tensor, plan: CompositingPlan):
-    partials = tf_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit,
-                             _tf_scalars(params), plan.max_samples, plan.wrap)
+def _march(params: TFParams, volume: torch.Tensor, plan: CompositingPlan):
+    # the kernel reads the volume in place: a view (a slice of a larger
+    # volume) is copied, a contiguous volume is not
+    volume = volume.contiguous()
+    partials = _tf_march_for(volume)(volume, plan.entry_uv, plan.dir_step, plan.hit,
+                                     _tf_scalars(params), plan.max_samples, plan.wrap)
     rgb = params.flip_sign * partials[0][..., None] + params.flip_bias
     return rgb, partials[1], partials
 
@@ -119,47 +158,50 @@ def _march_u8(params: TFParams, vol_u8: torch.Tensor, plan: CompositingPlan):
 def render_tf_grads_kernel(params: TFParams, volume: torch.Tensor, plan: CompositingPlan):
     """One kernel pass -> (rgb (H, W, 3), alpha (H, W), partials) where
     ``partials`` = (color_T, alpha_T, R, P_total, QP, SG, SB) as (H, W)
-    images.  ``volume`` is (Z, Y, X) float32 in [0, 1] on the plan's device,
-    quantized to 8 bits as the TPU kernel quantizes it."""
+    images.  ``volume`` is (Z, Y, X) on the plan's device: float32 in [0, 1],
+    whose taps the kernel quantizes to 8 bits as it reads them (as the TPU
+    kernel quantizes the volume; no quantize pass), or uint8."""
     check_plan(plan)
     plan.check_volume(volume)
-    return _march_u8(params, quantize_u8(volume), plan)
+    return _march(params, volume, plan)
 
 
 class _RenderTF(torch.autograd.Function):
     """f(params, volume) -> (rgb, alpha) through the TF march kernel; the
     backward forms the TF gradients from the forward's partials and asks
-    ``volume_grad`` for the volume's."""
+    ``volume_grad`` for the volume's.  The forward makes no byte copy of the
+    volume, and keeps the volume only when its gradient is asked for."""
 
     @staticmethod
     def forward(ctx, plan, volume_grad, volume, *param_tensors):
         plan.check_volume(volume)
         params = TFParams(*param_tensors)
-        vol_u8 = quantize_u8(volume)
-        rgb, alpha, partials = _march_u8(params, vol_u8, plan)
+        rgb, alpha, partials = _march(params, volume, plan)
         ctx.set_materialize_grads(False)
         ctx.plan = plan
         ctx.volume_grad = volume_grad
-        ctx.save_for_backward(vol_u8, *param_tensors, *partials)
+        ctx.save_for_backward(volume if ctx.needs_input_grad[2] else None, *param_tensors,
+                              *partials)
         return rgb, alpha
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha):
-        vol_u8, *saved = ctx.saved_tensors
+        volume, *saved = ctx.saved_tensors
         params = TFParams(*saved[:5])
         partials = saved[5:]
         gc, gaT_term = cotangent_images(params, g_rgb, g_alpha, partials[1])
         g_params = tf_param_grads(params, partials, g_rgb, gc, gaT_term)
         g_vol = None
         if ctx.needs_input_grad[2]:
-            g_vol = ctx.volume_grad(params, vol_u8, ctx.plan, gc, gaT_term, partials[3])
+            g_vol = ctx.volume_grad(params, volume, ctx.plan, gc, gaT_term, partials[3])
         return (None, None, g_vol, *g_params)
 
 
 def bind_render_tf(plan: CompositingPlan, volume_grad):
     """``f(params, volume) -> (rgb, alpha)`` bound to ``plan``, differentiable
     with respect to the TF parameters and the volume.  ``volume_grad(params,
-    vol_u8, plan, gc, gaT_term, P_tot)`` gives the volume's gradient."""
+    volume, plan, gc, gaT_term, P_tot)`` gives the volume's gradient; it is
+    called only when that gradient is asked for."""
     check_plan(plan)
 
     def f(params: TFParams, volume: torch.Tensor):
@@ -168,8 +210,8 @@ def bind_render_tf(plan: CompositingPlan, volume_grad):
     return f
 
 
-def _zero_volume_grad(params, vol_u8, plan, gc, gaT_term, P_tot):
-    return torch.zeros(vol_u8.shape, dtype=torch.float32, device=vol_u8.device)
+def _zero_volume_grad(params, volume, plan, gc, gaT_term, P_tot):
+    return torch.zeros(volume.shape, dtype=torch.float32, device=volume.device)
 
 
 def make_render_tf_kernel(plan: CompositingPlan):

@@ -133,8 +133,10 @@ def voxel_grad_block_stats(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_ste
         "box_voxels_max": int(nonempty.max()) if nonempty.numel() else 0}
 
 
-def _voxel_grad_u8(params: TFParams, vol_u8: torch.Tensor, plan: CompositingPlan,
-                   gc: torch.Tensor, gaT_term: torch.Tensor, P_tot: torch.Tensor):
+def _voxel_grad(params: TFParams, volume: torch.Tensor, plan: CompositingPlan,
+                gc: torch.Tensor, gaT_term: torch.Tensor, P_tot: torch.Tensor):
+    # B5 reads bytes: a float32 volume is quantized here, in the backward
+    vol_u8 = volume if volume.dtype == torch.uint8 else quantize_u8(volume)
     return voxel_grad_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, _tf_scalars(params),
                            gc.contiguous(), gaT_term.contiguous(), P_tot.contiguous(),
                            plan.max_samples, plan.wrap)
@@ -147,13 +149,14 @@ def voxel_grad_kernel(params: TFParams, volume: torch.Tensor, plan: CompositingP
     images.  ``volume`` is (Z, Y, X) float32 in [0, 1] on the plan's device."""
     check_plan(plan)
     gc, gaT_term = cotangent_images(params, g_rgb, g_alpha, alpha_T)
-    return _voxel_grad_u8(params, quantize_u8(volume), plan, gc, gaT_term, P_tot)
+    return _voxel_grad(params, volume, plan, gc, gaT_term, P_tot)
 
 
 def make_render_tf_voxel(plan: CompositingPlan):
     """A differentiable ``f(params, volume) -> (rgb, alpha)`` with both
     TF-parameter and voxel gradients at kernel speed: the forward is the
     TF march kernel; the backward takes its closed-form parameter gradients
-    and one voxel-gradient kernel pass.  Raises ValueError for a plan whose
-    wrap is not clamp."""
-    return bind_render_tf(plan, _voxel_grad_u8)
+    and one voxel-gradient kernel pass, on the volume quantized to bytes
+    there (the forward makes no byte copy).  Raises ValueError for a plan
+    whose wrap is not clamp."""
+    return bind_render_tf(plan, _voxel_grad)

@@ -8,9 +8,13 @@ copied to the mesh's first device and reduced there.
 
 * Row-sharded (``render_planned_sharded``, ``tf_fit_step_kernel``,
   ``voxel_fit_step_kernel``): each device marches its block of image rows
-  (``CompositingPlan.rows``) with the kernel the single-device path uses; the
-  images gather, and the loss and the gradients sum, on the first device.
-  Rays never interact, so a row-sharded frame equals the plan's, bit for bit.
+  (``CompositingPlan.rows``) with the kernel the single-device path uses, on
+  its byte route: the volume is quantized once and each device receives the
+  byte volume, a quarter of the float32 bytes (the voxel step's B5 reads
+  bytes anyway); the images gather, and the loss and the gradients sum, on
+  the first device.  Rays never interact, and the byte route samples what
+  the float32 route does, so a row-sharded frame equals the plan's, bit for
+  bit.
 * Volume-sharded (``render_zsharded_kernel``, ``render_bricksharded_kernel``,
   ``tf_fit_step_bricksharded``): the volume is split in z, or in (z, y)
   bricks with x whole (``nbx == 1``), as ``parallel/context.py`` and
@@ -72,20 +76,21 @@ def _row_shards(mesh: DeviceMesh, plan: CompositingPlan, axis: str):
 def render_planned_sharded(mesh: DeviceMesh, plan: CompositingPlan, volume: torch.Tensor,
                            axis: str = "rays"):
     """Render a planned view with image rows sharded over ``mesh`` axis
-    ``axis``: the volume is quantized once and copied to each device, which
-    runs the march (B1) on its rows.  Returns (rgb, alpha) as full (H, W)
-    images on the mesh's first device, equal bit for bit to
-    ``plan.render(volume)``."""
+    ``axis``: the volume is quantized to bytes once and the byte volume,
+    a quarter of the float32 bytes, is copied to each device, which runs
+    the march (B1, the transfer in its epilogue) on its rows.  Returns
+    (rgb, alpha) as full (H, W) images on the mesh's first device, equal
+    bit for bit to ``plan.render(volume)``, whose taps are quantized as
+    they are read."""
     plan.check_volume(volume)
     vol_u8 = quantize_u8(volume)
-    colors, alphas = [], []
+    rgbs, alphas = [], []
     for dev, _, sub in _row_shards(mesh, plan, axis):
-        c, a = composite_march_cuda(vol_u8.to(dev), sub.entry_uv, sub.dir_step, sub.hit,
-                                    sub.max_samples, sub.wrap)
-        colors.append(c.to(mesh.first))
+        rgb, a = composite_march_cuda(vol_u8.to(dev), sub.entry_uv, sub.dir_step, sub.hit,
+                                      sub.max_samples, sub.wrap, transfer=True)
+        rgbs.append(rgb.to(mesh.first))
         alphas.append(a.to(mesh.first))
-    color, alpha = torch.cat(colors), torch.cat(alphas)
-    return apply_reference_transfer(color, alpha), alpha
+    return torch.cat(rgbs), torch.cat(alphas)
 
 
 def _mse_grads(params: TFParams, partials, target: torch.Tensor, npix: int):
@@ -104,6 +109,8 @@ def _on(params: TFParams, device) -> TFParams:
 
 
 def _row_sharded_step(mesh, plan, params, volume, target_rgb, axis, voxel: bool):
+    # quantized once, here: the byte volume each device receives is a
+    # quarter of the float32 bytes, and B5 reads bytes anyway
     check_plan(plan)
     plan.check_volume(volume)
     vol_u8 = quantize_u8(volume)
