@@ -304,6 +304,32 @@ def composite_samples(plan, vol_plain, K: float = 0.6, touched: torch.Tensor | N
     return n
 
 
+def shade_positions(plan, vol_plain, found, t_hit, iso) -> torch.Tensor:
+    """The positions (N, 3) at which the shade pass (B3, the pooled shade)
+    samples for the hit rays: 4 bisection midpoints and 6 normal taps each,
+    from the plain shade's own arithmetic through a sampler that records
+    them."""
+    from volumerenderer_tpu_torch.ops.isosurface import shade_hits
+    from volumerenderer_tpu_torch.ops.sampling import sample_trilinear
+
+    hit, seen = found.bool(), []
+
+    def recording(uvw):
+        seen.append(uvw[hit])
+        return sample_trilinear(vol_plain, uvw)
+
+    shade_hits(recording, plan.entry_uv, plan.dir_step, plan.direction, found, t_hit, iso)
+    return torch.cat(seen)
+
+
+def shade_ray_bytes(plan, found, t_hit) -> float:
+    """The ray bytes a shade launch (B3, the pooled shade) moves: ``found``
+    read and rgb (12 B) written for every ray, and entry_uv, dir_step,
+    direction and t_hit read for the hit rays alone."""
+    per_ray = nbytes(plan.entry_uv, plan.dir_step, plan.direction, t_hit) / t_hit.numel()
+    return per_ray * float(found.sum()) + nbytes(found) + 12 * found.numel()
+
+
 def warp_steps(n: torch.Tensor, warp_hw) -> dict:
     """How the per-ray samples ``n`` (H, W) fill warps of ``warp_hw`` (rows,
     columns) pixels, as a warp runs until its slowest lane ends: the mean
@@ -676,14 +702,26 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     # the bounds, per launch over the orbit: a hit samples at steps 0..t_hit
     # and once before, a miss once per step inside the cube and once before
     samples, shade_ops = 0.0, 0.0
-    io = {"iso_march": 0, "iso_shade": 0}
+    io = {"iso_march": 0, "iso_shade": 0, "iso_shade_every_ray": 0}
     for p, (f, t) in zip(plans, hits):
         found = f.bool()
         steps = torch.where(found, t.float() + 2.0, march_steps(p) + 1.0) * p.hit
         samples += float(steps.sum())
         shade_ops += float((SHADE_OPS_PER_STEP * (t.float() + 2.0) + SHADE_OPS_PER_HIT)[found].sum())
         io["iso_march"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.hit, f, t)
-        io["iso_shade"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.direction, f, t) + 12 * W * H
+        io["iso_shade"] += shade_ray_bytes(p, f, t)
+        io["iso_shade_every_ray"] += nbytes(p.entry_uv, p.dir_step, p.direction, f, t) \
+            + 12 * W * H
+    # the shade's bytes of the volume: the voxels its taps read, per frame (a
+    # boolean scatter of every shade sample's 8 tap indices), as B1's bound
+    # counts its voxels; the whole volume's bytes beside it, and the count
+    # that reads every ray's inputs (not only the hit rays') beside that
+    touched = torch.zeros(turb_u8.numel(), dtype=torch.bool, device=dev)
+    shade_voxels = 0.0
+    for p, (f, t) in zip(plans, hits):
+        touched.zero_()
+        touched[tap_indices(shade_positions(p, turb_plain, f, t, iso_med), p.dims)] = True
+        shade_voxels += float(touched.sum()) / N_FRAMES
     # the march's bound is the bound march's (the main path's launch): its
     # gathered and skipped samples and the grid's bytes; the formula of the
     # march without the skip beside it, with the unbound launch's time
@@ -694,14 +732,20 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     roof = {"iso_march": bound(io["iso_march"] / N_FRAMES + nbytes(iso_bound.grid),
                                ISO_GATHERED_OPS * gathered + ISO_SKIPPED_OPS * skipped,
                                samples / N_FRAMES, W * H),
-            "iso_shade": bound(io["iso_shade"] / N_FRAMES, shade_ops / N_FRAMES,
+            "iso_shade": bound(io["iso_shade"] / N_FRAMES + shade_voxels, shade_ops / N_FRAMES,
                                10.0 * sum(float(f.sum()) for f, _ in hits) / N_FRAMES, W * H)}
     extra = {"iso_march": {"gathered_per_ray": per_ray["gathered"],
                            "bound_ms_unskipped_formula": unskipped["bound_ms"],
                            "ops_unskipped_formula": unskipped["ops"],
                            "ms_unbound": ms["iso_march_unbound"],
                            "plain_ms_unbound": plain_ms["iso_march_unbound"]},
-             "iso_shade": {}}
+             "iso_shade": {"touched_voxels_per_launch": shade_voxels,
+                           "bound_ms_whole_volume": bound(
+                               (io["iso_shade"] + N_FRAMES * nbytes(turb_u8)) / N_FRAMES,
+                               shade_ops / N_FRAMES, 1.0, W * H)["bound_ms"],
+                           "bound_ms_every_ray_read": bound(
+                               io["iso_shade_every_ray"] / N_FRAMES + shade_voxels,
+                               shade_ops / N_FRAMES, 1.0, W * H)["bound_ms"]}}
     return [{"name": name, "route": "cuda", "source": ISO_SOURCES[name],
              "replaces": ISO_REPLACES[name], "launches": launches[name],
              "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
@@ -1151,9 +1195,9 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
         emit({**line, "gpu": smi})
 
     # 4. every pooled kernel vs its plain version (the pool sampler through
-    # the plain marches) and vs its dense kernel, bit for bit, on the same
-    # u8 volume: orbit frames 0 and 15 on the turbulence, the default
-    # camera on the sphere (mostly slot-0 reads).  B6 and B7 with the
+    # the plain marches; the shade fed the kernel's hits) and vs its dense
+    # kernel, bit for bit, on the same u8 volume: orbit frames 0 and 15 on
+    # the turbulence, the default camera on the sphere (mostly slot-0 reads).  B6 and B7 with the
     # transfer in their epilogue (render_pooled's launch) equal
     # apply_reference_transfer of their color and the fused dense B1 on the
     # float32 volume, bit for bit.
@@ -1202,14 +1246,19 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
             epilogue_equal = bool(torch.equal(rgb_e, apply_reference_transfer(c_k, a_k))
                                   and torch.equal(a_e, a_k) and torch.equal(rgb_e, rgb_f)
                                   and torch.equal(a_e, a_f))
+            plain_equal = {name: bool(torch.equal(k, q)) for name, k, q in (
+                ("color", c_k, c_p), ("alpha", a_k, a_p), ("found", f_k, f_p),
+                ("t_hit", t_k, t_p), ("shade", rgb_k, rgb_p))}
             res = compare((c_k, a_k), (c_p, a_p), W * H)
             px_differ = int(((f_k != f_p) | (t_k != t_p)).sum())
             t_err = float((t_k - t_p).abs().max())
             rgb_err = float((rgb_k - rgb_p).abs().max())
             if not dense_equal or not epilogue_equal or not all(bound_equal.values()) \
+                    or not all(plain_equal.values()) \
                     or px_differ > res["px_allowed"] or rgb_err > ISO_RGB_TOL:
                 raise AssertionError(f"pooled {case} {fmt}: equal to the dense kernels "
-                                     f"{dense_equal}; the epilogue's image equal to the "
+                                     f"{dense_equal}; bit-equal to the plain versions "
+                                     f"{plain_equal}; the epilogue's image equal to the "
                                      f"transfer's and the fused dense B1's {epilogue_equal}; "
                                      f"bound equal to unbound {bound_equal}; "
                                      f"vs plain {px_differ} px differ in found/t_hit (allowed "
@@ -1220,7 +1269,7 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
             err[f"iso_march_pooled_{fmt}"] = max(err[f"iso_march_pooled_{fmt}"], t_err)
             err["iso_shade_pooled"] = max(err["iso_shade_pooled"], rgb_err)
             emit({"phase": "pooled_parity", "case": case, "pool": fmt, "iso": iso,
-                  "equal_to_dense_kernels": dense_equal,
+                  "equal_to_dense_kernels": dense_equal, "bit_equal_to_plain": plain_equal,
                   "epilogue_equal_to_transfer_and_fused_b1": epilogue_equal, **res,
                   "iso_px_differ_found_t_hit": px_differ, "t_hit_max_abs_err": t_err,
                   "rgb_max_abs_err": rgb_err, "hits_kernel": int(f_k.sum()),
@@ -1448,8 +1497,25 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                                                     iso["ops_unskipped_formula"],
                                                     iso["samples_per_ray"] * W * H, W * H)
                    for fmt in pool_io})
-    shade_io = sum(nbytes(p.entry_uv, p.dir_step, p.direction) for p in iplans) / N_FRAMES
-    bounds["iso_shade_pooled"] = like(shade, pool_io["narrow"] + shade_io + hit_io + 12 * W * H)
+    # the pooled shade on the narrow pool: the pool words its taps fetch per
+    # frame (its sample positions are B3's, bit for bit) and the ray bytes of
+    # the hit rays, as B3's bound; the whole pool's bytes beside, and the
+    # count that reads every ray's inputs beside that
+    shade_rest = sum(shade_ray_bytes(p, f, t) for p, (f, t) in zip(iplans, hits)) / N_FRAMES
+    shade_words = 0.0
+    for p, (f, t) in zip(iplans, hits):
+        mask = torch.zeros(pool_n.numel(), dtype=torch.bool, device=dev)
+        mask[pool_tap_words(shade_positions(p, turb_plain, f, t, iso_med), p.dims, pool_n,
+                            smap_n)] = True
+        shade_words += float(mask.sum()) / N_FRAMES
+    shade_pool = shade_words * pool_n.element_size() + nbytes(smap_n)
+    every_ray = sum(nbytes(p.entry_uv, p.dir_step, p.direction) for p in iplans) / N_FRAMES \
+        + hit_io + 12 * W * H
+    bounds["iso_shade_pooled"] = {
+        **like(shade, shade_pool + shade_rest),
+        "touched_pool_words_per_launch": shade_words,
+        "bound_ms_whole_pool": like(shade, pool_io["narrow"] + shade_rest)["bound_ms"],
+        "bound_ms_every_ray_read": like(shade, shade_pool + every_ray)["bound_ms"]}
     # ms and bound_ms are the unbound march's (the compressed path binds
     # nothing yet); the bound march gathers what B2's does, its bound from
     # B2's bound operations and the pool's bytes

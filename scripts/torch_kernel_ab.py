@@ -1,5 +1,6 @@
 """Per-launch times of the port's kernels that share csrc/trilinear.cuh (B1,
-B2 at the volume's median, B3, B4, B5, the pooled marches B6–B9) and of the
+B2 at the volume's median, B3, B4, B5, the pooled marches B6–B9 and the
+pooled shade on each pool, ``shade_pooled_*``) and of the
 segment marches (B10, B11) on both volume-sharded layouts (z-slabs n = 4,
 bricks (2, 2, 1)), over the 16-frame orbit at 1024^2 rays on the 256^3
 turbulence (seed 0), min of 5 after a warm call, for the
@@ -132,6 +133,10 @@ for fmt, b in (("narrow", "B8"), ("pair16", "B9")):
     pool, smap = pools[fmt]
     ms[b] = time_ms(lambda: [pooled[fmt][1](pool, smap, p.entry_uv, p.dir_step, p.hit, iso)
                              for p in iplans]) / 16
+    # the pooled shade on this pool, fed B2's hits (the pooled march's, bit for bit)
+    ms[f"shade_pooled_{fmt}"] = time_ms(lambda: [IK.iso_shade_pooled_cuda(
+        pool, smap, p.entry_uv, p.dir_step, p.direction, f, t, iso)
+        for p, (f, t) in zip(iplans, hits)]) / 16
 if hasattr(IK.IsosurfacePlan, "bind"):
     bound = iplans[0].bind(turb, iso)
     ms["B2_bound"] = time_ms(lambda: [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso,

@@ -42,16 +42,23 @@
 // sums where the volume has at most 2^32 voxels.
 //
 // The pooled marches are the same body with the slab-pool sampler
-// (trilinear.cuh, sample_trilinear_pool): they replace raycast_kernel.py::
+// (trilinear.cuh, PoolSampler): they replace raycast_kernel.py::
 // _launch_pooled_narrow (B6, the narrow f32 pool) and ::_launch_pooled (B7,
 // the pair16 pool), whose TPU designs DMA windows out of the pool.  Here each
-// tap reads its pair through the slab map from device memory: four pair
-// fetches per sample instead of eight bytes, plus the map read.  A pool is
-// larger than the u8 volume (2 B per voxel of an occupied slab for pair16, 4
-// B for narrow, slabs overlapping by 8 rows), so at 256^3 a full narrow pool
-// (138 MB) no longer fits the 50 MB L2 the dense march lives in.  Clamp only,
-// as the TPU pooled plans: with GL_REPEAT the last slab's z + 1 tap would
-// wrap into slab 0.
+// sample fetches four pool words (one per (z, y) row, both x taps in it)
+// instead of eight bytes.  A pool is larger than the u8 volume (2 B per voxel
+// of an occupied slab for pair16, 4 B for narrow, slabs overlapping by 8
+// rows), but a frame's taps read only ~20-40 K of its words, from cache, so
+// like B1 the pooled march is bound by the instructions of a step.  The
+// sampler therefore forms its word offsets in 32 bits where the pool allows
+// (with_pool_sampler; 64-bit offsets cost 15-19 % on the H100), keeps the
+// ray's z-block and its slot's word base (re-reading the slab map only
+// when the block changes), and makes its taps with no int-to-float
+// conversion: a pair16 byte by one byte permute and one float add, a narrow
+// pair value split by truncf in the float domain
+// (scripts/torch_pool_variants.py times each choice against its
+// alternatives).  Clamp only, as the TPU pooled plans: with GL_REPEAT the
+// last slab's z + 1 tap would wrap into slab 0.
 //
 // Rounding: build with --fmad=false so every product and sum rounds on its
 // own, as in the PyTorch and JAX versions.  A fused multiply-add moves the
@@ -139,8 +146,9 @@ template <vrt::PoolFormat F>
 int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, const void* pool,
                   const void* slab_map, int H, int W, int X, int Y, int Z, int n_slots,
                   int max_samples, int rgb, void* out, void* alpha, void* stream) {
-  const vrt::PoolSampler<F> sample{pool, static_cast<const int32_t*>(slab_map), n_slots, X, Y, Z};
-  return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, rgb, out, alpha, stream);
+  return vrt::with_pool_sampler<F>(pool, slab_map, n_slots, X, Y, Z, [&](auto sample) {
+    return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, rgb, out, alpha, stream);
+  });
 }
 
 // B1 on a dense volume of T (uint8_t: bytes; float: taps quantized as read),

@@ -46,12 +46,13 @@
 // feed VMEM windows and change no result; none is carried over.
 //
 // The pooled marches are the same body with the slab-pool sampler
-// (trilinear.cuh, sample_trilinear_pool): they replace isosurface_kernel.py::
+// (trilinear.cuh, PoolSampler): they replace isosurface_kernel.py::
 // _launch_group_pooled_narrow (B8, the narrow f32 pool) and ::_launch_pooled
 // (B9, the pair16 pool).  Their TPU state rows (resumable phases) feed the
 // phased march of bind and are left out, as for B2.  Each tap reads its pair
-// through the slab map; a slot-0 read (an empty slab) is exact, every tap
-// there being 0.  Clamp only, as the TPU pooled plans.
+// through the slab map (re-read only when the ray's z-block changes); a
+// slot-0 read (an empty slab) is exact, every tap there being 0.  Clamp only,
+// as the TPU pooled plans.
 //
 // Rounding: build with --fmad=false; the crossing test compares normalized
 // samples with iso rounded once to f32 (not the TPU kernel's 0-255 scale),
@@ -175,9 +176,10 @@ int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, c
                   const void* slab_map, const void* grid, int H, int W, int X, int Y, int Z,
                   int n_slots, int max_samples, float iso, void* found, void* t_hit,
                   void* stream) {
-  const vrt::PoolSampler<F> sample{pool, static_cast<const int32_t*>(slab_map), n_slots, X, Y, Z};
-  return launch(entry_uv, dir_step, hit, sample, grid, X, Y, Z, false, H, W, max_samples, iso,
-                found, t_hit, stream);
+  return vrt::with_pool_sampler<F>(pool, slab_map, n_slots, X, Y, Z, [&](auto sample) {
+    return launch(entry_uv, dir_step, hit, sample, grid, X, Y, Z, false, H, W, max_samples, iso,
+                  found, t_hit, stream);
+  });
 }
 
 }  // namespace

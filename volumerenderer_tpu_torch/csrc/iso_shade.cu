@@ -30,7 +30,7 @@
 // hit rays so that warps are not idled by misses.
 //
 // The pooled shade is the same body with the slab-pool sampler
-// (trilinear.cuh, sample_trilinear_pool), reading the pool the pooled march
+// (trilinear.cuh, PoolSampler), reading the pool the pooled march
 // read.  The JAX package shades pooled renders from a second, packed-
 // neighbourhood pool (sampling.py::build_shade_pool) because its shade taps
 // overrun the TPU march windows; here every tap reads rows z0 and z0 + 1 of
@@ -160,8 +160,9 @@ int launch_pooled(const void* entry_uv, const void* dir_step, const void* direct
                   const void* found, const void* t_hit, const void* pool, const void* slab_map,
                   int H, int W, int X, int Y, int Z, int n_slots, float iso, void* rgb,
                   void* stream) {
-  const vrt::PoolSampler<F> sample{pool, static_cast<const int32_t*>(slab_map), n_slots, X, Y, Z};
-  return launch(entry_uv, dir_step, direction, found, t_hit, sample, H, W, iso, rgb, stream);
+  return vrt::with_pool_sampler<F>(pool, slab_map, n_slots, X, Y, Z, [&](auto sample) {
+    return launch(entry_uv, dir_step, direction, found, t_hit, sample, H, W, iso, rgb, stream);
+  });
 }
 
 }  // namespace

@@ -3,8 +3,8 @@
 // iso_shade.cu, tf_march.cu, voxel_grad.cu), its adjoint for the voxel
 // gradient, the same sampler reading the float32 volume and quantizing each
 // tap to 8 bits as it reads it (VolumeSampler<float>, for B1 and B4), and the
-// same sampler fetching from a sparse z-slab pool (sample_trilinear_pool, for
-// the pooled marches and shade).  The samplers differ only in how they fetch:
+// same sampler fetching from a sparse z-slab pool (PoolSampler, for the
+// pooled marches and shade).  The samplers differ only in how they fetch:
 // the texel math (texel) and the seven lerps (trilerp) are written once, so
 // their bit-for-bit agreement rests on one copy.  The segment marches
 // (seg_march.cu) take their taps from the anchors of their ownership test
@@ -167,15 +167,36 @@ inline int with_volume_sampler(const void* vol, int X, int Y, int Z, bool repeat
 //   kNarrowF32: (n_slots, 16, Y, X) float32 pair values.
 enum class PoolFormat { kPair16, kNarrowF32 };
 
-template <PoolFormat F>
-__device__ __forceinline__ int pool_pair(const void* pool, size_t row, int x, int X) {
+// A byte b as its tap, b * (1/255), for a pair16 word: one byte permute
+// makes 0x4B0000bb, the float 2^23 + b, from byte `selector & 3` of the
+// word, and subtracting 2^23 leaves b exactly (the float static_cast<float>(b)
+// gives), with no shift and no int-to-float conversion.  A selector is 0x7440
+// plus the byte's index: bytes 4-6 of the permute's second word are 0 and
+// byte 7 is 0x4B.
+__device__ __forceinline__ float pool_tap(uint32_t word, uint32_t selector) {
+  return (__uint_as_float(__byte_perm(word, 0x4B000000u, selector)) - 8388608.0f) *
+         (1.0f / 255.0f);
+}
+
+// The two x taps (s[x0], s[x0 + 1]) of the pair at word `offset`, or s[x0]
+// twice at the low x face (low_edge).  pair16: the pair's low byte by
+// selector lo (0x7440 + its byte index) and its high byte by lo + 1.  narrow:
+// the pair value p split in the float domain, hi = truncf(p / 256) and lo =
+// p - hi * 256, each exact for p < 2^16, in place of a float-to-int
+// conversion and shifts.
+template <PoolFormat F, class Offset>
+__device__ __forceinline__ void pair_taps(const void* pool, Offset offset, uint32_t lo,
+                                          bool low_edge, float& c0, float& c1) {
+  constexpr float kInv255 = 1.0f / 255.0f;
   if constexpr (F == PoolFormat::kPair16) {
-    const int32_t word =
-        __ldg(static_cast<const int32_t*>(pool) + row * static_cast<size_t>(X / 2) + (x >> 1));
-    return (x & 1) ? static_cast<int>(static_cast<uint32_t>(word) >> 16) : (word & 0xFFFF);
+    const auto word = static_cast<uint32_t>(__ldg(static_cast<const int32_t*>(pool) + offset));
+    c0 = pool_tap(word, lo + 1);
+    c1 = pool_tap(word, low_edge ? lo + 1 : lo);
   } else {
-    return static_cast<int>(
-        __ldg(static_cast<const float*>(pool) + row * static_cast<size_t>(X) + x));
+    const float p = __ldg(static_cast<const float*>(pool) + offset);
+    const float h = truncf(p * (1.0f / 256.0f));
+    c0 = h * kInv255;
+    c1 = low_edge ? c0 : (p - h * 256.0f) * kInv255;
   }
 }
 
@@ -186,54 +207,80 @@ __device__ __forceinline__ int pool_pair(const void* pool, size_t row, int x, in
 // rows z0 - 8b <= 7 and z1 - 8b <= 8 < 16.  One pair fetch gives both x taps
 // of a (z, y) row, except at the low x face: where i0x < 0 both x indices
 // clamp to 0 and the high byte s[0] serves both (the low byte is s[1]).
-template <PoolFormat F>
-__device__ __forceinline__ float sample_trilinear_pool(const void* pool,
-                                                       const int32_t* __restrict__ slab_map,
-                                                       int n_slots, float u, float v, float w,
-                                                       int X, int Y, int Z) {
-  float fx, fy, fz;
-  const int i0x = texel(u, X, fx);
-  const int i0y = texel(v, Y, fy);
-  const int i0z = texel(w, Z, fz);
-
-  const int x0 = wrap_index(i0x, X, false);
-  const size_t y0 = static_cast<size_t>(wrap_index(i0y, Y, false));
-  const size_t y1 = static_cast<size_t>(wrap_index(i0y + 1, Y, false));
-  const int z0 = wrap_index(i0z, Z, false);
-  const int z1 = wrap_index(i0z + 1, Z, false);
-  const int block = z0 >> 3;
-  const int slot = min(max(__ldg(slab_map + block), 0), n_slots - 1);
-  const size_t first = static_cast<size_t>(slot) * 16;
-  const size_t row0 = (first + static_cast<size_t>(z0 - 8 * block)) * static_cast<size_t>(Y);
-  const size_t row1 = (first + static_cast<size_t>(z1 - 8 * block)) * static_cast<size_t>(Y);
-  const bool low_edge = i0x < 0;
-
-  const int p00 = pool_pair<F>(pool, row0 + y0, x0, X);
-  const int p10 = pool_pair<F>(pool, row0 + y1, x0, X);
-  const int p01 = pool_pair<F>(pool, row1 + y0, x0, X);
-  const int p11 = pool_pair<F>(pool, row1 + y1, x0, X);
-  constexpr float kInv255 = 1.0f / 255.0f;
-  const float c000 = static_cast<float>(p00 >> 8) * kInv255;
-  const float c010 = static_cast<float>(p10 >> 8) * kInv255;
-  const float c001 = static_cast<float>(p01 >> 8) * kInv255;
-  const float c011 = static_cast<float>(p11 >> 8) * kInv255;
-  const float c100 = low_edge ? c000 : static_cast<float>(p00 & 255) * kInv255;
-  const float c110 = low_edge ? c010 : static_cast<float>(p10 & 255) * kInv255;
-  const float c101 = low_edge ? c001 : static_cast<float>(p01 & 255) * kInv255;
-  const float c111 = low_edge ? c011 : static_cast<float>(p11 & 255) * kInv255;
-  return trilerp(c000, c100, c010, c110, c001, c101, c011, c111, fx, fy, fz);
-}
-
-template <PoolFormat F>
+//
+// Offset is uint32_t where the pool has at most 2^32 words (with_pool_sampler
+// chooses), else size_t; every word offset is formed in it, from the block's
+// word base (16 slot - 8 b) * Y * words_per_row, a sum mod 2^32 (or 2^64):
+// each word offset it is part of is below the pool's size, so the sums land
+// on it exactly.  The sampler is a per-ray cursor: it keeps the last z-block
+// it read the map for and that block's word base, and reads the map again
+// only when z0 >> 3 changes (at most once per 8 voxels of z along a march),
+// so nearly every sample's fetches wait on no map load.  The cursor is keyed
+// by the block alone, so positions may come in any order (the shade's
+// bisection and normal taps off the march's line).
+template <PoolFormat F, class Offset>
 struct PoolSampler {
   const void* pool;
   const int32_t* slab_map;
   int n_slots;
   int X, Y, Z;
-  __device__ __forceinline__ float operator()(float u, float v, float w) const {
-    return sample_trilinear_pool<F>(pool, slab_map, n_slots, u, v, w, X, Y, Z);
+  Offset words_per_row;  // X / 2 (pair16) or X (narrow)
+  Offset plane;          // Y * words_per_row: one z row of a slot
+  int block = -1;        // the cursor's z-block (none yet) and its word base
+  Offset base = 0;
+
+  __device__ __forceinline__ float operator()(float u, float v, float w) {
+    float fx, fy, fz;
+    const int i0x = texel(u, X, fx);
+    const int i0y = texel(v, Y, fy);
+    const int i0z = texel(w, Z, fz);
+
+    const int x0 = wrap_index(i0x, X, false);
+    const int y0 = wrap_index(i0y, Y, false);
+    const int y1 = wrap_index(i0y + 1, Y, false);
+    const int z0 = wrap_index(i0z, Z, false);
+    const int z1 = wrap_index(i0z + 1, Z, false);
+    const int b = z0 >> 3;
+    if (b != block) {
+      const int slot = min(max(__ldg(slab_map + b), 0), n_slots - 1);
+      block = b;
+      base = static_cast<Offset>(16 * slot - 8 * b) * plane;
+    }
+    constexpr bool kPair16 = F == PoolFormat::kPair16;
+    const Offset at = base + static_cast<Offset>(z0) * plane +
+                      static_cast<Offset>(y0) * words_per_row +
+                      static_cast<Offset>(kPair16 ? x0 >> 1 : x0);
+    const Offset dy = static_cast<Offset>(y1 - y0) * words_per_row;
+    const Offset dz = static_cast<Offset>(z1 - z0) * plane;
+    // a pair16 word holds the pair of x0 in its low half (bytes 1, 0) for x0
+    // even and in its high half (bytes 3, 2) for x0 odd
+    const bool low_edge = i0x < 0;
+    const uint32_t lo = 0x7440u + (static_cast<uint32_t>(x0 & 1) << 1);
+    float c000, c100, c010, c110, c001, c101, c011, c111;
+    pair_taps<F>(pool, at, lo, low_edge, c000, c100);
+    pair_taps<F>(pool, at + dy, lo, low_edge, c010, c110);
+    pair_taps<F>(pool, at + dz, lo, low_edge, c001, c101);
+    pair_taps<F>(pool, at + dz + dy, lo, low_edge, c011, c111);
+    return trilerp(c000, c100, c010, c110, c001, c101, c011, c111, fx, fy, fz);
   }
 };
+
+// Host side: returns launch(sampler) with the PoolSampler of a pool of format
+// F holding a (Z, Y, X) volume in n_slots slots, its offset type chosen here
+// by the pool's size in words: uint32_t up to 2^32 words, size_t beyond.
+template <PoolFormat F, class Launch>
+inline int with_pool_sampler(const void* pool, const void* slab_map, int n_slots, int X, int Y,
+                             int Z, Launch&& launch) {
+  const auto map = static_cast<const int32_t*>(slab_map);
+  const size_t words_per_row = F == PoolFormat::kPair16 ? X / 2 : X;
+  const size_t plane = static_cast<size_t>(Y) * words_per_row;
+  if (static_cast<size_t>(n_slots) * 16 * plane <= (size_t{1} << 32)) {
+    return launch(PoolSampler<F, uint32_t>{pool, map, n_slots, X, Y, Z,
+                                           static_cast<uint32_t>(words_per_row),
+                                           static_cast<uint32_t>(plane)});
+  }
+  return launch(PoolSampler<F, size_t>{pool, map, n_slots, X, Y, Z, words_per_row, plane});
+}
 
 // The adjoint of clamp-mode sample_trilinear at (u, v, w): the clamped
 // indices of each axis's two taps and the cotangent g times each tap's
