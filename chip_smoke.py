@@ -12,9 +12,9 @@ calls:
 * isosurface at the volume's median, over the same orbit: ``generate_rays``
   -> ``IsosurfacePlan`` -> ``IsosurfacePlan.bind`` (once for the volume and
   isovalue, shared by the 16 plans) -> ``IsosurfacePlan.render(..., bound=)``
-  (kernels ``csrc/iso_march.cu``, skipping exactly, and
-  ``csrc/iso_shade.cu``), with the bind inside the sweep and outside it,
-  and the same unbound;
+  (kernels ``csrc/iso_march.cu``, skipping exactly and handing each hit's
+  near bracket on, and ``csrc/iso_shade.cu`` from that bracket), with the
+  bind inside the sweep and outside it, and the same unbound;
 * gradients, on orbit frame 0: the config-4 TF fit, ``plan_compositing`` ->
   ``make_render_tf_kernel`` -> ``tf_fit_step_fast`` x 5, and a voxel-grad
   step, ``make_render_tf_voxel`` -> MSE loss -> ``torch.autograd.grad`` of
@@ -143,8 +143,9 @@ NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
 # iso crossing test and lookahead step 5; the segment anchor
 # test 6 (a segment step before the sample: a position step and the anchor
 # test, 9); the voxel gradient's replayed step, cotangent, tap weights and 8
-# atomic adds 94 in all; the shade 3 per rebuilt step and per hit 4
-# bisections (47), 6 normal taps (44) and 60 for the Phong terms.  A bound
+# atomic adds 94 in all; the shade per hit the far end of its bracket 3 (its
+# near end comes from the march), 4 bisections (47), 6 normal taps (44) and
+# 60 for the Phong terms.  A bound
 # iso march classifies every sample's block (texel coordinates 6, floors 3;
 # like the sampler's index math, its integer clamps, shifts and 2-byte load
 # are not counted) and gathers only in a mixed block: a gathered sample 49 +
@@ -161,7 +162,7 @@ RAY_BYTES, RGBA_BYTES = 25, 16
 TRILINEAR_OPS, ISO_CLASSIFY_OPS = 41, 9
 ISO_GATHERED_OPS = OPS_PER_STEP["iso"] + ISO_CLASSIFY_OPS
 ISO_SKIPPED_OPS = OPS_PER_STEP["iso"] - TRILINEAR_OPS + ISO_CLASSIFY_OPS
-SHADE_OPS_PER_HIT, SHADE_OPS_PER_STEP = 4 * 47 + 6 * 44 + 60, 3
+SHADE_OPS_PER_HIT = 3 + 4 * 47 + 6 * 44 + 60
 
 
 def emit(obj) -> None:
@@ -212,14 +213,34 @@ def compare(kernel_out, plain_out, n_px: int) -> dict:
     return {"max_abs_err": max_abs, "px_beyond_1e-5": n_over, "px_allowed": allowed}
 
 
+def sleep_cycles_per_ms() -> float:
+    """The clock cycles ``torch.cuda._sleep`` spins per ms on this card."""
+    if not hasattr(sleep_cycles_per_ms, "rate"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1_000_000)
+        end.record()
+        end.synchronize()
+        sleep_cycles_per_ms.rate = 1_000_000 / start.elapsed_time(end)
+    return sleep_cycles_per_ms.rate
+
+
 def time_ms(fn, reps: int = REPS) -> float:
     """Min over ``reps`` of one call of ``fn`` after a warm call, in ms (CUDA
-    events around work on the current stream)."""
+    events around work on the current stream).  Before each start event the
+    card spins for twice the warm call's host time (at most 50 ms), so the
+    host has queued ``fn``'s launches before the card reaches them: a kernel
+    shorter than its wrapper's host cost is timed on the card, not by the
+    host's pace."""
+    t0 = time.perf_counter()
     fn()
+    spin_ms = min(2e3 * (time.perf_counter() - t0), 50.0)
     best = math.inf
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * sleep_cycles_per_ms()))
         start.record()
         fn()
         end.record()
@@ -304,11 +325,11 @@ def composite_samples(plan, vol_plain, K: float = 0.6, touched: torch.Tensor | N
     return n
 
 
-def shade_positions(plan, vol_plain, found, t_hit, iso) -> torch.Tensor:
+def shade_positions(plan, vol_plain, found, near, iso) -> torch.Tensor:
     """The positions (N, 3) at which the shade pass (B3, the pooled shade)
-    samples for the hit rays: 4 bisection midpoints and 6 normal taps each,
-    from the plain shade's own arithmetic through a sampler that records
-    them."""
+    samples for the hit rays, from the march's ``near``: 4 bisection
+    midpoints and 6 normal taps each, from the plain shade's own arithmetic
+    through a sampler that records them."""
     from volumerenderer_tpu_torch.ops.isosurface import shade_hits
     from volumerenderer_tpu_torch.ops.sampling import sample_trilinear
 
@@ -318,16 +339,32 @@ def shade_positions(plan, vol_plain, found, t_hit, iso) -> torch.Tensor:
         seen.append(uvw[hit])
         return sample_trilinear(vol_plain, uvw)
 
-    shade_hits(recording, plan.entry_uv, plan.dir_step, plan.direction, found, t_hit, iso)
+    shade_hits(recording, plan.entry_uv, plan.dir_step, plan.direction, found, None, iso,
+               near=near)
     return torch.cat(seen)
 
 
-def shade_ray_bytes(plan, found, t_hit) -> float:
-    """The ray bytes a shade launch (B3, the pooled shade) moves: ``found``
-    read and rgb (12 B) written for every ray, and entry_uv, dir_step,
-    direction and t_hit read for the hit rays alone."""
-    per_ray = nbytes(plan.entry_uv, plan.dir_step, plan.direction, t_hit) / t_hit.numel()
+def shade_ray_bytes(plan, found, near) -> float:
+    """The ray bytes a shade launch (B3, the pooled shade) moves from the
+    march's ``near``: ``found`` read and rgb (12 B) written for every ray,
+    and near, dir_step and direction read for the hit rays alone."""
+    per_ray = nbytes(near, plan.dir_step, plan.direction) / found.numel()
     return per_ray * float(found.sum()) + nbytes(found) + 12 * found.numel()
+
+
+def replayed_near(entry_uv, dir_step, found, t_hit) -> torch.Tensor:
+    """Each hit's near bracket replayed in float32: entry_uv plus t_hit + 1
+    additions of dir_step, one rounding each (entry_uv for a miss)."""
+    n_add = torch.where(found, t_hit.to(torch.int64) + 1, 0)
+    near = entry_uv
+    for k in range(1, int(n_add.max()) + 1):
+        near = torch.where((n_add >= k)[..., None], near + dir_step, near)
+    return near
+
+
+def bits_equal(a, b, mask) -> bool:
+    """a and b hold the same float32 bits wherever ``mask`` is set."""
+    return bool(torch.equal(a[mask].view(torch.int32), b[mask].view(torch.int32)))
 
 
 def warp_steps(n: torch.Tensor, warp_hw) -> dict:
@@ -494,7 +531,7 @@ def run_routes(dev, smi: str, turb, plans) -> None:
               "frame0_touched_voxels": int(mask.sum()), "gpu": smi})
 
 
-def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
+def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -> list:
     """The isosurface phases; returns the kernels line's two entries."""
     from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
     from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
@@ -520,14 +557,23 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     emit({"phase": "iso_goldens", **golden["unbound"], "bound": golden["bound"],
           "tol": ISO_GOLDEN_TOL})
 
-    # each kernel vs its plain version on the same inputs; the shade pass of
-    # both is fed the kernel march's hits
+    # each kernel vs its plain version on the same inputs, the march with the
+    # near bracket and the shade from it (the render route); the shade pass
+    # of both is fed the kernel march's hits.  near is held bit-equal on the
+    # hit rays to a float32 replay of t_hit + 1 additions and to the plain
+    # march's, B3 from near to B3's chain instantiation, bound marches to
+    # unbound ones (near too), and the march's (found, t_hit) to the march's
+    # without near.  The cases: the earlier slices' and the turbulence made
+    # to part a per-tap quantize from quantize_u8 (its bytes here)
     iso_med = IK.volume_median(turb)
     cases = [("entry_sphere", sphere, Camera(width=W, height=H), 0.5, "clamp"),
              ("orbit_frame0", turb, cameras[0], iso_med, "clamp"),
              ("orbit_frame15", turb, cameras[-1], iso_med, "clamp"),
              ("iso40_frame0", turb, cameras[0], 40.0 / 255.0, "clamp"),
-             ("repeat_128", turb, orbit_camera(Camera, 30.0, 128, 128), iso_med, "repeat")]
+             ("repeat_128", turb, orbit_camera(Camera, 30.0, 128, 128), iso_med, "repeat"),
+             ("adversarial_frame0", adversarial, cameras[0], iso_med, "clamp"),
+             ("adversarial_repeat_128", adversarial, orbit_camera(Camera, 30.0, 128, 128),
+              iso_med, "repeat")]
     err = {"iso_march": 0.0, "iso_shade": 0.0}
     for name, v, cam, iso, wrap in cases:
         rays = generate_rays(cam, device=dev)
@@ -535,31 +581,43 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
         plan = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z), wrap=wrap)
         vol_u8 = quantize_u8(v)
         plain_vol = as_normalized_volume(vol_u8)
-        found_k, t_hit_k = IK.iso_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit,
-                                             iso, plan.max_samples, wrap)
-        rgb_k = IK.iso_shade_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.direction,
-                                  found_k, t_hit_k, iso, wrap)
-        found_p, t_hit_p = iso_march_steps(plain_vol, plan.entry_uv, plan.dir_step,
-                                           plan.hit.bool(), iso, plan.max_samples, wrap)
-        rgb_p = shade_hits(plain_vol, plan.entry_uv, plan.dir_step, plan.direction, found_k,
-                           t_hit_k, iso, wrap)
+        args = (plan.entry_uv, plan.dir_step)
+        found_k, t_hit_k, near_k = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso,
+                                                     plan.max_samples, wrap, with_near=True)
+        found_n, t_hit_n = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso, plan.max_samples,
+                                             wrap)
+        rgb_k = IK.iso_shade_cuda(vol_u8, *args, plan.direction, found_k, None, iso, wrap,
+                                  near_k)
+        rgb_c = IK.iso_shade_cuda(vol_u8, *args, plan.direction, found_k, t_hit_k, iso, wrap)
+        found_p, t_hit_p, near_p = iso_march_steps(plain_vol, *args, plan.hit.bool(), iso,
+                                                   plan.max_samples, wrap, with_near=True)
+        rgb_p = shade_hits(plain_vol, *args, plan.direction, found_k, t_hit_k, iso, wrap)
+        both = found_k & found_p & (t_hit_k == t_hit_p)
+        near_equal = {
+            "replay": bits_equal(near_k, replayed_near(*args, found_k, t_hit_k), found_k),
+            "plain_march": bits_equal(near_k, near_p, both),
+            "march_without_near": bool(torch.equal(found_k, found_n)
+                                       and torch.equal(t_hit_k, t_hit_n)),
+            "shade_from_near_is_chain": bool(torch.equal(rgb_k, rgb_c))}
         # bound: the kernel and the plain march from the volume's grid, the
         # kernel from its mip8's, each bit-equal to its unbound version
         bounds = {"volume": plan.bind(v, iso), "mip8": plan.bind(v, iso,
                                                                  mip8=RK.block_max8(vol_u8))}
         bound_equal = {}
         for bname, ib in bounds.items():
-            fb, tb = IK.iso_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, iso,
-                                       plan.max_samples, wrap, ib)
+            fb, tb, nb = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso, plan.max_samples, wrap,
+                                           ib, with_near=True)
             bound_equal[f"kernel_{bname}"] = bool(torch.equal(fb, found_k)
-                                                  and torch.equal(tb, t_hit_k))
+                                                  and torch.equal(tb, t_hit_k)
+                                                  and bits_equal(nb, near_k, found_k))
         fb, tb = iso_march_steps(plain_vol, plan.entry_uv, plan.dir_step, plan.hit.bool(), iso,
                                  plan.max_samples, wrap, bounds["volume"])
         bound_equal["plain_volume"] = bool(torch.equal(fb, found_p) and torch.equal(tb, t_hit_p))
         torch.cuda.synchronize()
-        if not all(bound_equal.values()):
-            raise AssertionError(f"iso {name}: a bound march differs from its unbound one: "
-                                 f"{bound_equal}")
+        if not all(bound_equal.values()) or not all(near_equal.values()):
+            raise AssertionError(f"iso {name}: a bound march differs from its unbound one "
+                                 f"({bound_equal}) or the near route from its replay, the "
+                                 f"plain march or the chain ({near_equal})")
         n_px = cam.width * cam.height
         px_differ = int(((found_k != found_p) | (t_hit_k != t_hit_p)).sum())
         t_hit_err = float((t_hit_k - t_hit_p).abs().max())
@@ -576,7 +634,7 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
               "px_allowed": allowed, "t_hit_max_abs_err": t_hit_err,
               "rgb_max_abs_err": rgb_err,
               "rgb_px_beyond_1e-6": int(((rgb_k - rgb_p).abs() > 1e-6).sum()),
-              "bound_bit_equal": bound_equal})
+              "bound_bit_equal": bound_equal, "near_bit_equal": near_equal})
 
     # the main path: the 16-frame orbit at the volume's median, plans built
     # once per camera and one bound for the volume and isovalue, which every
@@ -643,21 +701,30 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
           "bind_ms": time_ms(lambda: plans[0].bind(turb, iso_med)), "bound_frame_equal": True,
           "hits_last_frame": int(found.sum()), "frames": N_FRAMES, "reps": REPS, "gpu": smi})
 
-    # per-launch times of each kernel and its plain version over the orbit,
-    # then frame 0 split into its layers
+    # per-launch times of each kernel as render launches it (the march with
+    # near, the shade from it) and of its plain version over the orbit, the
+    # march without near and the shade's chain instantiation beside, then
+    # frame 0 split into its layers
     turb_u8 = quantize_u8(turb)
     turb_plain = as_normalized_volume(turb_u8)
-    hits = [IK.iso_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, iso_med) for p in plans]
+    hits = [IK.iso_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, iso_med, with_near=True)
+            for p in plans]
 
-    def march_ms(b):
+    def march_ms(b, with_near=True):
         return time_ms(lambda: [IK.iso_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit,
-                                                  iso_med, bound=b)
+                                                  iso_med, bound=b, with_near=with_near)
                                 for p in plans]) / N_FRAMES
 
+    def shade(p, f, t, n):
+        return IK.iso_shade_cuda(turb_u8, p.entry_uv, p.dir_step, p.direction, f, t, iso_med,
+                                 near=n)
+
     ms = {"iso_march": march_ms(iso_bound), "iso_march_unbound": march_ms(None),
-          "iso_shade": time_ms(lambda: [IK.iso_shade_cuda(turb_u8, p.entry_uv, p.dir_step,
-                                                          p.direction, f, t, iso_med)
-                                        for p, (f, t) in zip(plans, hits)]) / N_FRAMES}
+          "iso_march_without_near": march_ms(iso_bound, False),
+          "iso_shade": time_ms(lambda: [shade(p, f, None, n)
+                                        for p, (f, _, n) in zip(plans, hits)]) / N_FRAMES,
+          "iso_shade_chain": time_ms(lambda: [shade(p, f, t, None)
+                                              for p, (f, t, _) in zip(plans, hits)]) / N_FRAMES}
     # the plain marches on frames 0 and 15 (~0.25 s a frame)
     ends = (0, N_FRAMES - 1)
     plain_ms = {
@@ -667,16 +734,16 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
                   for i in ends) / len(ends)
         for name, b in (("iso_march", iso_bound), ("iso_march_unbound", None))}
     plain_ms["iso_shade"] = time_ms(lambda: [shade_hits(turb_plain, p.entry_uv, p.dir_step,
-                                                        p.direction, f, t, iso_med)
-                                             for p, (f, t) in zip(plans, hits)]) / N_FRAMES
+                                                        p.direction, f, None, iso_med, near=n)
+                                             for p, (f, _, n) in zip(plans, hits)]) / N_FRAMES
     # samples per ray the unbound march takes, and those the bound one gathers
     per_ray = {name: sum(float(iso_samples(p, f, t, b).sum())
-                         for p, (f, t) in zip(plans, hits)) / (N_FRAMES * W * H)
+                         for p, (f, t, _) in zip(plans, hits)) / (N_FRAMES * W * H)
                for name, b in (("samples", None), ("gathered", iso_bound))}
     emit({"phase": "iso_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
           "frames": N_FRAMES, "plain_frames": list(ends), "kernel_ms_per_launch": ms,
           "plain_ms_per_launch": plain_ms, "per_ray": per_ray, "gpu": smi})
-    rays0, plan0, (f0, t0) = bundles[0], plans[0], hits[0]
+    rays0, plan0, (f0, t0, n0) = bundles[0], plans[0], hits[0]
     emit({"phase": "iso_layers", "ms": {
         "volume_median": time_ms(lambda: IK.volume_median(turb)),
         "plan": time_ms(lambda: IK.IsosurfacePlan(rays0.entry_uv, rays0.direction, rays0.hit,
@@ -685,12 +752,11 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
         "bind": time_ms(lambda: plan0.bind(turb, iso_med)),
         "march_kernel": time_ms(lambda: IK.iso_march_cuda(turb_u8, plan0.entry_uv,
                                                           plan0.dir_step, plan0.hit, iso_med,
-                                                          bound=iso_bound)),
+                                                          bound=iso_bound, with_near=True)),
         "march_kernel_unbound": time_ms(lambda: IK.iso_march_cuda(
-            turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit, iso_med)),
-        "shade_kernel": time_ms(lambda: IK.iso_shade_cuda(turb_u8, plan0.entry_uv,
-                                                          plan0.dir_step, plan0.direction,
-                                                          f0, t0, iso_med))},
+            turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit, iso_med, with_near=True)),
+        "shade_kernel": time_ms(lambda: shade(plan0, f0, None, n0)),
+        "shade_kernel_chain": time_ms(lambda: shade(plan0, f0, t0, None))},
         "hits_frame0": int(f0.sum()), "gpu": smi})
 
     # the main path went through both kernels, once per render each
@@ -700,27 +766,28 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     emit({"phase": "iso_launch_count", **launches, "renders": renders})
 
     # the bounds, per launch over the orbit: a hit samples at steps 0..t_hit
-    # and once before, a miss once per step inside the cube and once before
+    # and once before, a miss once per step inside the cube and once before;
+    # the march writes near (12 B) for each hit, the shade reads it
     samples, shade_ops = 0.0, 0.0
     io = {"iso_march": 0, "iso_shade": 0, "iso_shade_every_ray": 0}
-    for p, (f, t) in zip(plans, hits):
+    for p, (f, t, n) in zip(plans, hits):
         found = f.bool()
         steps = torch.where(found, t.float() + 2.0, march_steps(p) + 1.0) * p.hit
         samples += float(steps.sum())
-        shade_ops += float((SHADE_OPS_PER_STEP * (t.float() + 2.0) + SHADE_OPS_PER_HIT)[found].sum())
-        io["iso_march"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.hit, f, t)
-        io["iso_shade"] += shade_ray_bytes(p, f, t)
-        io["iso_shade_every_ray"] += nbytes(p.entry_uv, p.dir_step, p.direction, f, t) \
-            + 12 * W * H
+        shade_ops += SHADE_OPS_PER_HIT * float(found.sum())
+        io["iso_march"] += nbytes(turb_u8, p.entry_uv, p.dir_step, p.hit, f, t) \
+            + 12 * float(found.sum())
+        io["iso_shade"] += shade_ray_bytes(p, f, n)
+        io["iso_shade_every_ray"] += nbytes(n, p.dir_step, p.direction, f) + 12 * W * H
     # the shade's bytes of the volume: the voxels its taps read, per frame (a
     # boolean scatter of every shade sample's 8 tap indices), as B1's bound
     # counts its voxels; the whole volume's bytes beside it, and the count
     # that reads every ray's inputs (not only the hit rays') beside that
     touched = torch.zeros(turb_u8.numel(), dtype=torch.bool, device=dev)
     shade_voxels = 0.0
-    for p, (f, t) in zip(plans, hits):
+    for p, (f, _, n) in zip(plans, hits):
         touched.zero_()
-        touched[tap_indices(shade_positions(p, turb_plain, f, t, iso_med), p.dims)] = True
+        touched[tap_indices(shade_positions(p, turb_plain, f, n, iso_med), p.dims)] = True
         shade_voxels += float(touched.sum()) / N_FRAMES
     # the march's bound is the bound march's (the main path's launch): its
     # gathered and skipped samples and the grid's bytes; the formula of the
@@ -733,13 +800,15 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles) -> list:
                                ISO_GATHERED_OPS * gathered + ISO_SKIPPED_OPS * skipped,
                                samples / N_FRAMES, W * H),
             "iso_shade": bound(io["iso_shade"] / N_FRAMES + shade_voxels, shade_ops / N_FRAMES,
-                               10.0 * sum(float(f.sum()) for f, _ in hits) / N_FRAMES, W * H)}
+                               10.0 * sum(float(f.sum()) for f, _, _ in hits) / N_FRAMES, W * H)}
     extra = {"iso_march": {"gathered_per_ray": per_ray["gathered"],
                            "bound_ms_unskipped_formula": unskipped["bound_ms"],
                            "ops_unskipped_formula": unskipped["ops"],
                            "ms_unbound": ms["iso_march_unbound"],
+                           "ms_without_near": ms["iso_march_without_near"],
                            "plain_ms_unbound": plain_ms["iso_march_unbound"]},
              "iso_shade": {"touched_voxels_per_launch": shade_voxels,
+                           "ms_chain": ms["iso_shade_chain"],
                            "bound_ms_whole_volume": bound(
                                (io["iso_shade"] + N_FRAMES * nbytes(turb_u8)) / N_FRAMES,
                                shade_ops / N_FRAMES, 1.0, W * H)["bound_ms"],
@@ -1200,7 +1269,10 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
     # the turbulence, the default camera on the sphere (mostly slot-0 reads).  B6 and B7 with the
     # transfer in their epilogue (render_pooled's launch) equal
     # apply_reference_transfer of their color and the fused dense B1 on the
-    # float32 volume, bit for bit.
+    # float32 volume, bit for bit.  B8 and B9 return near (render_pooled's
+    # launch), bit-equal on the hit rays to B2's and to the plain march's;
+    # the pooled shade from it equals its chain instantiation and B3 from
+    # near.
     iso_med = IK.volume_median(turb)
     marches = {"narrow": (RK.composite_march_pooled_narrow_cuda, IK.iso_march_pooled_narrow_cuda),
                "pair16": (RK.composite_march_pooled_pair16_cuda, IK.iso_march_pooled_pair16_cuda)}
@@ -1216,14 +1288,14 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
         c_d, a_d = RK.composite_march_cuda(vol_u8, *args, plan.hit)
         rgb_f, a_f = RK.composite_march_f32_cuda({"turbulence": turb, "sphere": sphere}[vname],
                                                  *args, plan.hit, transfer=True)
-        f_d, t_d = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso)
+        f_d, t_d, n_d = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso, with_near=True)
         dense_grid = plan.bind(vol_u8, iso).grid
         for fmt, (comp, isom) in marches.items():
             pool, smap = pools[vname, fmt]
             sampler = slab_pool_sampler(pool, smap, VOLUME[::-1])
             c_k, a_k = comp(pool, smap, *args, plan.hit)
             rgb_e, a_e = comp(pool, smap, *args, plan.hit, transfer=True)
-            f_k, t_k = isom(pool, smap, *args, plan.hit, iso)
+            f_k, t_k, n_k = isom(pool, smap, *args, plan.hit, iso, with_near=True)
             # bound from the pool's own bytes (the grid of the volume it was
             # built from) and from the volume's mip8
             iso_bounds = {"pool": plan.bind(iso_value=iso, pool=(pool, smap)),
@@ -1232,23 +1304,31 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
             bound_equal = {"pool_grid_is_volume_grid": bool(torch.equal(iso_bounds["pool"].grid,
                                                                         dense_grid))}
             for bname, ib in iso_bounds.items():
-                f_b, t_b = isom(pool, smap, *args, plan.hit, iso, bound=ib)
-                bound_equal[bname] = bool(torch.equal(f_b, f_k) and torch.equal(t_b, t_k))
-            rgb_k = IK.iso_shade_pooled_cuda(pool, smap, *args, plan.direction, f_k, t_k, iso)
-            rgb_d = IK.iso_shade_cuda(vol_u8, *args, plan.direction, f_k, t_k, iso)
+                f_b, t_b, n_b = isom(pool, smap, *args, plan.hit, iso, bound=ib, with_near=True)
+                bound_equal[bname] = bool(torch.equal(f_b, f_k) and torch.equal(t_b, t_k)
+                                          and bits_equal(n_b, n_k, f_k))
+            f_n, t_n = isom(pool, smap, *args, plan.hit, iso)
+            rgb_k = IK.iso_shade_pooled_cuda(pool, smap, *args, plan.direction, f_k, None, iso,
+                                             near=n_k)
+            rgb_kc = IK.iso_shade_pooled_cuda(pool, smap, *args, plan.direction, f_k, t_k, iso)
+            rgb_d = IK.iso_shade_cuda(vol_u8, *args, plan.direction, f_k, None, iso, near=n_k)
+            rgb_dc = IK.iso_shade_cuda(vol_u8, *args, plan.direction, f_k, t_k, iso)
             c_p, a_p = composite_march_steps(sampler, *args, plan.hit.bool())
-            f_p, t_p = iso_march_steps(sampler, *args, plan.hit.bool(), iso)
+            f_p, t_p, n_p = iso_march_steps(sampler, *args, plan.hit.bool(), iso, with_near=True)
             rgb_p = shade_hits(sampler, *args, plan.direction, f_k, t_k, iso)
             torch.cuda.synchronize()
             dense_equal = bool(torch.equal(c_k, c_d) and torch.equal(a_k, a_d)
                                and torch.equal(f_k, f_d) and torch.equal(t_k, t_d)
-                               and torch.equal(rgb_k, rgb_d))
+                               and bits_equal(n_k, n_d, f_k) and torch.equal(rgb_k, rgb_d)
+                               and torch.equal(rgb_k, rgb_dc) and torch.equal(rgb_k, rgb_kc)
+                               and torch.equal(f_n, f_k) and torch.equal(t_n, t_k))
             epilogue_equal = bool(torch.equal(rgb_e, apply_reference_transfer(c_k, a_k))
                                   and torch.equal(a_e, a_k) and torch.equal(rgb_e, rgb_f)
                                   and torch.equal(a_e, a_f))
             plain_equal = {name: bool(torch.equal(k, q)) for name, k, q in (
                 ("color", c_k, c_p), ("alpha", a_k, a_p), ("found", f_k, f_p),
                 ("t_hit", t_k, t_p), ("shade", rgb_k, rgb_p))}
+            plain_equal["near"] = bits_equal(n_k, n_p, f_k & f_p & (t_k == t_p))
             res = compare((c_k, a_k), (c_p, a_p), W * H)
             px_differ = int(((f_k != f_p) | (t_k != t_p)).sum())
             t_err = float((t_k - t_p).abs().max())
@@ -1275,7 +1355,7 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                   "rgb_max_abs_err": rgb_err, "hits_kernel": int(f_k.sum()),
                   "alpha_sum_kernel": float(a_k.sum()), "bound_bit_equal": bound_equal})
             if case != "entry_sphere":
-                plain_inputs.append((fmt, sampler, plan, f_k, t_k))
+                plain_inputs.append((fmt, sampler, plan, f_k, n_k))
 
     # 5. the pooled metrics, bench.py's protocol on the dense turbulence's
     # pools: plan once per camera, min of REPS sweeps after a warm one.  The
@@ -1394,7 +1474,7 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
     pool_n, smap_n = pools["turbulence", "narrow"]
     pool_16, smap_16 = pools["turbulence", "pair16"]
     hits = [IK.iso_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv, p.dir_step, p.hit,
-                                            iso_med) for p in iplans]
+                                            iso_med, with_near=True) for p in iplans]
 
     def per_frame(fn, plans):
         return time_ms(lambda: [fn(p) for p in plans]) / len(plans)
@@ -1419,24 +1499,32 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
             cplans),
         "iso_march_pooled_narrow": per_frame(
             lambda p: IK.iso_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv, p.dir_step,
-                                                      p.hit, iso_med), iplans),
+                                                      p.hit, iso_med, with_near=True), iplans),
         "iso_march_pooled_pair16": per_frame(
             lambda p: IK.iso_march_pooled_pair16_cuda(pool_16, smap_16, p.entry_uv,
-                                                      p.dir_step, p.hit, iso_med), iplans),
-        "iso_shade_pooled": time_ms(lambda: [
-            IK.iso_shade_pooled_cuda(pool_n, smap_n, p.entry_uv, p.dir_step, p.direction, f, t,
-                                     iso_med) for p, (f, t) in zip(iplans, hits)]) / N_FRAMES}
+                                                      p.dir_step, p.hit, iso_med,
+                                                      with_near=True), iplans)}
+    # the pooled shade from near (render_pooled's launch) on each pool, and
+    # its chain instantiation beside
+    shade_ms = {f"{fmt}{route}": time_ms(lambda: [
+        IK.iso_shade_pooled_cuda(pool, smap, p.entry_uv, p.dir_step, p.direction, f,
+                                 None if route == "" else t, iso_med,
+                                 near=n if route == "" else None)
+        for p, (f, t, n) in zip(iplans, hits)]) / N_FRAMES
+        for fmt, (pool, smap) in (("narrow", (pool_n, smap_n)), ("pair16", (pool_16, smap_16)))
+        for route in ("", "_chain")}
+    ms["iso_shade_pooled"] = shade_ms["narrow"]
     # B8 and B9 bound from their pool's grid (B2's grid and positions, so
     # B2's gathers)
     bound_ms = {
         f"iso_march_pooled_{fmt}": time_ms(
             lambda: [march(pool, smap, p.entry_uv, p.dir_step, p.hit, iso_med,
-                           bound=pbounds[fmt]) for p in iplans]) / N_FRAMES
+                           bound=pbounds[fmt], with_near=True) for p in iplans]) / N_FRAMES
         for fmt, march, (pool, smap) in (
             ("narrow", IK.iso_march_pooled_narrow_cuda, (pool_n, smap_n)),
             ("pair16", IK.iso_march_pooled_pair16_cuda, (pool_16, smap_16)))}
     plain_ms = dict.fromkeys(names, 0.0)
-    for fmt, sampler, plan, f_k, t_k in plain_inputs:
+    for fmt, sampler, plan, f_k, n_k in plain_inputs:
         args = (plan.entry_uv, plan.dir_step)
         plain_ms[f"composite_march_pooled_{fmt}"] += time_ms(
             lambda: composite_march_steps(sampler, *args, plan.hit.bool()), reps=1) / 2
@@ -1444,12 +1532,12 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
             lambda: iso_march_steps(sampler, *args, plan.hit.bool(), iso_med), reps=1) / 2
         if fmt == "narrow":
             plain_ms["iso_shade_pooled"] += time_ms(
-                lambda: shade_hits(sampler, *args, plan.direction, f_k, t_k, iso_med),
-                reps=1) / 2
+                lambda: shade_hits(sampler, *args, plan.direction, f_k, None, iso_med,
+                                   near=n_k), reps=1) / 2
     emit({"phase": "pooled_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
           "frames": N_FRAMES, "plain_frames": [0, N_FRAMES - 1],
           "kernel_ms_per_launch": ms, "color_only_ms_per_launch": color_ms,
-          "bound_kernel_ms_per_launch": bound_ms,
+          "bound_kernel_ms_per_launch": bound_ms, "shade_ms_per_launch": shade_ms,
           "plain_ms_per_launch": plain_ms,
           "dense_kernel_ms_per_launch": {n: e["ms"] for n, e in dense.items()},
           "dense_iso_march_ms_unbound": dense["iso_march"]["ms_unbound"], "gpu": smi})
@@ -1463,7 +1551,8 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
     pool_io = {fmt: nbytes(*pools["turbulence", fmt]) for fmt in ("narrow", "pair16")}
     rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in iplans) / N_FRAMES
     iso, shade = dense["iso_march"], dense["iso_shade"]
-    hit_io = sum(nbytes(f, t) for f, t in hits) / N_FRAMES
+    # found and t_hit written for every ray, near for the hit rays
+    hit_io = sum(nbytes(f, t) + 12 * float(f.sum()) for f, t, _ in hits) / N_FRAMES
 
     def like(entry, n_bytes):
         return bound(n_bytes, entry["ops"], entry["samples_per_ray"] * W * H, W * H)
@@ -1501,21 +1590,23 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
     # frame (its sample positions are B3's, bit for bit) and the ray bytes of
     # the hit rays, as B3's bound; the whole pool's bytes beside, and the
     # count that reads every ray's inputs beside that
-    shade_rest = sum(shade_ray_bytes(p, f, t) for p, (f, t) in zip(iplans, hits)) / N_FRAMES
+    shade_rest = sum(shade_ray_bytes(p, f, n) for p, (f, _, n) in zip(iplans, hits)) / N_FRAMES
     shade_words = 0.0
-    for p, (f, t) in zip(iplans, hits):
+    for p, (f, _, n) in zip(iplans, hits):
         mask = torch.zeros(pool_n.numel(), dtype=torch.bool, device=dev)
-        mask[pool_tap_words(shade_positions(p, turb_plain, f, t, iso_med), p.dims, pool_n,
+        mask[pool_tap_words(shade_positions(p, turb_plain, f, n, iso_med), p.dims, pool_n,
                             smap_n)] = True
         shade_words += float(mask.sum()) / N_FRAMES
     shade_pool = shade_words * pool_n.element_size() + nbytes(smap_n)
-    every_ray = sum(nbytes(p.entry_uv, p.dir_step, p.direction) for p in iplans) / N_FRAMES \
-        + hit_io + 12 * W * H
+    every_ray = sum(nbytes(n, p.dir_step, p.direction, f)
+                    for p, (f, _, n) in zip(iplans, hits)) / N_FRAMES + 12 * W * H
     bounds["iso_shade_pooled"] = {
         **like(shade, shade_pool + shade_rest),
         "touched_pool_words_per_launch": shade_words,
         "bound_ms_whole_pool": like(shade, pool_io["narrow"] + shade_rest)["bound_ms"],
-        "bound_ms_every_ray_read": like(shade, shade_pool + every_ray)["bound_ms"]}
+        "bound_ms_every_ray_read": like(shade, shade_pool + every_ray)["bound_ms"],
+        "ms_pair16": shade_ms["pair16"], "ms_chain": shade_ms["narrow_chain"],
+        "ms_pair16_chain": shade_ms["pair16_chain"]}
     # ms and bound_ms are the unbound march's (the compressed path binds
     # nothing yet); the bound march gathers what B2's does, its bound from
     # B2's bound operations and the pool's bytes
@@ -2149,7 +2240,7 @@ def main() -> int:
                                              W * H)["bound_ms"]}
     run_routes(dev, smi, turb, plans)
 
-    iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles)
+    iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles, adversarial)
     grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles, samples, touched,
                                  adversarial)
     pooled_kernels = run_compressed(dev, smi, turb, sphere, cameras, bundles,

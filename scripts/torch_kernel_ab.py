@@ -10,6 +10,18 @@ line.  Where the package has ``IsosurfacePlan.bind``, ``B2_bound`` (and
 the volume and isovalue, which every plan shares (bound once, outside the
 timing).
 
+Where the package's isosurface march returns the near bracket
+(``with_near``), ``B2``, ``B8``, ``B9`` (and their ``_bound``) are timed as
+``render`` launches them, storing near, and ``B3`` and ``shade_pooled_*``
+shade from that near (``B3_chain``, ``shade_pooled_*_chain``: the chain
+instantiation beside; ``*_bound_without_near``: the bound marches without
+the store); on a tree without it, the march without near and the
+shade that rebuilds the bracket from ``t_hit``.  ``iso_frame`` and
+``iso_frame_bound`` are ``IsosurfacePlan.render`` per frame, unbound and
+with one bound; ``digests`` hashes the marches' ``(found, t_hit)`` (both
+wraps, bound and unbound) and the shades' rgb, so that two trees' outputs
+can be held bit-equal.
+
 ``B1`` and ``B4`` are the marches on the byte volume (``quantize_u8`` of the
 turbulence, made once).  Where the package has the float32 route,
 ``B1_fused`` is B1 as the main path launches it (the float32 volume, each
@@ -34,9 +46,12 @@ directory of the checkout and run both in turns within one command:
 
     for r in build/base . . build/base; do python3 scripts/torch_kernel_ab.py $r $r; done
 """
+import hashlib
+import inspect
 import json
 import math
 import sys
+import time
 
 ROOT, LABEL = sys.argv[1], sys.argv[2]
 sys.path.insert(0, ROOT)
@@ -66,11 +81,30 @@ def orbit(az):
                   front=(-math.sin(a), 0.0, math.cos(a)))
 
 
+def sleep_cycles_per_ms():
+    """The clock cycles ``torch.cuda._sleep`` spins per ms on this card."""
+    if not hasattr(sleep_cycles_per_ms, "rate"):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(1_000_000)
+        e.record()
+        e.synchronize()
+        sleep_cycles_per_ms.rate = 1_000_000 / s.elapsed_time(e)
+    return sleep_cycles_per_ms.rate
+
+
 def time_ms(fn, reps=5):
+    """Min over ``reps`` after a warm call, by CUDA events; the card first
+    spins for twice the warm call's host time (at most 50 ms), so that the
+    host has queued the launches before the start event: a kernel shorter
+    than its wrapper's host cost is timed on the card."""
+    t0 = time.perf_counter()
     fn()
+    spin_ms = min(2e3 * (time.perf_counter() - t0), 50.0)
     best = math.inf
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * sleep_cycles_per_ms()))
         s.record()
         fn()
         e.record()
@@ -97,7 +131,39 @@ for p in plans:
     g_rgb = (rgb - target) * (2.0 / rgb.numel())
     cots.append((*CF.cotangent_images(ref, g_rgb, None, k[1]), k[3]))
 fused = hasattr(RK, "composite_march_f32_cuda")
-hits = [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso) for p in iplans]
+has_bind = hasattr(IK.IsosurfacePlan, "bind")
+# the marches as render launches them: storing near where the tree has it
+near = {"with_near": True} if "with_near" in inspect.signature(IK.iso_march_cuda).parameters \
+    else {}
+hits = [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso, **near) for p in iplans]
+
+
+def shade_args(found, t_hit, near=None):
+    """The shade's (found, t_hit) and its near keyword: from near where
+    the march stored it, else the chain from t_hit."""
+    if near is None:
+        return (found, t_hit), {}
+    return (found, None), {"near": near}
+
+
+def digest(*tensors):
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def b3(p, h, chain=False):
+    (f, t), kw = shade_args(*(h[:2] if chain else h))
+    return IK.iso_shade_cuda(u8, p.entry_uv, p.dir_step, p.direction, f, t, iso, **kw)
+
+
+def shade_pooled(pool, smap, p, h, chain=False):
+    (f, t), kw = shade_args(*(h[:2] if chain else h))
+    return IK.iso_shade_pooled_cuda(pool, smap, p.entry_uv, p.dir_step, p.direction, f, t, iso,
+                                    **kw)
+
+
 pools = {"narrow": RK.build_slab_pool_narrow(u8), "pair16": RK.build_slab_pool(u8)}
 pooled = {"narrow": (RK.composite_march_pooled_narrow_cuda, IK.iso_march_pooled_narrow_cuda),
           "pair16": (RK.composite_march_pooled_pair16_cuda, IK.iso_march_pooled_pair16_cuda)}
@@ -107,15 +173,20 @@ ms = {
                            for p in plans]) / 16,
     "frame": time_ms(lambda: [p.render(turb) for p in plans]) / 16,
     "tf_fit_step": time_ms(lambda: TK.tf_fit_step_fast(f_tf, ref, turb, target, lr=0.05)),
-    "B3": time_ms(lambda: [IK.iso_shade_cuda(u8, p.entry_uv, p.dir_step, p.direction, f, t, iso)
-                           for p, (f, t) in zip(iplans, hits)]) / 16,
+    "B3": time_ms(lambda: [b3(p, h) for p, h in zip(iplans, hits)]) / 16,
     "B4": time_ms(lambda: [TK.tf_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, tf)
                            for p in plans]) / 16,
     "B5": time_ms(lambda: [VK.voxel_grad_cuda(u8, p.entry_uv, p.dir_step, p.hit, tf, *c)
                            for p, c in zip(plans, cots)]) / 16,
-    "B2": time_ms(lambda: [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso)
+    "B2": time_ms(lambda: [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso, **near)
                            for p in iplans]) / 16,
+    "iso_frame": time_ms(lambda: [p.render(turb, iso) for p in iplans]) / 16,
 }
+digests = {"B3": digest(*(b3(p, h) for p, h in zip(iplans, hits))),
+           "B2": digest(*(x for h in hits for x in h[:2]))}
+if near:
+    ms["B3_chain"] = time_ms(lambda: [b3(p, h, chain=True) for p, h in zip(iplans, hits)]) / 16
+    digests["B3_chain"] = digest(*(b3(p, h, chain=True) for p, h in zip(iplans, hits)))
 if fused:
     ms["B1_fused"] = time_ms(lambda: [RK.composite_march_f32_cuda(
         turb, p.entry_uv, p.dir_step, p.hit, transfer=True) for p in plans]) / 16
@@ -131,23 +202,49 @@ for fmt, b in (("narrow", "B6"), ("pair16", "B7")):
     ms[f"pooled_frame_{fmt}"] = time_ms(lambda: [p.render_pooled(pool, smap) for p in plans]) / 16
 for fmt, b in (("narrow", "B8"), ("pair16", "B9")):
     pool, smap = pools[fmt]
-    ms[b] = time_ms(lambda: [pooled[fmt][1](pool, smap, p.entry_uv, p.dir_step, p.hit, iso)
-                             for p in iplans]) / 16
+    ms[b] = time_ms(lambda: [pooled[fmt][1](pool, smap, p.entry_uv, p.dir_step, p.hit, iso,
+                                            **near) for p in iplans]) / 16
+    digests[b] = digest(*(x for p in iplans for x in pooled[fmt][1](
+        pool, smap, p.entry_uv, p.dir_step, p.hit, iso)))
     # the pooled shade on this pool, fed B2's hits (the pooled march's, bit for bit)
-    ms[f"shade_pooled_{fmt}"] = time_ms(lambda: [IK.iso_shade_pooled_cuda(
-        pool, smap, p.entry_uv, p.dir_step, p.direction, f, t, iso)
-        for p, (f, t) in zip(iplans, hits)]) / 16
-if hasattr(IK.IsosurfacePlan, "bind"):
+    ms[f"shade_pooled_{fmt}"] = time_ms(lambda: [shade_pooled(pool, smap, p, h)
+                                                 for p, h in zip(iplans, hits)]) / 16
+    digests[f"shade_pooled_{fmt}"] = digest(*(shade_pooled(pool, smap, p, h)
+                                              for p, h in zip(iplans, hits)))
+    if near:
+        ms[f"shade_pooled_{fmt}_chain"] = time_ms(lambda: [
+            shade_pooled(pool, smap, p, h, chain=True) for p, h in zip(iplans, hits)]) / 16
+# B2 in GL_REPEAT on the same orbit, for the digests
+rplans = [IK.IsosurfacePlan(p.entry_uv, p.direction, p.hit, (256, 256, 256), wrap="repeat")
+          for p in iplans]
+digests["B2_repeat"] = digest(*(x for p in rplans for x in IK.iso_march_cuda(
+    u8, p.entry_uv, p.dir_step, p.hit, iso, wrap="repeat")))
+if has_bind:
     bound = iplans[0].bind(turb, iso)
     ms["B2_bound"] = time_ms(lambda: [IK.iso_march_cuda(u8, p.entry_uv, p.dir_step, p.hit, iso,
-                                                        bound=bound)
+                                                        bound=bound, **near)
                                       for p in iplans]) / 16
+    ms["iso_frame_bound"] = time_ms(lambda: [p.render(turb, iso, bound=bound)
+                                             for p in iplans]) / 16
+    if near:
+        ms["B2_bound_without_near"] = time_ms(lambda: [IK.iso_march_cuda(
+            u8, p.entry_uv, p.dir_step, p.hit, iso, bound=bound) for p in iplans]) / 16
+    rbound = rplans[0].bind(turb, iso)
+    digests["B2_bound"] = digest(*(x for p in iplans for x in IK.iso_march_cuda(
+        u8, p.entry_uv, p.dir_step, p.hit, iso, bound=bound)))
+    digests["B2_bound_repeat"] = digest(*(x for p in rplans for x in IK.iso_march_cuda(
+        u8, p.entry_uv, p.dir_step, p.hit, iso, wrap="repeat", bound=rbound)))
     for fmt, b in (("narrow", "B8"), ("pair16", "B9")):
         pool, smap = pools[fmt]
         pb = iplans[0].bind(iso_value=iso, pool=(pool, smap))
         ms[f"{b}_bound"] = time_ms(lambda: [pooled[fmt][1](pool, smap, p.entry_uv, p.dir_step,
-                                                           p.hit, iso, bound=pb)
+                                                           p.hit, iso, bound=pb, **near)
                                             for p in iplans]) / 16
+        if near:
+            ms[f"{b}_bound_without_near"] = time_ms(lambda: [pooled[fmt][1](
+                pool, smap, p.entry_uv, p.dir_step, p.hit, iso, bound=pb) for p in iplans]) / 16
+        ms[f"pooled_iso_frame_{fmt}"] = time_ms(lambda: [p.render_pooled(pool, smap, iso)
+                                                         for p in iplans]) / 16
 
 has_table = hasattr(KS, "shard_starts")
 meshes = {"z4": PC.make_z_mesh(4), "bricks221": PB.make_brick_mesh((2, 2, 1))}
@@ -172,5 +269,5 @@ for name, mesh in meshes.items():
     ms[f"B11_seg_launches_{name}"] = time_ms(
         lambda: [KS._seg_launches(mesh, p, sv, tf) for p in plans]) / 16
     ms[f"frame_{name}"] = time_ms(lambda: [render[name](mesh, p, sv) for p in plans]) / 16
-print(json.dumps({"label": LABEL, "ms": ms, "gpu": torch.cuda.get_device_name(0),
-                  "from": VK.__file__}), flush=True)
+print(json.dumps({"label": LABEL, "ms": ms, "digests": digests, "near_route": bool(near),
+                  "gpu": torch.cuda.get_device_name(0), "from": VK.__file__}), flush=True)

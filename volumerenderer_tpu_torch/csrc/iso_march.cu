@@ -12,8 +12,14 @@
 //   s2 = sample at pos + dir_step (a lookahead, sampled even outside the cube);
 //   if (s - iso) < 0 && (s2 - iso) >= 0: found = 1, t_hit = i - 1, leave.
 // (iso_march_steps(..., bound=) with a block grid: the same result.)
-// t_hit is -1 for a miss; the near bracket of a hit is entry + (t_hit + 1)
-// repeated additions of dir_step, as iso_shade.cu rebuilds it.
+// t_hit is -1 for a miss.  Given a near buffer, the march also stores each
+// hit's near bracket there: the position it holds when it sets found, entry +
+// (t_hit + 1) repeated additions of dir_step, which the shade (iso_shade.cu)
+// then reads instead of rebuilding it; a miss's entry is not written.  That
+// store is the whole cost of the bracket: the instantiation without it
+// (kNear = false) has none.  It is made where found is set: made after the
+// loop, the bound marches of the volume and of the narrow pool measured 2-3 %
+// slower on an H100, the pair16 pool's 4 % faster.
 //
 // What bounds it on this card: one data-dependent 8-tap gather per step
 // (the lookahead; the current sample is carried), served by L1/L2 (a 256^3
@@ -23,8 +29,10 @@
 //
 // What this design does about it: one thread per ray in 16x8-pixel blocks
 // (neighbouring rays share cache lines), taps through __ldg from the u8
-// volume, the lookahead carried so each step gathers once, and a thread
-// leaves as soon as its ray hits or exits.  With a block grid (an IsoBound
+// volume (trilinear.cuh's VolumeSampler: the wrap and 32-bit voxel offsets
+// fixed at compile time where the volume has at most 2^32 voxels), the
+// lookahead carried so each step gathers once, and a thread leaves as soon
+// as its ray hits or exits.  With a block grid (an IsoBound
 // of ops/isosurface.py: per 8^3 block of tap anchors the least and largest
 // byte its taps read, 2 bytes a block, 64 KB at 256^3, read through __ldg)
 // the march skips exactly, as the TPU plan's bind does with its word tables.
@@ -102,12 +110,12 @@ struct BlockGrid {
   }
 };
 
-template <bool kBound, class Sampler>
+template <bool kBound, bool kNear, class Sampler>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 iso_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
                  const uint8_t* __restrict__ hit, Sampler sample, BlockGrid grid, int H, int W,
                  int max_samples, float iso, uint8_t* __restrict__ found_out,
-                 int32_t* __restrict__ t_hit_out) {
+                 int32_t* __restrict__ t_hit_out, float* __restrict__ near_out) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= W || py >= H) return;
@@ -142,6 +150,11 @@ iso_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ d
       if ((s - iso) < 0.0f && (s2 - iso) >= 0.0f) {
         found = 1;
         t_hit = i - 1;
+        if constexpr (kNear) {  // p: entry + (t_hit + 1) additions, the near bracket
+          near_out[3 * ray + 0] = p0;
+          near_out[3 * ray + 1] = p1;
+          near_out[3 * ray + 2] = p2;
+        }
         break;
       }
       s = s2;
@@ -154,7 +167,7 @@ iso_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ d
 template <class Sampler>
 int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
            const void* grid, int X, int Y, int Z, bool repeat, int H, int W, int max_samples,
-           float iso, void* found, void* t_hit, void* stream) {
+           float iso, void* found, void* t_hit, void* near, void* stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 blocks((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
   const float iso255 = iso * 255.0f;
@@ -163,11 +176,14 @@ int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler 
   while (above_from < 256 && !(static_cast<float>(above_from) - 0.5f >= iso255)) ++above_from;
   const BlockGrid cells{static_cast<const uint16_t*>(grid), X, Y, Z, (X + 7) / 8, (Y + 7) / 8,
                         repeat, below_under, above_from};
-  auto* kernel = grid ? iso_march_kernel<true, Sampler> : iso_march_kernel<false, Sampler>;
+  auto* kernel = grid ? (near ? iso_march_kernel<true, true, Sampler>
+                              : iso_march_kernel<true, false, Sampler>)
+                     : (near ? iso_march_kernel<false, true, Sampler>
+                             : iso_march_kernel<false, false, Sampler>);
   kernel<<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
       static_cast<const uint8_t*>(hit), sample, cells, H, W, max_samples, iso,
-      static_cast<uint8_t*>(found), static_cast<int32_t*>(t_hit));
+      static_cast<uint8_t*>(found), static_cast<int32_t*>(t_hit), static_cast<float*>(near));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -175,10 +191,10 @@ template <vrt::PoolFormat F>
 int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, const void* pool,
                   const void* slab_map, const void* grid, int H, int W, int X, int Y, int Z,
                   int n_slots, int max_samples, float iso, void* found, void* t_hit,
-                  void* stream) {
+                  void* near, void* stream) {
   return vrt::with_pool_sampler<F>(pool, slab_map, n_slots, X, Y, Z, [&](auto sample) {
     return launch(entry_uv, dir_step, hit, sample, grid, X, Y, Z, false, H, W, max_samples, iso,
-                  found, t_hit, stream);
+                  found, t_hit, near, stream);
   });
 }
 
@@ -189,16 +205,18 @@ int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, c
 // entry_uv and dir_step (H*W*3 f32), hit (H*W u8), found (H*W u8) and t_hit
 // (H*W i32); grid is null (every sample is taken) or the block grid of the
 // volume for this iso and wrap, ceil(Z/8)*ceil(Y/8)*ceil(X/8) pairs of u8
-// (least, largest).
+// (least, largest); near is null (not stored) or H*W*3 f32, written for the
+// hit rays alone.
 
 // B2: vol (Z*Y*X u8, x fastest); repeat != 0 selects GL_REPEAT wrapping.
 extern "C" int iso_march_launch(const void* entry_uv, const void* dir_step, const void* hit,
                                 const void* vol, const void* grid, int H, int W, int X, int Y,
                                 int Z, int max_samples, int repeat, float iso, void* found,
-                                void* t_hit, void* stream) {
-  const vrt::DenseSampler sample{static_cast<const uint8_t*>(vol), X, Y, Z, repeat != 0};
-  return launch(entry_uv, dir_step, hit, sample, grid, X, Y, Z, repeat != 0, H, W, max_samples,
-                iso, found, t_hit, stream);
+                                void* t_hit, void* near, void* stream) {
+  return vrt::with_volume_sampler<uint8_t>(vol, X, Y, Z, repeat != 0, [&](auto sample) {
+    return launch(entry_uv, dir_step, hit, sample, grid, X, Y, Z, repeat != 0, H, W,
+                  max_samples, iso, found, t_hit, near, stream);
+  });
 }
 
 // B8: pool (n_slots*16*Y*X f32 pair values), slab_map (Z/8 i32), clamp.
@@ -207,10 +225,10 @@ extern "C" int iso_march_pooled_narrow_launch(const void* entry_uv, const void* 
                                               const void* slab_map, const void* grid, int H,
                                               int W, int X, int Y, int Z, int n_slots,
                                               int max_samples, float iso, void* found,
-                                              void* t_hit, void* stream) {
+                                              void* t_hit, void* near, void* stream) {
   return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, hit, pool, slab_map,
                                                     grid, H, W, X, Y, Z, n_slots, max_samples,
-                                                    iso, found, t_hit, stream);
+                                                    iso, found, t_hit, near, stream);
 }
 
 // B9: pool (n_slots*16*Y*(X/2) i32 pair16 words), slab_map (Z/8 i32), clamp.
@@ -219,10 +237,10 @@ extern "C" int iso_march_pooled_pair16_launch(const void* entry_uv, const void* 
                                               const void* slab_map, const void* grid, int H,
                                               int W, int X, int Y, int Z, int n_slots,
                                               int max_samples, float iso, void* found,
-                                              void* t_hit, void* stream) {
+                                              void* t_hit, void* near, void* stream) {
   return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, hit, pool, slab_map, grid,
                                                  H, W, X, Y, Z, n_slots, max_samples, iso,
-                                                 found, t_hit, stream);
+                                                 found, t_hit, near, stream);
 }
 
 extern "C" const char* iso_march_error_string(int code) {

@@ -115,25 +115,13 @@ __device__ __forceinline__ float sample_trilinear(const T* __restrict__ vol, flo
                         wrapped(i0z, Z, repeat, sz), wrapped(i0z + 1, Z, repeat, sz), fx, fy, fz);
 }
 
-// The dense volume as a sampler object: the march and shade bodies are
-// templates on their sampler (DenseSampler, VolumeSampler, PoolSampler
-// below).  DenseSampler, the wrap tested at run time and 64-bit offsets,
-// serves the isosurface march and shade (B2, B3); VolumeSampler<uint8_t>
-// takes the same taps with those two fixed at compile time.
-struct DenseSampler {
-  const uint8_t* vol;
-  int X, Y, Z;
-  bool repeat;
-  __device__ __forceinline__ float operator()(float u, float v, float w) const {
-    return sample_trilinear(vol, u, v, w, X, Y, Z, repeat);
-  }
-};
-
-// The dense volume with its wrap and its offset type fixed at compile time
-// (B1 and B4): T = uint8_t reads the 8-bit volume as DenseSampler does, T =
-// float reads the float32 volume and quantizes each tap to 8 bits as it reads
-// it, bit for bit DenseSampler on quantize_u8 of the volume with no byte copy
-// made.  Offset = uint32_t needs a volume of at most 2^32 voxels.
+// The dense volume as a sampler object, its wrap and its offset type fixed
+// at compile time: the march and shade bodies are templates on their sampler
+// (VolumeSampler here, PoolSampler below).  T = uint8_t reads the 8-bit
+// volume (B1's byte route, B2, B3, B4); T = float reads the float32 volume
+// and quantizes each tap to 8 bits as it reads it (B1, B4), bit for bit the
+// 8-bit volume quantize_u8 makes of it, with no byte copy made.  Offset =
+// uint32_t needs a volume of at most 2^32 voxels.
 template <class T, bool kRepeat, class Offset>
 struct VolumeSampler {
   const T* vol;

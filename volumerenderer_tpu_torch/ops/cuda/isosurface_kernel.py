@@ -8,10 +8,11 @@ kernels' DMA windows and are not carried over, and neither are the shade
 windows and their pads: the CUDA kernels read the volume straight from device
 memory.  A plan here is the ray tensors on the device plus the per-step
 increment; ``render`` quantizes the volume to 8 bits once and runs the march
-and then the shade pass on it.  ``bind`` is the exact empty-space skip: one
-``IsoBound`` (isovalue, dims, wrap, the min/max block grid of a volume or a
-slab pool, in place of the TPU plan's word tables, and that data's
-identity) that ``render`` and ``render_pooled`` take and check against
+and then the shade pass on it, the march handing each hit's bracket (its
+position at the crossing, ``near``) to the shade.  ``bind`` is the exact
+empty-space skip: one ``IsoBound`` (isovalue, dims, wrap, the min/max block
+grid of a volume or a slab pool, in place of the TPU plan's word tables, and
+that data's identity) that ``render`` and ``render_pooled`` take and check against
 their isovalue and data.  The grid depends only on the data and the wrap,
 so one bound serves every plan of the same dims and wrap.
 
@@ -54,29 +55,30 @@ __all__ = ["iso_march_cuda", "iso_shade_cuda", "iso_march_pooled_narrow_cuda",
 @functools.cache
 def _march_launcher():
     # entry_uv, dir_step, hit, vol, grid; H, W, X, Y, Z, max_samples, repeat; iso; found,
-    # t_hit, stream
-    return bind("iso_march", 5, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3)
+    # t_hit, near, stream
+    return bind("iso_march", 5, 7, [ctypes.c_float] + [ctypes.c_void_p] * 4)
 
 
 @functools.cache
 def _shade_launcher():
-    # entry_uv, dir_step, direction, found, t_hit, vol; H, W, X, Y, Z, repeat; iso; rgb, stream
-    return bind("iso_shade", 6, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2)
+    # entry_uv, dir_step, direction, found, t_hit, near, vol; H, W, X, Y, Z, repeat; iso;
+    # rgb, stream
+    return bind("iso_shade", 7, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
 @functools.cache
 def _pooled_march_launcher(fmt: str):
     # entry_uv, dir_step, hit, pool, slab_map, grid; H, W, X, Y, Z, n_slots,
-    # max_samples; iso; found, t_hit, stream
-    return bind("iso_march", 6, 7, [ctypes.c_float] + [ctypes.c_void_p] * 3,
+    # max_samples; iso; found, t_hit, near, stream
+    return bind("iso_march", 6, 7, [ctypes.c_float] + [ctypes.c_void_p] * 4,
                 entry=f"iso_march_pooled_{fmt}")
 
 
 @functools.cache
 def _pooled_shade_launcher(fmt: str):
-    # entry_uv, dir_step, direction, found, t_hit, pool, slab_map; H, W, X, Y,
-    # Z, n_slots; iso; rgb, stream
-    return bind("iso_shade", 7, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2,
+    # entry_uv, dir_step, direction, found, t_hit, near, pool, slab_map; H, W,
+    # X, Y, Z, n_slots; iso; rgb, stream
+    return bind("iso_shade", 8, 6, [ctypes.c_float] + [ctypes.c_void_p] * 2,
                 entry=f"iso_shade_pooled_{fmt}")
 
 
@@ -116,9 +118,49 @@ def _grid(bound, iso, dims, wrap, device=None, data=None):
     return grid
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _march_outputs(H, W, device, with_near):
+    """The march's found, t_hit and, with ``with_near``, near (else None),
+    allocated on ``device``."""
+    found = torch.empty((H, W), dtype=torch.uint8, device=device)
+    t_hit = torch.empty((H, W), dtype=torch.int32, device=device)
+    near = torch.empty((H, W, 3), dtype=torch.float32, device=device) if with_near else None
+    return found, t_hit, near
+
+
+def _march_result(found, t_hit, near):
+    found = found.view(torch.bool)
+    return (found, t_hit) if near is None else (found, t_hit, near)
+
+
+def _bracket(t_hit, near) -> dict:
+    """The shade's bracket tensors that were given, by name."""
+    return {k: v for k, v in (("t_hit", t_hit), ("near", near)) if v is not None}
+
+
+def _check_shade_inputs(tensors: dict, found, t_hit, near):
+    """The shade's checks of ``found`` and of its bracket: ``near`` (H, W, 3)
+    float32, or without it ``t_hit`` (H, W) int32."""
+    if found.dtype != torch.bool or found.dim() != 2:
+        raise ValueError(f"found must be an (H, W) bool tensor, got "
+                         f"{tuple(found.shape)} {found.dtype}")
+    if near is not None:
+        check_image(tensors, found.shape, torch.float32, ("near",), (3,))
+    elif t_hit is None:
+        raise ValueError("the shade needs near (the march's with_near output) or t_hit")
+    else:
+        check_image(tensors, found.shape, torch.int32, ("t_hit",))
+    check_image(tensors, found.shape, torch.float32, ("entry_uv", "dir_step", "direction"),
+                (3,))
+
+
 def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                    hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                   wrap: str = "clamp", bound: IsoBound | None = None):
+                   wrap: str = "clamp", bound: IsoBound | None = None,
+                   with_near: bool = False):
     """March an (H, W) ray image through the 8-bit volume to the first upward
     crossing of ``iso`` (on the normalized [0, 1] scale).
 
@@ -135,9 +177,14 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
         it describes this volume, the caller answers for
         (``IsosurfacePlan.render`` checks it).
 
-    Returns (found (H, W) bool, t_hit (H, W) int32, -1 for a miss).  CUDA
-    tensors run the kernel and add one to ``iso_march_cuda.launches``; CPU
-    tensors run the plain version.
+      with_near: also return near (H, W, 3) float32, each hit's position at
+        its crossing (``entry_uv`` plus ``t_hit + 1`` additions of
+        ``dir_step``), the bracket :func:`iso_shade_cuda` takes; unspecified
+        for a miss (the kernel writes the hit rays' alone).
+
+    Returns (found (H, W) bool, t_hit (H, W) int32, -1 for a miss), and near
+    with ``with_near``.  CUDA tensors run the kernel and add one to
+    ``iso_march_cuda.launches``; CPU tensors run the plain version.
     """
     tensors = {"vol_u8": vol_u8, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit}
     check_tensors(tensors, "vol_u8")
@@ -150,26 +197,25 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
     grid = _grid(bound, iso, (X, Y, Z), wrap, vol_u8.device)
     if vol_u8.device.type == "cpu":
         return iso_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
-                               hit.to(torch.bool), iso, max_samples, wrap, bound)
+                               hit.to(torch.bool), iso, max_samples, wrap, bound, with_near)
     H, W = hit.shape
-    found = torch.empty((H, W), dtype=torch.uint8, device=vol_u8.device)
-    t_hit = torch.empty((H, W), dtype=torch.int32, device=vol_u8.device)
+    found, t_hit, near = _march_outputs(H, W, vol_u8.device, with_near)
     if H * W == 0:
-        return found.view(torch.bool), t_hit
+        return _march_result(found, t_hit, near)
     launch(_march_launcher, "iso_march", vol_u8.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), vol_u8.data_ptr(),
-           None if grid is None else grid.data_ptr(), H, W, X, Y, Z, max_samples,
-           int(wrap == "repeat"), float(iso), found.data_ptr(), t_hit.data_ptr())
+           _ptr(grid), H, W, X, Y, Z, max_samples, int(wrap == "repeat"), float(iso),
+           found.data_ptr(), t_hit.data_ptr(), _ptr(near))
     iso_march_cuda.launches += 1
-    return found.view(torch.bool), t_hit
+    return _march_result(found, t_hit, near)
 
 
 iso_march_cuda.launches = 0
 
 
 def iso_shade_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
-                   direction: torch.Tensor, found: torch.Tensor, t_hit: torch.Tensor,
-                   iso: float, wrap: str = "clamp"):
+                   direction: torch.Tensor, found: torch.Tensor, t_hit: torch.Tensor | None,
+                   iso: float, wrap: str = "clamp", near: torch.Tensor | None = None):
     """Shade the rays ``iso_march_cuda`` found: bisection, normal, Phong.
 
     Args:
@@ -177,25 +223,24 @@ def iso_shade_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
       entry_uv, dir_step, direction: (H, W, 3) float32; ``direction`` is the
         ray direction the headlight uses (``V = L = -direction``).
       found: (H, W) bool; t_hit: (H, W) int32, as the march returns them.
+      near: None, or (H, W, 3) float32, the march's ``with_near`` output:
+        the bracket is read from it (for the hit rays alone) and ``t_hit``
+        is not read, may be None.  Without it each hit rebuilds its bracket
+        by ``t_hit + 1`` additions; the image is the same bit for bit.
 
     Returns (H, W, 3) float32 rgb in [0, 1], white where ``found`` is unset.
     CUDA tensors run the kernel and add one to ``iso_shade_cuda.launches``;
     CPU tensors run the plain version.
     """
     tensors = {"vol_u8": vol_u8, "entry_uv": entry_uv, "dir_step": dir_step,
-               "direction": direction, "found": found, "t_hit": t_hit}
+               "direction": direction, "found": found, **_bracket(t_hit, near)}
     check_tensors(tensors, "vol_u8")
     check_volume(vol_u8)
-    if found.dtype != torch.bool or found.dim() != 2:
-        raise ValueError(f"found must be an (H, W) bool tensor, got "
-                         f"{tuple(found.shape)} {found.dtype}")
-    check_image(tensors, found.shape, torch.int32, ("t_hit",))
-    check_image(tensors, found.shape, torch.float32, ("entry_uv", "dir_step", "direction"),
-                (3,))
+    _check_shade_inputs(tensors, found, t_hit, near)
     _check_scalars(iso, wrap)
     if vol_u8.device.type == "cpu":
         return shade_hits(as_normalized_volume(vol_u8), entry_uv, dir_step, direction, found,
-                          t_hit, iso, wrap)
+                          t_hit, iso, wrap, near)
     H, W = found.shape
     Z, Y, X = vol_u8.shape
     rgb = torch.empty((H, W, 3), dtype=torch.float32, device=vol_u8.device)
@@ -203,7 +248,7 @@ def iso_shade_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
         return rgb
     launch(_shade_launcher, "iso_shade", vol_u8.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), direction.data_ptr(),
-           found.view(torch.uint8).data_ptr(), t_hit.data_ptr(), vol_u8.data_ptr(),
+           found.view(torch.uint8).data_ptr(), _ptr(t_hit), _ptr(near), vol_u8.data_ptr(),
            H, W, X, Y, Z, int(wrap == "repeat"), float(iso), rgb.data_ptr())
     iso_shade_cuda.launches += 1
     return rgb
@@ -213,7 +258,7 @@ iso_shade_cuda.launches = 0
 
 
 def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso,
-                      max_samples, wrap, bound):
+                      max_samples, wrap, bound, with_near):
     tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv,
                "dir_step": dir_step, "hit": hit}
     check_tensors(tensors, "pool")
@@ -226,35 +271,38 @@ def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso
     grid = _grid(bound, iso, dims, wrap, pool.device)
     if pool.device.type == "cpu":
         return iso_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv, dir_step,
-                               hit.to(torch.bool), iso, max_samples, bound=bound)
+                               hit.to(torch.bool), iso, max_samples, bound=bound,
+                               with_near=with_near)
     H, W = hit.shape
     X, Y, Z = dims
-    found = torch.empty((H, W), dtype=torch.uint8, device=pool.device)
-    t_hit = torch.empty((H, W), dtype=torch.int32, device=pool.device)
+    found, t_hit, near = _march_outputs(H, W, pool.device, with_near)
     if H * W == 0:
-        return found.view(torch.bool), t_hit
+        return _march_result(found, t_hit, near)
     launch(lambda: _pooled_march_launcher(fmt), "iso_march", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), pool.data_ptr(),
-           slab_map.data_ptr(), None if grid is None else grid.data_ptr(), H, W, X, Y, Z,
-           int(pool.shape[0]), max_samples, float(iso), found.data_ptr(), t_hit.data_ptr())
+           slab_map.data_ptr(), _ptr(grid), H, W, X, Y, Z,
+           int(pool.shape[0]), max_samples, float(iso), found.data_ptr(), t_hit.data_ptr(),
+           _ptr(near))
     wrapper.launches += 1
-    return found.view(torch.bool), t_hit
+    return _march_result(found, t_hit, near)
 
 
 def iso_march_pooled_narrow_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                  entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                  hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                                 wrap: str = "clamp", bound: IsoBound | None = None):
+                                 wrap: str = "clamp", bound: IsoBound | None = None,
+                                 with_near: bool = False):
     """B8: :func:`iso_march_cuda`'s march, sampling the narrow f32 slab pool
     (``build_slab_pool_narrow``) through its slab map.  Equal bit for bit to
     the dense march on the volume the pool was built from.  ``wrap`` must be
     "clamp"; ``bound``, as for :func:`iso_march_cuda`, describes this pool
-    (``IsosurfacePlan.render_pooled`` checks that it was bound from it).  Returns (found (H, W) bool, t_hit
-    (H, W) int32).  CUDA tensors run the kernel and add one to
-    ``iso_march_pooled_narrow_cuda.launches``; CPU tensors run the plain
-    version."""
+    (``IsosurfacePlan.render_pooled`` checks that it was bound from it).
+    Returns (found (H, W) bool, t_hit (H, W) int32), and with ``with_near``
+    near (H, W, 3) float32 as :func:`iso_march_cuda` does.  CUDA tensors run
+    the kernel and add one to ``iso_march_pooled_narrow_cuda.launches``; CPU
+    tensors run the plain version."""
     return _iso_march_pooled(iso_march_pooled_narrow_cuda, "narrow", pool, slab_map, entry_uv,
-                             dir_step, hit, iso, max_samples, wrap, bound)
+                             dir_step, hit, iso, max_samples, wrap, bound, with_near)
 
 
 iso_march_pooled_narrow_cuda.launches = 0
@@ -263,12 +311,13 @@ iso_march_pooled_narrow_cuda.launches = 0
 def iso_march_pooled_pair16_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                  entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                  hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                                 wrap: str = "clamp", bound: IsoBound | None = None):
+                                 wrap: str = "clamp", bound: IsoBound | None = None,
+                                 with_near: bool = False):
     """B9: as :func:`iso_march_pooled_narrow_cuda`, on the pair16 pool
     (``build_slab_pool``); adds one to ``iso_march_pooled_pair16_cuda.launches``
     per kernel launch."""
     return _iso_march_pooled(iso_march_pooled_pair16_cuda, "pair16", pool, slab_map, entry_uv,
-                             dir_step, hit, iso, max_samples, wrap, bound)
+                             dir_step, hit, iso, max_samples, wrap, bound, with_near)
 
 
 iso_march_pooled_pair16_cuda.launches = 0
@@ -276,27 +325,25 @@ iso_march_pooled_pair16_cuda.launches = 0
 
 def iso_shade_pooled_cuda(pool: torch.Tensor, slab_map: torch.Tensor, entry_uv: torch.Tensor,
                           dir_step: torch.Tensor, direction: torch.Tensor, found: torch.Tensor,
-                          t_hit: torch.Tensor, iso: float, wrap: str = "clamp"):
+                          t_hit: torch.Tensor | None, iso: float, wrap: str = "clamp",
+                          near: torch.Tensor | None = None):
     """:func:`iso_shade_cuda`'s shade pass, sampling a slab pool of either
     format (the pool the pooled march read) through its slab map.  Equal
     bit for bit to the dense shade on the volume the pool was built from.
-    ``wrap`` must be "clamp".  CUDA tensors run the kernel and add one to
-    ``iso_shade_pooled_cuda.launches``; CPU tensors run the plain version."""
+    ``near`` as for :func:`iso_shade_cuda` (the pooled march's ``with_near``
+    output).  ``wrap`` must be "clamp".  CUDA tensors run the kernel and add
+    one to ``iso_shade_pooled_cuda.launches``; CPU tensors run the plain
+    version."""
     tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv, "dir_step": dir_step,
-               "direction": direction, "found": found, "t_hit": t_hit}
+               "direction": direction, "found": found, **_bracket(t_hit, near)}
     check_tensors(tensors, "pool")
     dims = pool_dims(pool, slab_map)
-    if found.dtype != torch.bool or found.dim() != 2:
-        raise ValueError(f"found must be an (H, W) bool tensor, got "
-                         f"{tuple(found.shape)} {found.dtype}")
-    check_image(tensors, found.shape, torch.int32, ("t_hit",))
-    check_image(tensors, found.shape, torch.float32, ("entry_uv", "dir_step", "direction"),
-                (3,))
+    _check_shade_inputs(tensors, found, t_hit, near)
     _check_scalars(iso, wrap)
     check_clamp(wrap, "the pooled marches")
     if pool.device.type == "cpu":
         return shade_hits(slab_pool_sampler(pool, slab_map, dims), entry_uv, dir_step,
-                          direction, found, t_hit, iso)
+                          direction, found, t_hit, iso, near=near)
     H, W = found.shape
     X, Y, Z = dims
     rgb = torch.empty((H, W, 3), dtype=torch.float32, device=pool.device)
@@ -305,7 +352,7 @@ def iso_shade_pooled_cuda(pool: torch.Tensor, slab_map: torch.Tensor, entry_uv: 
     fmt = "pair16" if pool.dtype == torch.int32 else "narrow"
     launch(lambda: _pooled_shade_launcher(fmt), "iso_shade", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), direction.data_ptr(),
-           found.view(torch.uint8).data_ptr(), t_hit.data_ptr(), pool.data_ptr(),
+           found.view(torch.uint8).data_ptr(), _ptr(t_hit), _ptr(near), pool.data_ptr(),
            slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), float(iso), rgb.data_ptr())
     iso_shade_pooled_cuda.launches += 1
     return rgb
@@ -409,10 +456,11 @@ class IsosurfacePlan:
         self._check_volume(volume)
         _grid(bound, iso_value, self.dims, self.wrap, data=(volume,))
         vol_u8 = quantize_u8(volume)
-        found, t_hit = iso_march_cuda(vol_u8, self.entry_uv, self.dir_step, self.hit,
-                                      iso_value, self.max_samples, self.wrap, bound)
+        found, t_hit, near = iso_march_cuda(vol_u8, self.entry_uv, self.dir_step, self.hit,
+                                            iso_value, self.max_samples, self.wrap, bound,
+                                            with_near=True)
         rgb = iso_shade_cuda(vol_u8, self.entry_uv, self.dir_step, self.direction, found, t_hit,
-                             iso_value, self.wrap)
+                             iso_value, self.wrap, near)
         return rgb, found
 
     def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
@@ -433,10 +481,10 @@ class IsosurfacePlan:
         _grid(bound, iso_value, dims, self.wrap, data=(pool, slab_map))
         march = (iso_march_pooled_pair16_cuda if pool.dtype == torch.int32
                  else iso_march_pooled_narrow_cuda)
-        found, t_hit = march(pool, slab_map, self.entry_uv, self.dir_step, self.hit, iso_value,
-                             self.max_samples, self.wrap, bound)
+        found, t_hit, near = march(pool, slab_map, self.entry_uv, self.dir_step, self.hit,
+                                   iso_value, self.max_samples, self.wrap, bound, with_near=True)
         rgb = iso_shade_pooled_cuda(pool, slab_map, self.entry_uv, self.dir_step,
-                                    self.direction, found, t_hit, iso_value, self.wrap)
+                                    self.direction, found, t_hit, iso_value, self.wrap, near)
         return rgb, found
 
 

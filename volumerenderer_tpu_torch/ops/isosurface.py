@@ -8,12 +8,14 @@ Counterpart of ``volumerenderer_tpu/ops/isosurface.py`` (the reference's
   300 steps, open-interval bounds exit) with the zero-crossing test
   ``(s - iso) < 0 && (s2 - iso) >= 0`` between the sample at ``pos`` and the
   lookahead at ``pos + dir_step``.  It returns ``found`` and ``t_hit = i - 1``
-  for a crossing at step ``i`` (-1 for a miss);
+  for a crossing at step ``i`` (-1 for a miss), and with ``with_near`` the
+  position ``pos_i`` it held there;
 * :func:`shade_hits` (kernel ``csrc/iso_shade.cu``): the bracket
-  ``[pos_i, pos_i + dir_step]`` rebuilt by ``t_hit + 1`` repeated additions,
-  a 4-step bisection, the ``DELTA = 0.01`` central-difference normal and the
-  headlight Phong term (specular power 250, diffuse (0.39, 0.58, 0.93)),
-  clipped to [0, 1]; missed rays are white.
+  ``[pos_i, pos_i + dir_step]``, ``pos_i`` as the march returned it or
+  rebuilt by ``t_hit + 1`` repeated additions, a 4-step bisection, the
+  ``DELTA = 0.01`` central-difference normal and the headlight Phong term
+  (specular power 250, diffuse (0.39, 0.58, 0.93)), clipped to [0, 1];
+  missed rays are white.
 
 An :class:`IsoBound` (``iso_block_grid``, ``iso_grid_from_pool``,
 ``iso_grid_from_mip8``) lets the march skip exactly: per 8^3 block of tap
@@ -268,7 +270,8 @@ def classify_blocks(bound: IsoBound, uvw: torch.Tensor):
 
 def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                     hit: torch.Tensor, iso, max_samples: int = MAX_SAMPLES,
-                    wrap: str = "clamp", bound: IsoBound | None = None):
+                    wrap: str = "clamp", bound: IsoBound | None = None,
+                    with_near: bool = False):
     """March rays through ``volume`` (Z, Y, X float32 in [0,1]) to the first
     upward crossing of ``iso``.  ``volume`` may also be a sampler
     (``ops/sampling.py::as_sampler``); ``wrap`` then does not apply.
@@ -283,8 +286,12 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
         of iso is carried: the result is the same bit for bit.
 
     Returns (found (...) bool, t_hit (...) int32): a crossing at step ``i``
-    (1-based) gives ``t_hit = i - 1``; a miss gives -1.  Stops once every ray
-    has hit or left the cube (the result is the same as marching on).
+    (1-based) gives ``t_hit = i - 1``; a miss gives -1.  With ``with_near``
+    also near (..., 3) float32: for a hit the position at the crossing,
+    ``entry_uv`` plus ``t_hit + 1`` repeated additions of ``dir_step`` (the
+    bracket :func:`shade_hits` bisects), for a miss ``entry_uv``.  Stops once
+    every ray has hit or left the cube (the result is the same as marching
+    on).
     """
     if bound is not None:
         Z, Y, X = volume.shape if isinstance(volume, torch.Tensor) else (None,) * 3
@@ -306,7 +313,7 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
             side[mixed] = (sample(uvw[mixed]) - iso) < 0.0
         return side
 
-    pos = entry_uv
+    pos = near = entry_uv
     was_below = None
     for i in range(1, max_samples + 1):
         if not bool(alive.any()):
@@ -319,27 +326,35 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
         is_below = below(pos + dir_step, alive)
         crossing = alive & was_below & ~is_below
         t_hit = torch.where(crossing, i - 1, t_hit)
+        if with_near:
+            near = torch.where(crossing[..., None], pos, near)
         found = found | crossing
         alive = alive & ~crossing
         was_below = is_below
-    return found, t_hit
+    return (found, t_hit, near) if with_near else (found, t_hit)
 
 
 def shade_hits(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
-               direction: torch.Tensor, found: torch.Tensor, t_hit: torch.Tensor, iso,
-               wrap: str = "clamp"):
+               direction: torch.Tensor, found: torch.Tensor, t_hit: torch.Tensor | None, iso,
+               wrap: str = "clamp", near: torch.Tensor | None = None):
     """Shade the rays the march found: bisection in the bracket
     ``[near, near + dir_step]`` with ``near`` = ``t_hit + 1`` additions of
     ``dir_step`` to ``entry_uv``, the central-difference normal and the
     headlight Phong term with ``V = -direction``, clipped to [0, 1].  Returns
     (..., 3) rgb; rays without ``found`` are white.  ``volume`` is a volume
     tensor or a sampler (``ops/sampling.py::as_sampler``), as JAX's
-    ``_shade_impl`` is generic in its sampler."""
+    ``_shade_impl`` is generic in its sampler.  Given ``near`` (the march's,
+    ``iso_march_steps(..., with_near=True)``; read for the hit rays alone),
+    the bracket is taken from it and ``t_hit`` is not read: the same result,
+    with no additions repeated."""
     found = found.to(torch.bool)
-    n_add = torch.where(found, t_hit.to(torch.int64) + 1, 0)
-    near = entry_uv
-    for k in range(1, int(n_add.max()) + 1 if n_add.numel() else 1):
-        near = torch.where((n_add >= k)[..., None], near + dir_step, near)
+    if near is not None:
+        near = torch.where(found[..., None], near, entry_uv)
+    else:
+        n_add = torch.where(found, t_hit.to(torch.int64) + 1, 0)
+        near = entry_uv
+        for k in range(1, int(n_add.max()) + 1 if n_add.numel() else 1):
+            near = torch.where((n_add >= k)[..., None], near + dir_step, near)
     tc = bisection_refine(volume, near, near + dir_step, iso, wrap=wrap)
     N = gradient_normal(volume, tc, wrap=wrap)
     V = -direction
@@ -354,6 +369,8 @@ def render_isosurface(volume: torch.Tensor, entry_uv: torch.Tensor, direction: t
     (...) bool); non-hit pixels are white."""
     Z, Y, X = volume.shape
     dir_step = direction * step_sizes((X, Y, Z), direction.device)
-    found, t_hit = iso_march_steps(volume, entry_uv, dir_step, hit, iso_value, max_samples, wrap)
-    rgb = shade_hits(volume, entry_uv, dir_step, direction, found, t_hit, iso_value, wrap)
+    found, _, near = iso_march_steps(volume, entry_uv, dir_step, hit, iso_value, max_samples,
+                                     wrap, with_near=True)
+    rgb = shade_hits(volume, entry_uv, dir_step, direction, found, None, iso_value, wrap,
+                     near=near)
     return rgb, found
