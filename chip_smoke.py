@@ -28,6 +28,16 @@ calls:
   pooled marches (B7 compositing; B8 and the pooled shade for the
   isosurface), plus ``render_pooled`` on the dense turbulence's pools for
   the pooled metrics (B6, B7, B8, B9);
+* the compositing bind, over the same orbit on the turbulence, a sphere
+  and the turbulence dimmed to 2 %: ``CompositingPlan.bind`` (once per
+  data) -> ``render(..., bound=)`` / ``render_pooled(..., bound=)`` (B1, B6
+  and B7 skipping the samples of empty blocks exactly); then
+  ``make_plan(skip_empty=True)`` against ``skip_empty=False`` in both modes,
+  and ``render_isosurface_kernel``'s one-shot bind;
+* compressed-domain fine-tuning on orbit frame 0:
+  ``CompressedRenderer.diff_decoder`` -> ``make_render_tf_voxel`` (B4, B5)
+  -> MSE -> gradients of the tree's Δ map and leaf scalars; and the
+  mid-range codec, ``codecs.midrange.build`` -> ``CompressedRenderer``;
 * the sharded layouts, over the same orbit, the shards spread round-robin
   over the host's cards: ``make_z_mesh(4)`` / ``make_brick_mesh((2, 2, 1))``
   -> ``shard_volume`` -> ``render_zsharded_kernel`` /
@@ -53,6 +63,7 @@ iso_main_path, iso_timing, iso_layers, iso_launch_count, then tf_parity,
 vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
 vg_tile, grad_launch_count, then codec, decode, pools, pooled_parity,
 pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
+then composite_bind (one per field), skip_empty, diff_finetune, midrange,
 then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
 sharded_timing, seg_starts, sharded_layers, sharded_launch_count).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
@@ -163,6 +174,11 @@ TRILINEAR_OPS, ISO_CLASSIFY_OPS = 41, 9
 ISO_GATHERED_OPS = OPS_PER_STEP["iso"] + ISO_CLASSIFY_OPS
 ISO_SKIPPED_OPS = OPS_PER_STEP["iso"] - TRILINEAR_OPS + ISO_CLASSIFY_OPS
 SHADE_OPS_PER_HIT = 3 + 4 * 47 + 6 * 44 + 60
+# a bound compositing march (CompositingPlan.bind) classifies every sample's
+# block as the bound iso march does: a gathered sample costs its unbound
+# step and the classification, a skipped one the position step and it
+BIND_CLASSIFY_OPS = ISO_CLASSIFY_OPS
+COMP_SKIPPED_OPS = 3 + BIND_CLASSIFY_OPS
 
 
 def emit(obj) -> None:
@@ -297,13 +313,17 @@ def pool_tap_words(pos: torch.Tensor, dims, pool: torch.Tensor, slab_map: torch.
 
 
 def composite_samples(plan, vol_plain, K: float = 0.6, touched: torch.Tensor | None = None,
-                      pools: tuple = ()):
+                      pools: tuple = (), cbound=None, skipped: torch.Tensor | None = None):
     """Per-ray samples of the compositing march with its a > 0.99 early-out
     (B1; B4 and B5 at alpha scale ``K``), counted by its plain arithmetic.
     With ``touched`` (a flat bool tensor of the volume's voxels) every voxel
     a sample's taps read is set in it; for each (mask, pool, slab_map) of
     ``pools`` every pool word the pooled march (B6, B7) fetches for those
-    samples is set in the mask, a flat bool tensor of the pool's words."""
+    samples is set in the mask, a flat bool tensor of the pool's words.
+    With a CompositeBound ``cbound`` the samples of empty blocks are not
+    gathered: they set nothing in the masks, and each is counted in
+    ``skipped`` (H, W), if given."""
+    from volumerenderer_tpu_torch.ops.raycast import empty_blocks
     from volumerenderer_tpu_torch.ops.sampling import sample_trilinear
 
     pos, alive = plan.entry_uv, plan.hit.bool()
@@ -317,10 +337,13 @@ def composite_samples(plan, vol_plain, K: float = 0.6, touched: torch.Tensor | N
         s = sample_trilinear(vol_plain, pos)
         alpha = torch.where(alive, alpha + (s - s * alpha) * K, alpha)
         n = n + alive
+        gather = alive if cbound is None else alive & ~empty_blocks(cbound, pos)
+        if skipped is not None:
+            skipped += alive & ~gather
         if touched is not None:
-            touched[tap_indices(pos[alive], plan.dims)] = True
+            touched[tap_indices(pos[gather], plan.dims)] = True
         for mask, pool, slab_map in pools:
-            mask[pool_tap_words(pos[alive], plan.dims, pool, slab_map)] = True
+            mask[pool_tap_words(pos[gather], plan.dims, pool, slab_map)] = True
         alive = alive & (alpha <= 0.99)
     return n
 
@@ -1187,7 +1210,8 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
 
 def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                    samples: float) -> list:
-    """The compressed-domain phases; returns the kernels line's five entries.
+    """The compressed-domain phases; returns the kernels line's five entries,
+    the tree and the volume it was built from.
     ``dense`` holds the kernels line's entries of B1, B2 and B3: each pooled
     kernel's output, and so its samples, are its dense kernel's; ``samples``
     is B1's per launch over the orbit."""
@@ -1617,7 +1641,346 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                           "gathered_per_ray": iso["gathered_per_ray"]})
     return [{"name": n, "route": "cuda", "source": POOLED_SOURCES[n],
              "replaces": POOLED_REPLACES[n], "launches": launches[n], "max_abs_err": err[n],
-             "ms": ms[n], "plain_ms": plain_ms[n], **bounds[n]} for n in names]
+             "ms": ms[n], "plain_ms": plain_ms[n], **bounds[n]} for n in names], tree, source
+
+
+def run_composite_bind(dev, smi: str, turb, sphere, bundles) -> list:
+    """``CompositingPlan.bind`` over the orbit on three fields: the
+    turbulence, the sphere (its outside empty) and the turbulence dimmed to
+    2 % (deep rays).  B1 (the float32 volume, the transfer in its epilogue,
+    as ``render`` launches it), B6 and B7 (``render_pooled``), each bound
+    from its own data, bit-equal on every frame to the unbound kernel and to
+    the bound plain march; their times bound and unbound, the bind's cost,
+    the samples gathered and skipped.  Returns the kernels line's three
+    bound entries (their numbers the sphere's, every field's beside)."""
+    from volumerenderer_tpu_torch import as_normalized_volume
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.raycast import (apply_reference_transfer,
+                                                      composite_march_steps)
+    from volumerenderer_tpu_torch.ops.sampling import slab_pool_sampler
+
+    plans = [RK.CompositingPlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+    p0 = plans[0]
+    wrappers = {"composite_march": RK.composite_march_f32_cuda,
+                "composite_march_pooled_narrow": RK.composite_march_pooled_narrow_cuda,
+                "composite_march_pooled_pair16": RK.composite_march_pooled_pair16_cuda}
+    fields = {"turbulence": turb, "sphere": sphere, "dim2": turb * 0.02}
+    data, bounds = {}, {}
+    for fname, vol in fields.items():
+        u8 = RK.quantize_u8(vol)
+        data[fname] = {"composite_march": (vol,),
+                       "composite_march_pooled_narrow": RK.build_slab_pool_narrow(u8),
+                       "composite_march_pooled_pair16": RK.build_slab_pool(u8)}
+        bounds[fname] = {"composite_march": p0.bind(vol)}
+        bounds[fname].update({n: p0.bind(pool=data[fname][n]) for n in wrappers
+                              if n != "composite_march"})
+
+    def launch(fname, name, p, bound):
+        # the kernel as render and render_pooled launch it; with a bound, the
+        # bound instantiation whether or not its grid holds an empty block
+        return wrappers[name](*data[fname][name], p.entry_uv, p.dir_step, p.hit, p.max_samples,
+                              p.wrap, transfer=True, bound=bound)
+
+    # the bound path, as a user drives it, on the sphere (whose grid holds
+    # empty blocks, so render marches bound): one bind per data, shared by
+    # the 16 plans, then render(..., bound=) / render_pooled over the orbit
+    if not all(b.has_empty for b in bounds["sphere"].values()):
+        raise AssertionError("the sphere's grid holds no empty block")
+    for w in wrappers.values():
+        w.launches = 0
+    renders = dict.fromkeys(wrappers, 0)
+    for name in wrappers:
+        for p in plans:
+            if name == "composite_march":
+                p.render(*data["sphere"][name], bound=bounds["sphere"][name])
+            else:
+                p.render_pooled(*data["sphere"][name], bound=bounds["sphere"][name])
+            renders[name] += 1
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    if launches != renders:
+        raise AssertionError(f"bound compositing path: launches {launches}, renders {renders}")
+
+    per_field = {n: {} for n in wrappers}
+    err = dict.fromkeys(wrappers, 0.0)
+    for fname, vol in fields.items():
+        u8 = RK.quantize_u8(vol)
+        vol_plain = as_normalized_volume(u8)
+        cb = bounds[fname]["composite_march"]
+        # bit for bit on every frame: bound = unbound = the bound plain march;
+        # the bound plain pooled march (the pool sampler) on frames 0 and 15
+        n_equal = 0
+        for i, p in enumerate(plans):
+            args = (p.entry_uv, p.dir_step, p.hit.bool(), p.max_samples)
+            c, a = composite_march_steps(vol_plain, *args, bound=cb)
+            plain = (apply_reference_transfer(c, a), a)
+            if i in (0, N_FRAMES - 1):
+                for name in ("composite_march_pooled_narrow", "composite_march_pooled_pair16"):
+                    sampler = slab_pool_sampler(*data[fname][name], p.dims)
+                    cp, ap = composite_march_steps(sampler, *args, bound=bounds[fname][name])
+                    if not (torch.equal(cp, c) and torch.equal(ap, a)):
+                        raise AssertionError(f"bound plain pooled march {name} on {fname} frame "
+                                             f"{i} differs from the bound plain march")
+            rendered = p.render(vol, bound=cb)
+            for name in wrappers:
+                got = launch(fname, name, p, bounds[fname][name])
+                unbound = launch(fname, name, p, None)
+                if not all(torch.equal(x, y) and torch.equal(x, z) and torch.equal(x, r)
+                           for x, y, z, r in zip(got, unbound, plain, rendered)):
+                    raise AssertionError(f"bound {name} on {fname} frame {i}: not bit-equal to "
+                                         f"the unbound kernel and the bound plain march")
+                err[name] = max(err[name], float((got[0] - plain[0]).abs().max()),
+                                float((got[1] - plain[1]).abs().max()))
+                n_equal += 1
+        # the bind's cost, from each source, and the samples gathered and
+        # skipped (every plan's; each pooled grid is the volume's, checked)
+        for name in wrappers:
+            if not torch.equal(bounds[fname][name].grid, cb.grid):
+                raise AssertionError(f"{name}'s grid on {fname} is not the volume's")
+        bind_ms = {"volume": time_ms(lambda: p0.bind(vol)),
+                   "volume_mip8": time_ms(lambda: p0.bind(vol, mip8=RK.block_max8(vol))),
+                   "pool_narrow": time_ms(lambda: p0.bind(
+                       pool=data[fname]["composite_march_pooled_narrow"])),
+                   "pool_pair16": time_ms(lambda: p0.bind(
+                       pool=data[fname]["composite_march_pooled_pair16"]))}
+        skipped = torch.zeros(p0.shape, device=dev)
+        samples = 0.0
+        touched = torch.zeros(vol.numel(), dtype=torch.bool, device=dev)
+        words = {n: torch.zeros(data[fname][n][0].numel(), dtype=torch.bool, device=dev)
+                 for n in wrappers if n != "composite_march"}
+        touched_all = 0.0
+        words_all = dict.fromkeys(words, 0.0)
+        for p in plans:
+            touched.zero_()
+            for m in words.values():
+                m.zero_()
+            n = composite_samples(p, vol_plain, touched=touched,
+                                  pools=[(words[k], *data[fname][k]) for k in words],
+                                  cbound=cb, skipped=skipped)
+            samples += float(n.sum()) / N_FRAMES
+            touched_all += float(touched.sum()) / N_FRAMES
+            for k in words:
+                words_all[k] += float(words[k].sum()) / N_FRAMES
+        n_skipped = float(skipped.sum()) / N_FRAMES
+        gathered = samples - n_skipped
+        rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
+        out_io = rays_io + RGBA_BYTES * W * H + nbytes(cb.grid)
+        for name in wrappers:
+            f32 = name == "composite_march"
+            step = OPS_PER_STEP["composite_f32" if f32 else "composite"]
+            ops = gathered * (step + BIND_CLASSIFY_OPS) + n_skipped * COMP_SKIPPED_OPS \
+                + TRANSFER_OPS_PER_RAY * W * H
+            read = 4 * touched_all if f32 else \
+                words_all[name] * data[fname][name][0].element_size() \
+                + nbytes(data[fname][name][1])
+            ms_b = time_ms(lambda: [launch(fname, name, p, bounds[fname][name])
+                                    for p in plans]) / N_FRAMES
+            ms_u = time_ms(lambda: [launch(fname, name, p, None) for p in plans]) / N_FRAMES
+            per_field[name][fname] = {
+                "ms_bound": ms_b, "ms_unbound": ms_u, "bound_over_unbound": ms_b / ms_u,
+                **bound(read + out_io, ops, samples, W * H),
+                "samples_per_ray": samples / (W * H), "gathered_per_ray": gathered / (W * H),
+                "skipped_per_ray": n_skipped / (W * H),
+                "empty_block_share": float((cb.grid[..., 1] == 0).float().mean()),
+                "frames_bit_equal": n_equal // len(wrappers)}
+        # the bound plain marches on frame 0: B1's on the volume, B6's and
+        # B7's through the pool sampler of their pool
+        args0 = (p0.entry_uv, p0.dir_step, p0.hit.bool(), p0.max_samples)
+        for name in wrappers:
+            sampler = vol_plain if name == "composite_march" else \
+                slab_pool_sampler(*data[fname][name], p0.dims)
+            per_field[name][fname]["plain_bound_ms_frame0"] = time_ms(
+                lambda: composite_march_steps(sampler, *args0, bound=bounds[fname][name]),
+                reps=1)
+        emit({"phase": "composite_bind", "volume": fname, "frames": N_FRAMES,
+              "bind_ms": bind_ms, "empty_block_share": per_field["composite_march"][fname][
+                  "empty_block_share"], "render_marches_bound": cb.has_empty,
+              "samples_per_ray": samples / (W * H), "skipped_per_ray": n_skipped / (W * H),
+              "ms_per_launch": {n: {k: per_field[n][fname][k]
+                                    for k in ("ms_bound", "ms_unbound", "bound_ms")}
+                                for n in wrappers},
+              "bit_equal_frames": n_equal // len(wrappers), "gpu": smi})
+    return [{"name": f"{name}_bound", "route": "cuda", "source": KERNEL_SOURCE,
+             "replaces": REPLACES if name == "composite_march" else POOLED_REPLACES[name],
+             "launches": launches[name], "max_abs_err": err[name],
+             "ms": per_field[name]["sphere"]["ms_bound"],
+             "plain_ms": per_field[name]["sphere"]["plain_bound_ms_frame0"],
+             **{k: per_field[name]["sphere"][k] for k in ("bound_ms", "bound_by", "library_ms",
+                                                           "bytes", "ops", "samples_per_ray")},
+             "field": "sphere", "per_field": per_field[name]} for name in wrappers]
+
+
+def run_skip_empty(dev, smi: str, tree, turb, bundles) -> None:
+    """``CompressedRenderer.make_plan``'s ``skip_empty`` on the smoke's tree:
+    each mode's plan with and without the bind, pooled and dense, every
+    orbit frame equal; plan and frame times.  The isosurface's two bind
+    sources on the pooled plan (its pool's bytes, which ``make_plan`` takes,
+    and the tree's mip8), and ``render_isosurface_kernel``'s one-shot bind
+    against no bind on the turbulence at its median (its default)."""
+    from volumerenderer_tpu_torch.models import CompressedRenderer
+    from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
+
+    ren = CompressedRenderer(tree, dev)
+    iso_cut = IK.volume_median(ren.volume_at())
+    out = {}
+    for mode in ("compositing", "isosurface"):
+        for pooled in (False, True):
+            kw = dict(mode=mode, iso_value=iso_cut, pooled=pooled)
+            frames = {}
+            plan_ms = {}
+            for skip in (True, False):
+                ren.make_plan(bundles[0], skip_empty=skip, **kw)  # pools and mip built once
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frames[skip] = [ren.make_plan(r, skip_empty=skip, **kw) for r in bundles]
+                torch.cuda.synchronize()
+                plan_ms[skip] = 1e3 * (time.perf_counter() - t0) / N_FRAMES
+            for fb, fu in zip(frames[True], frames[False]):
+                got, want = fb(), fu()
+                if not all(torch.equal(x, y) for x, y in zip(got, want)) \
+                        or not bool(torch.isfinite(got[0]).all()):
+                    raise AssertionError(f"make_plan({mode}, pooled={pooled}): the bound frame "
+                                         f"differs from the unbound one")
+            out[f"{mode}_{'pooled' if pooled else 'dense'}"] = {
+                "plan_ms_bound": plan_ms[True], "plan_ms_unbound": plan_ms[False],
+                "frame_ms_bound": time_ms(lambda: [f() for f in frames[True]]) / N_FRAMES,
+                "frame_ms_unbound": time_ms(lambda: [f() for f in frames[False]]) / N_FRAMES,
+                "frames_equal": N_FRAMES}
+    # the pooled isosurface's bind sources: the pool's bytes (min and max
+    # gates) against the tree's mip8 (max gates only)
+    iplans = [IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+    pool, smap = ren.slab_pool_at(fmt="narrowf32")
+    mip = ren.mip8_at()
+    sources = {"pool": lambda: iplans[0].bind(iso_value=iso_cut, pool=(pool, smap)),
+               "mip8": lambda: iplans[0].bind(iso_value=iso_cut, pool=(pool, smap), mip8=mip)}
+    iso_bind = {}
+    for name, bind in sources.items():
+        b = bind()
+        iso_bind[name] = {
+            "bind_ms": time_ms(bind),
+            "frame_ms": time_ms(lambda: [p.render_pooled(pool, smap, iso_cut, bound=b)
+                                         for p in iplans]) / N_FRAMES}
+    iso_bind["unbound_frame_ms"] = time_ms(lambda: [p.render_pooled(pool, smap, iso_cut)
+                                                    for p in iplans]) / N_FRAMES
+    # render_isosurface_kernel: a bind inside every call against none
+    iso_med = IK.volume_median(turb)
+    r0 = bundles[0]
+    one_shot = {skip: time_ms(lambda: IK.render_isosurface_kernel(
+        turb, r0.entry_uv, r0.direction, r0.hit, iso_med, skip_empty=skip))
+        for skip in (True, False)}
+    a = IK.render_isosurface_kernel(turb, r0.entry_uv, r0.direction, r0.hit, iso_med,
+                                    skip_empty=True)
+    b = IK.render_isosurface_kernel(turb, r0.entry_uv, r0.direction, r0.hit, iso_med,
+                                    skip_empty=False)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("render_isosurface_kernel: skip_empty changed the image")
+    emit({"phase": "skip_empty", "iso_cut_median": iso_cut, "make_plan": out,
+          "iso_pooled_bind_sources": iso_bind,
+          "render_isosurface_kernel_ms": {"skip_empty": one_shot[True],
+                                          "no_bind": one_shot[False]},
+          "gpu": smi})
+
+
+def run_diff_finetune(dev, smi: str, tree, turb, bundles) -> None:
+    """A compressed-domain fine-tune step on the smoke's tree at 1024^2:
+    ``CompressedRenderer.diff_decoder`` -> ``make_render_tf_voxel`` (B4
+    forward, B5 backward) -> MSE against the source turbulence's image ->
+    gradients of the Δ map and the leaf scalars.  The forward at the tree's
+    own Δ map equals ``level_cut_device / 255`` bit for bit; the gradients
+    are finite; B4 and B5 launch once per step; the step and its layers are
+    timed by CUDA events."""
+    from volumerenderer_tpu_torch import TFParams
+    from volumerenderer_tpu_torch.codecs.device import level_cut_device
+    from volumerenderer_tpu_torch.models import CompressedRenderer
+    from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
+    from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
+    from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import CompositingPlan
+
+    ren = CompressedRenderer(tree, dev)
+    dec = ren.diff_decoder()
+    ref = level_cut_device(ren.dtree, ren.spec).to(torch.float32) / 255.0
+    if not torch.equal(dec(dec.dm0), ref):
+        raise AssertionError("DiffDecoder at dm0 differs from level_cut_device / 255")
+    r0 = bundles[0]
+    plan = CompositingPlan(r0.entry_uv, r0.direction, r0.hit, VOLUME[::-1])
+    f = VK.make_render_tf_voxel(plan)
+    params = TFParams.reference(dev)
+    target, _ = plan.render(turb)
+    dm = dec.dm0.clone().requires_grad_(True)
+    adj = dec.zero_leaf_adjust().requires_grad_(True)
+
+    def step():
+        rgb, _ = f(params, dec(dm, adj))
+        loss = torch.mean((rgb - target) ** 2)
+        return (loss, *torch.autograd.grad(loss, (dm, adj)))
+
+    step()
+    TK.tf_march_f32_cuda.launches = 0
+    VK.voxel_grad_cuda.launches = 0
+    loss, g_dm, g_adj = step()
+    torch.cuda.synchronize()
+    launches = {"tf_march_f32": TK.tf_march_f32_cuda.launches,
+                "voxel_grad": VK.voxel_grad_cuda.launches}
+    if launches != {"tf_march_f32": 1, "voxel_grad": 1}:
+        raise AssertionError(f"a fine-tune step launched {launches}; expected B4 and B5 once")
+    if not (bool(torch.isfinite(g_dm).all()) and bool(torch.isfinite(g_adj).all())
+            and float(g_adj.abs().sum()) > 0 and math.isfinite(float(loss.detach()))):
+        raise AssertionError("fine-tune step: the gradients are not finite or all zero")
+    vol = dec(dm, adj).detach().requires_grad_(True)
+    cot = torch.ones_like(vol)
+    layers = {
+        "step": time_ms(step),
+        "decode_forward": time_ms(lambda: dec(dm, adj)),
+        "decode_forward_backward": time_ms(lambda: torch.autograd.grad(dec(dm, adj), (dm, adj),
+                                                                       cot)),
+        "render_forward_b4": time_ms(lambda: f(params, vol.detach())),
+        "render_forward_backward_b4_b5": time_ms(lambda: torch.autograd.grad(
+            torch.mean((f(params, vol)[0] - target) ** 2), vol)),
+        "forward_frame": time_ms(lambda: plan.render(turb))}
+    emit({"phase": "diff_finetune", "shape": [H, W], "volume": list(VOLUME),
+          "cut_depth": dec.cut_depth, "leaves": dec.num_leaves, "loss": float(loss.detach()),
+          "forward_equal_to_level_cut_device": True,
+          "grad_dm_abs_sum": float(g_dm.abs().sum()),
+          "grad_leaf_adjust_abs_sum": float(g_adj.abs().sum()),
+          "launches_per_step": launches, "ms": layers,
+          "step_over_forward_frame": layers["step"] / layers["forward_frame"], "gpu": smi})
+
+
+def run_midrange(dev, smi: str, source, tree, bundles) -> None:
+    """The mid-range codec on the smoke's source: the host build (tolerance
+    and epochs of the codec phase), its midpoint channel equal to the codec
+    phase's ``KdTree`` array for array, the range channel decoded on the
+    card equal to the host's, and a pooled compositing frame through
+    ``CompressedRenderer(MidRangeTree)`` equal to the KdTree's."""
+    from volumerenderer_tpu_torch.codecs import device as CD
+    from volumerenderer_tpu_torch.codecs import midrange as MR
+    from volumerenderer_tpu_torch.models import CompressedRenderer
+
+    t0 = time.perf_counter()
+    mt = MR.build(source, tolerance=TREE_TOLERANCE, max_epochs=TREE_EPOCHS)
+    build_s = time.perf_counter() - t0
+    pairs = [(mt.mid.distance_map, tree.distance_map), (mt.mid.chain_codes, tree.chain_codes),
+             (mt.mid.leaf_recon, tree.leaf_recon), (mt.mid.leaf_truth, tree.leaf_truth),
+             *zip(mt.mid.level_codes, tree.level_codes)]
+    if mt.num_active_nodes != tree.num_active_nodes \
+            or not all(np.array_equal(a, b) for a, b in pairs):
+        raise AssertionError("the mid-range tree's midpoint channel differs from the KdTree")
+    _, rng_dev, spec = MR.to_device_pair(mt, dev)
+    t0 = time.perf_counter()
+    host_range = MR.level_cut_range(mt)
+    range_host_s = time.perf_counter() - t0
+    if not np.array_equal(CD.level_cut_device(rng_dev, spec).cpu().numpy(), host_range):
+        raise AssertionError("the range channel's device decode differs from the host's")
+    frame = CompressedRenderer(mt, dev).make_plan(bundles[0], pooled=True)()
+    want = CompressedRenderer(tree, dev).make_plan(bundles[0], pooled=True)()
+    if not all(torch.equal(x, y) for x, y in zip(frame, want)) \
+            or not bool(torch.isfinite(frame[0]).all()):
+        raise AssertionError("CompressedRenderer(MidRangeTree) differs from its KdTree's frame")
+    emit({"phase": "midrange", "volume": list(VOLUME), "tolerance": TREE_TOLERANCE,
+          "max_epochs": TREE_EPOCHS, "build_s": build_s, "num_active_nodes": mt.num_active_nodes,
+          "mid_equal_to_kdtree": True, "range_device_equal_to_host": True,
+          "range_level_cut_host_s": range_host_s,
+          "range_mean": float(host_range.mean()), "frame_equal_to_kdtree": True, "gpu": smi})
 
 
 def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
@@ -2243,11 +2606,17 @@ def main() -> int:
     iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles, adversarial)
     grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles, samples, touched,
                                  adversarial)
-    pooled_kernels = run_compressed(dev, smi, turb, sphere, cameras, bundles,
-                                    {k["name"]: k for k in (b1, *iso_kernels)}, samples)
+    pooled_kernels, tree, source = run_compressed(dev, smi, turb, sphere, cameras, bundles,
+                                                  {k["name"]: k for k in (b1, *iso_kernels)},
+                                                  samples)
+    bind_kernels = run_composite_bind(dev, smi, turb, sphere, bundles)
+    run_skip_empty(dev, smi, tree, turb, bundles)
+    run_diff_finetune(dev, smi, tree, turb, bundles)
+    run_midrange(dev, smi, source, tree, bundles)
     sharded_kernels = run_sharded(dev, smi, turb, sphere, cameras, bundles)
 
-    emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *sharded_kernels]})
+    emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *bind_kernels,
+                      *sharded_kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,7 +8,13 @@ turbulence (seed 0), min of 5 after a warm call, for the
 line.  Where the package has ``IsosurfacePlan.bind``, ``B2_bound`` (and
 ``B8_bound``, ``B9_bound`` from each pool) is the march with one bound of
 the volume and isovalue, which every plan shares (bound once, outside the
-timing).
+timing).  ``B1_fused_{sphere,dim2}`` and ``B6_rgb_*`` / ``B7_rgb_*`` are the
+compositing marches on a 256^3 sphere (its outside empty) and on the
+turbulence dimmed to 2 %; where the package has ``CompositingPlan.bind``,
+``*_bound*`` are the bound kernels, one bound of each data (B1 from the
+volume, B6 and B7 from their pool), launched by their wrappers as render
+launches them (render itself marches unbound where a grid has no empty
+block), and ``digests`` holds every one's (rgb, alpha) over the orbit.
 
 Where the package's isosurface march returns the near bracket
 (``with_near``), ``B2``, ``B8``, ``B9`` (and their ``_bound``) are timed as
@@ -60,7 +66,7 @@ import torch  # noqa: E402
 
 from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays  # noqa
 from volumerenderer_tpu_torch.diff import closed_form as CF  # noqa: E402
-from volumerenderer_tpu_torch.io.synthetic import turbulence_volume  # noqa: E402
+from volumerenderer_tpu_torch.io.synthetic import sphere_volume, turbulence_volume  # noqa: E402
 from volumerenderer_tpu_torch.models import plan_compositing  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK  # noqa: E402
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK  # noqa: E402
@@ -245,6 +251,38 @@ if has_bind:
                 pool, smap, p.entry_uv, p.dir_step, p.hit, iso, bound=pb) for p in iplans]) / 16
         ms[f"pooled_iso_frame_{fmt}"] = time_ms(lambda: [p.render_pooled(pool, smap, iso)
                                                          for p in iplans]) / 16
+
+# the compositing marches as render and render_pooled launch them on the
+# turbulence, on a sphere whose outside is empty and on the turbulence dimmed
+# to 2 %; where the package has CompositingPlan.bind, bound (one bind of
+# each data, shared by every plan) beside unbound
+has_cbind = hasattr(RK.CompositingPlan, "bind")
+fields = {"turbulence": turb, "sphere": as_normalized_volume(
+    sphere_volume((256, 256, 256)), device=dev), "dim2": turb * 0.02}
+for fname, vol in fields.items():
+    sfx = "" if fname == "turbulence" else f"_{fname}"
+    vol_u8 = RK.quantize_u8(vol)
+    fpools = {"B6": RK.build_slab_pool_narrow(vol_u8), "B7": RK.build_slab_pool(vol_u8)}
+    if fname != "turbulence":
+        ms[f"B1_fused{sfx}"] = time_ms(lambda: [p.render(vol) for p in plans]) / 16
+        for b, pool in fpools.items():
+            ms[f"{b}_rgb{sfx}"] = time_ms(lambda: [p.render_pooled(*pool) for p in plans]) / 16
+    digests[f"B1_fused{sfx}"] = digest(*(x for p in plans for x in p.render(vol)))
+    for b, pool in fpools.items():
+        digests[f"{b}_rgb{sfx}"] = digest(*(x for p in plans for x in p.render_pooled(*pool)))
+    if has_cbind:  # the bound kernels, launched as render launches them
+        cb = plans[0].bind(vol)
+        marches = {"B1_fused": (RK.composite_march_f32_cuda, (vol,), cb),
+                   **{b: (pooled[fmt][0], fpools[b], plans[0].bind(pool=fpools[b]))
+                      for fmt, b in (("narrow", "B6"), ("pair16", "B7"))}}
+        for b, (march, data, bd) in marches.items():
+            name = f"{b}_bound{sfx}" if b == "B1_fused" else f"{b}_rgb_bound{sfx}"
+
+            def run(p, march=march, data=data, bd=bd):
+                return march(*data, p.entry_uv, p.dir_step, p.hit, transfer=True, bound=bd)
+
+            ms[name] = time_ms(lambda: [run(p) for p in plans]) / 16
+            digests[name] = digest(*(x for p in plans for x in run(p)))
 
 has_table = hasattr(KS, "shard_starts")
 meshes = {"z4": PC.make_z_mesh(4), "bricks221": PB.make_brick_mesh((2, 2, 1))}

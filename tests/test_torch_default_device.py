@@ -16,15 +16,21 @@ from volumerenderer_tpu_torch import (Camera, TFParams, as_normalized_volume, ge
 from volumerenderer_tpu_torch.camera import RayBundle
 from volumerenderer_tpu_torch.codecs import device as CD
 from volumerenderer_tpu_torch.codecs import kdtree as KT
+from volumerenderer_tpu_torch.codecs import midrange as MR
+from volumerenderer_tpu_torch.codecs.diff import DiffDecoder
 from volumerenderer_tpu_torch.models import CompressedRenderer, DenseRenderer
 from volumerenderer_tpu_torch.parallel import (bricks, context, make_brick_mesh, make_mesh,
                                                make_z_mesh, sharding)
 
 
-def _tree():
+def _tree_volume():
     v = np.zeros((8, 8, 8), np.uint8)
     v[2:6, 2:6, 2:6] = 200
-    return KT.build(v, tolerance=2, max_epochs=1)
+    return v
+
+
+def _tree():
+    return KT.build(_tree_volume(), tolerance=2, max_epochs=1)
 
 
 def _fields():
@@ -44,6 +50,9 @@ ENTRY_POINTS = {
         np.zeros((2, 2, 3)), np.ones((2, 2, 3)), np.ones((2, 2), bool))),
     "tf_params_from_numpy": (interop.tf_params_from_numpy,
                              lambda: interop.tf_params_from_numpy(**_fields())),
+    "DiffDecoder": (DiffDecoder.__init__, lambda: DiffDecoder(_tree()).dm0),
+    "to_device_pair": (MR.to_device_pair, lambda: MR.to_device_pair(
+        MR.build(_tree_volume(), tolerance=2, max_epochs=1))),
 }
 
 MESHES = {"make_mesh": lambda: make_mesh(2), "make_z_mesh": lambda: make_z_mesh(2),

@@ -60,6 +60,23 @@
 // alternatives).  Clamp only, as the TPU pooled plans: with GL_REPEAT the
 // last slab's z + 1 tap would wrap into slab 0.
 //
+// With a block grid (a CompositeBound of ops/raycast.py, CompositingPlan.bind:
+// per 8^3 block of tap anchors the largest byte its taps read, block_grid.cuh,
+// the cells iso_march.cu reads) the march skips exactly, as the TPU plan's
+// bind does with its occupancy word tables: a sample whose anchor block reads
+// only zero bytes is 0, and a zero sample composites as a no-op (pa = s - s*a
+// = 0), so it is not gathered.  Positions still advance by one addition per
+// step and the bounds test still runs, so the output is bit for bit the
+// unbound march's.  The test shares the sampler's texel math
+// (sample_unless): a skipped sample costs that math and one 2-byte load, a
+// taken one the load and its compare more than unbound.  Measured on an H100
+// and not kept: the test as its own texel computation before the sampler's
+// (a third more time on a field with no empty block, none saved on a sphere
+// whose outside is empty).  The
+// TPU grid's window reaches (raycast_kernel.py::expand_mip, occupancy_mip)
+// bound a DMA window's footprint; a per-sample lookup needs only the tight
+// per-anchor grid.
+//
 // Rounding: build with --fmad=false so every product and sum rounds on its
 // own, as in the PyTorch and JAX versions.  A fused multiply-add moves the
 // (0,1) bounds test and the 0.99 early-out by an ulp.  Literals are float
@@ -70,6 +87,7 @@
 
 #include <cuda_runtime.h>
 
+#include "block_grid.cuh"
 #include "trilinear.cuh"
 
 namespace {
@@ -79,12 +97,17 @@ constexpr int kBlockY = 8;
 
 // kRgb: the epilogue writes the displayed image, rgb (H, W, 3) = (1 - c,
 // 1 - c, 1) (ops/raycast.py::apply_reference_transfer, bit for bit), into
-// `out`, with alpha; otherwise `out` is the (H, W) color c.
-template <class Sampler, bool kRgb>
+// `out`, with alpha; otherwise `out` is the (H, W) color c.  Grid: NoGrid
+// (every sample is taken; the grid argument is empty and last, so this
+// instantiation is the march without a bound) or a BlockGrid
+// (block_grid.cuh): a sample whose anchor block reads only zero bytes is 0
+// and composites as a no-op, so it is not taken.
+template <class Sampler, bool kRgb, class Grid>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 composite_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
                        const uint8_t* __restrict__ hit, Sampler sample, int H, int W,
-                       int max_samples, float* __restrict__ out, float* __restrict__ alpha) {
+                       int max_samples, float* __restrict__ out, float* __restrict__ alpha,
+                       Grid grid) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= W || py >= H) return;
@@ -105,7 +128,14 @@ composite_march_kernel(const float* __restrict__ entry_uv, const float* __restri
       p2 = p2 + d2;
       if (!(p0 > 0.0f && p0 < 1.0f && p1 > 0.0f && p1 < 1.0f && p2 > 0.0f && p2 < 1.0f)) break;
 
-      const float s = sample(p0, p1, p2);
+      float s;
+      if constexpr (Grid::kBound) {
+        // in an empty block s = 0, and c and a stay as they are
+        const auto empty = [&](int x0, int y0, int z0) { return grid.empty_at(x0, y0, z0); };
+        if (!sample.sample_unless(p0, p1, p2, empty, s)) continue;
+      } else {
+        s = sample(p0, p1, p2);
+      }
       const float pa = s - s * a;
       c = c + pa * s;
       a = a + pa * 0.6f;
@@ -123,31 +153,48 @@ composite_march_kernel(const float* __restrict__ entry_uv, const float* __restri
   alpha[ray] = a;
 }
 
-template <class Sampler>
-int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample, int H,
-           int W, int max_samples, int rgb, void* out, void* alpha, void* stream) {
+template <class Sampler, class Grid>
+int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
+           Grid grid, int H, int W, int max_samples, int rgb, void* out, void* alpha,
+           void* stream) {
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+  const dim3 blocks((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto e = static_cast<const float*>(entry_uv);
   const auto d = static_cast<const float*>(dir_step);
   const auto h = static_cast<const uint8_t*>(hit);
   if (rgb) {
-    composite_march_kernel<Sampler, true><<<grid, block, 0, s>>>(
-        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha));
+    composite_march_kernel<Sampler, true, Grid><<<blocks, block, 0, s>>>(
+        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha),
+        grid);
   } else {
-    composite_march_kernel<Sampler, false><<<grid, block, 0, s>>>(
-        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha));
+    composite_march_kernel<Sampler, false, Grid><<<blocks, block, 0, s>>>(
+        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha),
+        grid);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The march with the block grid at `grid` (bound), or without one (null).
+template <class Sampler>
+int launch_grid(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
+                const void* grid, int X, int Y, int Z, bool repeat, int H, int W,
+                int max_samples, int rgb, void* out, void* alpha, void* stream) {
+  if (grid) {
+    return launch(entry_uv, dir_step, hit, sample, vrt::block_grid(grid, X, Y, Z, repeat), H, W,
+                  max_samples, rgb, out, alpha, stream);
+  }
+  return launch(entry_uv, dir_step, hit, sample, vrt::NoGrid{}, H, W, max_samples, rgb, out,
+                alpha, stream);
+}
+
 template <vrt::PoolFormat F>
 int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, const void* pool,
-                  const void* slab_map, int H, int W, int X, int Y, int Z, int n_slots,
-                  int max_samples, int rgb, void* out, void* alpha, void* stream) {
+                  const void* slab_map, const void* grid, int H, int W, int X, int Y, int Z,
+                  int n_slots, int max_samples, int rgb, void* out, void* alpha, void* stream) {
   return vrt::with_pool_sampler<F>(pool, slab_map, n_slots, X, Y, Z, [&](auto sample) {
-    return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, rgb, out, alpha, stream);
+    return launch_grid(entry_uv, dir_step, hit, sample, grid, X, Y, Z, false, H, W, max_samples,
+                       rgb, out, alpha, stream);
   });
 }
 
@@ -155,10 +202,11 @@ int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, c
 // the wrap and the offset type fixed at compile time in the kernel.
 template <class T>
 int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, const void* vol,
-                 int H, int W, int X, int Y, int Z, int max_samples, int repeat, int rgb,
-                 void* out, void* alpha, void* stream) {
+                 const void* grid, int H, int W, int X, int Y, int Z, int max_samples,
+                 int repeat, int rgb, void* out, void* alpha, void* stream) {
   return vrt::with_volume_sampler<T>(vol, X, Y, Z, repeat != 0, [&](auto sample) {
-    return launch(entry_uv, dir_step, hit, sample, H, W, max_samples, rgb, out, alpha, stream);
+    return launch_grid(entry_uv, dir_step, hit, sample, grid, X, Y, Z, repeat != 0, H, W,
+                       max_samples, rgb, out, alpha, stream);
   });
 }
 
@@ -167,50 +215,53 @@ int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, co
 // Each launch runs the march on `stream` for an H x W ray image and returns
 // cudaGetLastError() (0 on success).  Pointers are device pointers:
 // entry_uv and dir_step (H*W*3 f32), hit (H*W u8), alpha (H*W f32), and out:
-// the color (H*W f32), or with rgb != 0 the displayed image (H*W*3 f32).
+// the color (H*W f32), or with rgb != 0 the displayed image (H*W*3 f32);
+// grid is null (every sample is taken) or the block grid of the volume for
+// this wrap, ceil(Z/8)*ceil(Y/8)*ceil(X/8) pairs of u8 (least, largest).
 
 // B1: vol (Z*Y*X u8, x fastest); repeat != 0 selects GL_REPEAT wrapping.
 extern "C" int composite_march_launch(const void* entry_uv, const void* dir_step, const void* hit,
-                                      const void* vol, int H, int W, int X, int Y, int Z,
-                                      int max_samples, int repeat, int rgb, void* out,
-                                      void* alpha, void* stream) {
-  return launch_dense<uint8_t>(entry_uv, dir_step, hit, vol, H, W, X, Y, Z, max_samples, repeat,
-                               rgb, out, alpha, stream);
+                                      const void* vol, const void* grid, int H, int W, int X,
+                                      int Y, int Z, int max_samples, int repeat, int rgb,
+                                      void* out, void* alpha, void* stream) {
+  return launch_dense<uint8_t>(entry_uv, dir_step, hit, vol, grid, H, W, X, Y, Z, max_samples,
+                               repeat, rgb, out, alpha, stream);
 }
 
 // B1 on the float32 volume (Z*Y*X f32, x fastest), each tap quantized to 8
 // bits as it is read (trilinear.cuh, VolumeSampler<float>): bit for bit B1
 // on quantize_u8 of the volume, with no quantize pass before it.
 extern "C" int composite_march_f32_launch(const void* entry_uv, const void* dir_step,
-                                          const void* hit, const void* vol, int H, int W, int X,
-                                          int Y, int Z, int max_samples, int repeat, int rgb,
-                                          void* out, void* alpha, void* stream) {
-  return launch_dense<float>(entry_uv, dir_step, hit, vol, H, W, X, Y, Z, max_samples, repeat,
-                             rgb, out, alpha, stream);
+                                          const void* hit, const void* vol, const void* grid,
+                                          int H, int W, int X, int Y, int Z, int max_samples,
+                                          int repeat, int rgb, void* out, void* alpha,
+                                          void* stream) {
+  return launch_dense<float>(entry_uv, dir_step, hit, vol, grid, H, W, X, Y, Z, max_samples,
+                             repeat, rgb, out, alpha, stream);
 }
 
 // B6: pool (n_slots*16*Y*X f32 pair values), slab_map (Z/8 i32), clamp.
 extern "C" int composite_march_pooled_narrow_launch(const void* entry_uv, const void* dir_step,
                                                     const void* hit, const void* pool,
-                                                    const void* slab_map, int H, int W, int X,
-                                                    int Y, int Z, int n_slots, int max_samples,
-                                                    int rgb, void* out, void* alpha,
-                                                    void* stream) {
-  return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, hit, pool, slab_map, H,
-                                                    W, X, Y, Z, n_slots, max_samples, rgb, out,
-                                                    alpha, stream);
+                                                    const void* slab_map, const void* grid,
+                                                    int H, int W, int X, int Y, int Z,
+                                                    int n_slots, int max_samples, int rgb,
+                                                    void* out, void* alpha, void* stream) {
+  return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, hit, pool, slab_map,
+                                                    grid, H, W, X, Y, Z, n_slots, max_samples,
+                                                    rgb, out, alpha, stream);
 }
 
 // B7: pool (n_slots*16*Y*(X/2) i32 pair16 words), slab_map (Z/8 i32), clamp.
 extern "C" int composite_march_pooled_pair16_launch(const void* entry_uv, const void* dir_step,
                                                     const void* hit, const void* pool,
-                                                    const void* slab_map, int H, int W, int X,
-                                                    int Y, int Z, int n_slots, int max_samples,
-                                                    int rgb, void* out, void* alpha,
-                                                    void* stream) {
-  return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, hit, pool, slab_map, H, W,
-                                                 X, Y, Z, n_slots, max_samples, rgb, out, alpha,
-                                                 stream);
+                                                    const void* slab_map, const void* grid,
+                                                    int H, int W, int X, int Y, int Z,
+                                                    int n_slots, int max_samples, int rgb,
+                                                    void* out, void* alpha, void* stream) {
+  return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, hit, pool, slab_map, grid,
+                                                 H, W, X, Y, Z, n_slots, max_samples, rgb, out,
+                                                 alpha, stream);
 }
 
 extern "C" const char* composite_march_error_string(int code) {

@@ -34,7 +34,7 @@
 // lookahead carried so each step gathers once, and a thread leaves as soon
 // as its ray hits or exits.  With a block grid (an IsoBound
 // of ops/isosurface.py: per 8^3 block of tap anchors the least and largest
-// byte its taps read, 2 bytes a block, 64 KB at 256^3, read through __ldg)
+// byte its taps read, block_grid.cuh, shared with composite_march.cu)
 // the march skips exactly, as the TPU plan's bind does with its word tables.
 // The crossing test needs only each sample's side of iso.  A sample whose
 // anchor block lies wholly below iso (max + 0.5 < iso*255) or above it (min -
@@ -72,43 +72,15 @@
 
 #include <cuda_runtime.h>
 
+#include "block_grid.cuh"
 #include "trilinear.cuh"
 
 namespace {
 
+using vrt::BlockGrid;
+
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
-
-// The block grid: cells (nbz, nby, nbx) of 2 bytes, the least byte low and
-// the largest high; null for an unbound march.
-struct BlockGrid {
-  const uint16_t* cells;
-  int X, Y, Z, nbx, nby;
-  bool repeat;
-  // a block lies below iso iff its largest byte is under below_under (max +
-  // 0.5 < iso*255), above it iff its least byte is at least above_from (min -
-  // 0.5 >= iso*255): the float tests, counted once per launch
-  unsigned below_under, above_from;
-
-  // The side of iso of the block of the lower tap anchor of the sample at
-  // (u, v, w) (the anchor clamped or wrapped onto the volume): -1 every
-  // sample there is below iso, 1 none is, 0 mixed.
-  __device__ __forceinline__ int side(float u, float v, float w) const {
-    if (repeat) {
-      u = u - floorf(u);
-      v = v - floorf(v);
-      w = w - floorf(w);
-    }
-    float f;
-    const int bx = vrt::wrap_index(vrt::texel(u, X, f), X, repeat) >> 3;
-    const int by = vrt::wrap_index(vrt::texel(v, Y, f), Y, repeat) >> 3;
-    const int bz = vrt::wrap_index(vrt::texel(w, Z, f), Z, repeat) >> 3;
-    const unsigned bytes = __ldg(cells + (bz * nby + by) * nbx + bx);
-    if ((bytes >> 8) < below_under) return -1;
-    if ((bytes & 255u) >= above_from) return 1;
-    return 0;
-  }
-};
 
 template <bool kBound, bool kNear, class Sampler>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
@@ -174,8 +146,7 @@ int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler 
   unsigned below_under = 0, above_from = 0;
   while (below_under < 256 && static_cast<float>(below_under) + 0.5f < iso255) ++below_under;
   while (above_from < 256 && !(static_cast<float>(above_from) - 0.5f >= iso255)) ++above_from;
-  const BlockGrid cells{static_cast<const uint16_t*>(grid), X, Y, Z, (X + 7) / 8, (Y + 7) / 8,
-                        repeat, below_under, above_from};
+  const BlockGrid cells = vrt::block_grid(grid, X, Y, Z, repeat, below_under, above_from);
   auto* kernel = grid ? (near ? iso_march_kernel<true, true, Sampler>
                               : iso_march_kernel<true, false, Sampler>)
                      : (near ? iso_march_kernel<false, true, Sampler>

@@ -129,6 +129,38 @@ struct VolumeSampler {
   __device__ __forceinline__ float operator()(float u, float v, float w) const {
     return sample_trilinear<Offset>(vol, u, v, w, X, Y, Z, kRepeat);
   }
+
+  // operator()'s sample into s, unless skip(x0, y0, z0), asked with the
+  // sample's lower tap anchor wrapped onto the volume, holds: then no tap is
+  // read and false is returned.  One texel computation serves the skip test
+  // and the taps, with operator()'s arithmetic, so a sample taken is bit for
+  // bit operator()'s.  (operator() keeps its own copy, so that the marches
+  // without a skip compile as they do without this.)
+  template <class Skip>
+  __device__ __forceinline__ bool sample_unless(float u, float v, float w, Skip skip,
+                                                float& s) const {
+    if (kRepeat) {
+      u = u - floorf(u);
+      v = v - floorf(v);
+      w = w - floorf(w);
+    }
+    float fx, fy, fz;
+    const int i0x = texel(u, X, fx);
+    const int i0y = texel(v, Y, fy);
+    const int i0z = texel(w, Z, fz);
+    const int x0 = wrap_index(i0x, X, kRepeat);
+    const int y0 = wrap_index(i0y, Y, kRepeat);
+    const int z0 = wrap_index(i0z, Z, kRepeat);
+    if (skip(x0, y0, z0)) return false;
+    const Offset sx = 1;
+    const Offset sy = static_cast<Offset>(X);
+    const Offset sz = static_cast<Offset>(X) * static_cast<Offset>(Y);
+    s = gather_trilerp(vol, static_cast<Offset>(x0) * sx, wrapped(i0x + 1, X, kRepeat, sx),
+                       static_cast<Offset>(y0) * sy, wrapped(i0y + 1, Y, kRepeat, sy),
+                       static_cast<Offset>(z0) * sz, wrapped(i0z + 1, Z, kRepeat, sz), fx, fy,
+                       fz);
+    return true;
+  }
 };
 
 // Host side: returns launch(sampler) with the VolumeSampler of the dense
@@ -228,6 +260,33 @@ struct PoolSampler {
     const int y1 = wrap_index(i0y + 1, Y, false);
     const int z0 = wrap_index(i0z, Z, false);
     const int z1 = wrap_index(i0z + 1, Z, false);
+    return taps(i0x, x0, y0, y1, z0, z1, fx, fy, fz);
+  }
+
+  // operator()'s sample into s, unless skip(x0, y0, z0), asked with the
+  // sample's lower tap anchor clamped onto the volume, holds: then neither
+  // the slab map nor a tap is read and false is returned (as
+  // VolumeSampler::sample_unless).
+  template <class Skip>
+  __device__ __forceinline__ bool sample_unless(float u, float v, float w, Skip skip,
+                                                float& s) {
+    float fx, fy, fz;
+    const int i0x = texel(u, X, fx);
+    const int i0y = texel(v, Y, fy);
+    const int i0z = texel(w, Z, fz);
+    const int x0 = wrap_index(i0x, X, false);
+    const int y0 = wrap_index(i0y, Y, false);
+    const int z0 = wrap_index(i0z, Z, false);
+    if (skip(x0, y0, z0)) return false;
+    s = taps(i0x, x0, y0, wrap_index(i0y + 1, Y, false), z0, wrap_index(i0z + 1, Z, false), fx,
+             fy, fz);
+    return true;
+  }
+
+  // The sample from its anchor: x0, y0, z0 the lower taps clamped onto the
+  // volume, y1, z1 the upper ones, i0x the unclamped x anchor.
+  __device__ __forceinline__ float taps(int i0x, int x0, int y0, int y1, int z0, int z1,
+                                        float fx, float fy, float fz) {
     const int b = z0 >> 3;
     if (b != block) {
       const int slot = min(max(__ldg(slab_map + b), 0), n_slots - 1);

@@ -3,8 +3,9 @@
 The renderer's inputs play the part of a model's weights: a volume, a ray
 bundle, the transfer-function parameters and a compressed kd-tree.  A JAX
 run hands them over as numpy arrays (``np.asarray`` of its jax arrays) and
-its camera and tree as the fields of their dataclasses; these functions turn
-them into the port's tensors, ``Camera``, ``TFParams`` and ``KdTree``.
+its camera and trees as the fields of their dataclasses; these functions turn
+them into the port's tensors, ``Camera``, ``TFParams``, ``KdTree`` and
+``MidRangeTree``.
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ import dataclasses
 
 from .camera import Camera, RayBundle
 from .codecs.kdtree import KdTree
+from .codecs.midrange import MidRangeTree
 from .diff.transfer import TFParams
 from .ops.sampling import as_normalized_volume
 
 __all__ = ["volume_from_numpy", "rays_from_numpy", "camera_from_jax_fields",
-           "tf_params_from_numpy", "kdtree_from_numpy"]
+           "tf_params_from_numpy", "kdtree_from_numpy", "midrange_from_numpy"]
 
 
 def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
@@ -96,3 +98,27 @@ def kdtree_from_numpy(**fields) -> KdTree:
         num_active_nodes=int(fields["num_active_nodes"]),
         leaf_recon=copy(fields["leaf_recon"], np.int32),
         leaf_truth=copy(fields["leaf_truth"], np.uint8))
+
+
+def midrange_from_numpy(**fields) -> MidRangeTree:
+    """``midrange_from_numpy(**dataclasses.asdict(jax_tree))``: a JAX-built
+    ``MidRangeTree`` as the port's, its arrays copied.  ``mid`` is the
+    midpoint channel's fields as a dict (what ``dataclasses.asdict`` makes
+    of it; see :func:`kdtree_from_numpy`) or a port ``KdTree``.  Every field
+    is required; an unknown one raises ``TypeError``."""
+    names = {f.name for f in dataclasses.fields(MidRangeTree)}
+    if set(fields) != names:
+        raise TypeError(f"expected the fields {sorted(names)}, got {sorted(fields)}")
+    mid = fields["mid"]
+    if not isinstance(mid, KdTree):
+        mid = kdtree_from_numpy(**mid)
+
+    def copy(a, dtype):
+        return None if a is None else np.array(a, dtype=dtype)
+
+    return MidRangeTree(
+        mid=mid, range_distance_map=copy(fields["range_distance_map"], np.uint8),
+        range_level_codes=[copy(c, np.uint8) for c in fields["range_level_codes"]],
+        range_chain_codes=copy(fields["range_chain_codes"], np.uint8),
+        leaf_recon_range=copy(fields["leaf_recon_range"], np.int32),
+        leaf_truth_range=copy(fields["leaf_truth_range"], np.int32))

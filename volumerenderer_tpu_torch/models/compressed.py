@@ -15,12 +15,17 @@ Departures from the JAX class, on purpose:
   trees decode in chunks from the start, so the compile-temp blow-up that
   fallback worked around cannot happen, and a ``torch.cuda.OutOfMemoryError``,
   or any other error, propagates.
-* ``make_plan`` has no ``skip_empty`` argument: the exact empty-space skip
-  (``CompositingPlan.bind`` / ``IsosurfacePlan.bind``) is not ported, and a
-  pooled march reads slot 0 for an empty slab, which is exact.
-* Not ported yet: ``diff_decoder`` and the ``MidRangeTree`` input.  The
-  isosurface plan shades from the slab pool it marched, so there is no
+* ``make_plan(skip_empty=True)`` binds once, at plan time, as the JAX
+  method does, but not both modes from the tree's ``mip8``: compositing
+  binds from it (``CompositingPlan.bind(..., mip8=)``; the compositing skip
+  needs only block maxima), the isosurface from the data it renders, the
+  pool or the dense cut (``IsosurfacePlan.bind``): a max-only grid skips
+  only blocks wholly below the isovalue, and at the median that bound
+  march was slower than none on the card.  Every bound records the data it
+  was made from, so the plan's callable renders only that data.
+* The isosurface plan shades from the slab pool it marched, so there is no
   ``shade_pool_at``.
+* Not ported yet: the file I/O of the trees (``save``, ``open_tree``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from ..codecs.device import level_cut_device, to_device, tree_occupancy_mip8
 from ..codecs.kdtree import KdTree
+from ..codecs.midrange import MidRangeTree
 from ..ops.cuda.isosurface_kernel import IsosurfacePlan, render_isosurface_kernel
 from ..ops.cuda.raycast_kernel import (CompositingPlan, build_slab_pool,
                                        build_slab_pool_narrow, render_compositing_kernel)
@@ -66,17 +72,21 @@ class DenseRenderer:
 
 
 class CompressedRenderer:
-    """Render directly from a compressed :class:`~..codecs.kdtree.KdTree`.
+    """Render directly from a compressed :class:`~..codecs.kdtree.KdTree`,
+    or a :class:`~..codecs.midrange.MidRangeTree`, of which it renders the
+    midpoint channel (as the reference's ``levelCut`` decodes it,
+    ``MidRangeTree.cpp:984-1093``).
 
     ``device`` holds the packed tree and everything decoded from it.  A
     decoded cut (``volume_at``), its block maxima (``mip8_at``) and its slab
     pools (``slab_pool_at``) are cached per cut depth; progressive
     refinement is rendering coarser cuts first."""
 
-    def __init__(self, tree: KdTree, device: torch.device | str = "cuda"):
+    def __init__(self, tree: KdTree | MidRangeTree, device: torch.device | str = "cuda"):
+        if isinstance(tree, MidRangeTree):
+            tree = tree.mid
         if not isinstance(tree, KdTree):
-            raise TypeError(f"expected a KdTree, got {type(tree).__name__} (the MidRangeTree "
-                            f"input is not ported yet)")
+            raise TypeError(f"expected a KdTree or a MidRangeTree, got {type(tree).__name__}")
         self.tree = tree
         self.device = torch.device(device)
         self.dtree, self.spec = to_device(tree, self.device)
@@ -128,9 +138,18 @@ class CompressedRenderer:
         the kernels' entry points (B1, B2 and B3 on a CUDA device)."""
         return _render(self.volume_at(cut_depth), rays, mode, fast, **kwargs)
 
+    def diff_decoder(self, cut_depth: int | None = None):
+        """Differentiable view of this tree (``codecs/diff.py::DiffDecoder``)
+        on its device: ``dec(dm, leaf_adjust)`` -> (Z, Y, X) float32 volume
+        in [0, 1], its backward routing an image loss's gradient to the
+        per-depth Δ map and the per-leaf scalars."""
+        from ..codecs.diff import DiffDecoder
+
+        return DiffDecoder(self.dtree, self.spec, cut_depth=cut_depth)
+
     def make_plan(self, rays, cut_depth: int | None = None, mode: str = "compositing",
-                  iso_value: float = 40.0 / 255.0, max_samples: int = MAX_SAMPLES,
-                  pooled: bool = False):
+                  skip_empty: bool = True, iso_value: float = 40.0 / 255.0,
+                  max_samples: int = MAX_SAMPLES, pooled: bool = False):
         """Plan once, render many over this tree's cut: returns a
         zero-argument callable giving (rgb, alpha) for compositing or (rgb,
         found) for the isosurface.
@@ -140,7 +159,15 @@ class CompressedRenderer:
         Compositing marches the pair16 pool (B7), the isosurface the narrow
         f32 pool (B8, then the pooled shade), as the JAX package's grouped
         plans choose.  Outputs equal the dense plan's bit for bit.
-        ``pooled=False`` renders the cached dense cut through B1 (B2 and B3)."""
+        ``pooled=False`` renders the cached dense cut through B1 (B2 and B3).
+
+        ``skip_empty`` binds once, here, so every render skips exactly
+        (the outputs are the same): compositing from the tree's block
+        maxima (``mip8_at``, no pass over the data; a cut with no empty
+        block renders unbound, there being nothing to skip), the isosurface at
+        ``iso_value`` from the data it renders (``bind(pool=...)`` or
+        ``bind(volume)``: min/max gates, which skip blocks on either side of
+        the isovalue)."""
         X, Y, Z = self.spec["dims"]
         cut = self._cut(cut_depth)
         if mode == "compositing":
@@ -148,15 +175,26 @@ class CompressedRenderer:
                                    max_samples)
             if pooled:
                 pool, smap = self.slab_pool_at(cut, "pair16")
-                return lambda: plan.render_pooled(pool, smap)
-            vol = self.volume_at(cut)
-            return lambda: plan.render(vol)
+                bound = plan.bind(pool=(pool, smap), mip8=self.mip8_at(cut)) if skip_empty \
+                    else None
+            else:
+                vol = self.volume_at(cut)
+                bound = plan.bind(vol, mip8=self.mip8_at(cut)) if skip_empty else None
+            # a cut with data in every block has nothing to skip: its frames
+            # render as the unbound plan's, with no bound to check
+            if bound is not None and not bound.has_empty:
+                bound = None
+            if pooled:
+                return lambda: plan.render_pooled(pool, smap, bound=bound)
+            return lambda: plan.render(vol, bound=bound)
         if mode == "isosurface":
             plan = IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
                                   max_samples)
             if pooled:
                 pool, smap = self.slab_pool_at(cut, "narrowf32")
-                return lambda: plan.render_pooled(pool, smap, iso_value)
+                bound = plan.bind(iso_value=iso_value, pool=(pool, smap)) if skip_empty else None
+                return lambda: plan.render_pooled(pool, smap, iso_value, bound=bound)
             vol = self.volume_at(cut)
-            return lambda: plan.render(vol, iso_value)
+            bound = plan.bind(vol, iso_value) if skip_empty else None
+            return lambda: plan.render(vol, iso_value, bound=bound)
         raise ValueError(f"unknown mode {mode}")

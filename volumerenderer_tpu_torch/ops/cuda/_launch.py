@@ -40,6 +40,11 @@ def launch(launcher, name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
 
 
+def ptr(t):
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
 def check_tensors(tensors: dict, ref: str):
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):

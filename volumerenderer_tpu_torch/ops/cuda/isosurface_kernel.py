@@ -7,7 +7,8 @@ plan (``raycast_kernel.py``), the TPU plan's prepasses only feed the TPU
 kernels' DMA windows and are not carried over, and neither are the shade
 windows and their pads: the CUDA kernels read the volume straight from device
 memory.  A plan here is the ray tensors on the device plus the per-step
-increment; ``render`` quantizes the volume to 8 bits once and runs the march
+increment; ``render`` quantizes a float32 volume to 8 bits once (a uint8
+volume is its own bytes) and runs the march
 and then the shade pass on it, the march handing each hit's bracket (its
 position at the crossing, ``near``) to the shade.  ``bind`` is the exact
 empty-space skip: one ``IsoBound`` (isovalue, dims, wrap, the min/max block
@@ -38,13 +39,14 @@ import numbers
 
 import torch
 
-from ..isosurface import (ISO_BLOCK, MAX_SAMPLES, IsoBound, data_source, iso_block_grid,
-                          iso_grid_from_mip8, iso_grid_from_pool, iso_march_steps, shade_hits)
+from ..blockgrid import check_grid, data_source
+from ..isosurface import (MAX_SAMPLES, IsoBound, iso_block_grid, iso_grid_from_mip8,
+                          iso_grid_from_pool, iso_march_steps, shade_hits)
 from ..raycast import step_sizes
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
 from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
-                      check_tensors, check_volume, launch)
+                      check_tensors, check_volume, launch, ptr)
 from .raycast_kernel import pool_dims, quantize_u8
 
 __all__ = ["iso_march_cuda", "iso_shade_cuda", "iso_march_pooled_narrow_cuda",
@@ -108,18 +110,8 @@ def _grid(bound, iso, dims, wrap, device=None, data=None):
     bound.check(iso, dims, wrap)
     if data is not None:
         bound.check_source(*data)
-    grid = bound.grid
-    want = tuple(-(-int(n) // ISO_BLOCK) for n in dims[::-1]) + (2,)
-    if not isinstance(grid, torch.Tensor) or grid.dtype != torch.uint8 \
-            or tuple(grid.shape) != want or not grid.is_contiguous():
-        raise ValueError(f"the bound's grid must be a contiguous {want} uint8 tensor")
-    if device is not None and grid.device != device:
-        raise ValueError(f"the bound's grid is on {grid.device} but the march runs on {device}")
-    return grid
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    check_grid(bound.grid, dims, device)
+    return bound.grid
 
 
 def _march_outputs(H, W, device, with_near):
@@ -204,8 +196,8 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
         return _march_result(found, t_hit, near)
     launch(_march_launcher, "iso_march", vol_u8.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), vol_u8.data_ptr(),
-           _ptr(grid), H, W, X, Y, Z, max_samples, int(wrap == "repeat"), float(iso),
-           found.data_ptr(), t_hit.data_ptr(), _ptr(near))
+           ptr(grid), H, W, X, Y, Z, max_samples, int(wrap == "repeat"), float(iso),
+           found.data_ptr(), t_hit.data_ptr(), ptr(near))
     iso_march_cuda.launches += 1
     return _march_result(found, t_hit, near)
 
@@ -248,7 +240,7 @@ def iso_shade_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
         return rgb
     launch(_shade_launcher, "iso_shade", vol_u8.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), direction.data_ptr(),
-           found.view(torch.uint8).data_ptr(), _ptr(t_hit), _ptr(near), vol_u8.data_ptr(),
+           found.view(torch.uint8).data_ptr(), ptr(t_hit), ptr(near), vol_u8.data_ptr(),
            H, W, X, Y, Z, int(wrap == "repeat"), float(iso), rgb.data_ptr())
     iso_shade_cuda.launches += 1
     return rgb
@@ -280,9 +272,9 @@ def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso
         return _march_result(found, t_hit, near)
     launch(lambda: _pooled_march_launcher(fmt), "iso_march", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), pool.data_ptr(),
-           slab_map.data_ptr(), _ptr(grid), H, W, X, Y, Z,
+           slab_map.data_ptr(), ptr(grid), H, W, X, Y, Z,
            int(pool.shape[0]), max_samples, float(iso), found.data_ptr(), t_hit.data_ptr(),
-           _ptr(near))
+           ptr(near))
     wrapper.launches += 1
     return _march_result(found, t_hit, near)
 
@@ -352,7 +344,7 @@ def iso_shade_pooled_cuda(pool: torch.Tensor, slab_map: torch.Tensor, entry_uv: 
     fmt = "pair16" if pool.dtype == torch.int32 else "narrow"
     launch(lambda: _pooled_shade_launcher(fmt), "iso_shade", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), direction.data_ptr(),
-           found.view(torch.uint8).data_ptr(), _ptr(t_hit), _ptr(near), pool.data_ptr(),
+           found.view(torch.uint8).data_ptr(), ptr(t_hit), ptr(near), pool.data_ptr(),
            slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), float(iso), rgb.data_ptr())
     iso_shade_pooled_cuda.launches += 1
     return rgb
@@ -447,8 +439,11 @@ class IsosurfacePlan:
 
     def render(self, volume: torch.Tensor, iso_value: float = 40.0 / 255.0,
                bound: IsoBound | None = None):
-        """volume: (Z, Y, X) float32 in [0, 1], on the plan's device.  It is
-        quantized to 8 bits, marched and shaded.  ``bound``: None, or
+        """volume: (Z, Y, X) on the plan's device, float32 in [0, 1] or
+        uint8.  A float32 volume is quantized to 8 bits (``quantize_u8``), a
+        uint8 volume's bytes are read as they are (the image is the float
+        volume's ``u8 / 255``); any other dtype raises.  The bytes are
+        marched and shaded.  ``bound``: None, or
         :meth:`bind`'s result from this very volume tensor for
         ``iso_value`` (the march skips exactly; the image is the same).
         Returns (rgb (H, W, 3), found (H, W) bool); pixels without a hit are
@@ -489,9 +484,19 @@ class IsosurfacePlan:
 
 
 def render_isosurface_kernel(volume, entry_uv, direction, hit, iso_value=40.0 / 255.0,
-                             max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
+                             max_samples: int = MAX_SAMPLES, wrap: str = "clamp",
+                             skip_empty: bool = False):
     """Drop-in replacement for ``render_isosurface`` through the march and
-    shade kernels (both wrap modes); the volume is sampled on its 8-bit grid."""
+    shade kernels (both wrap modes); the volume (float32 in [0, 1] or
+    uint8) is sampled on its 8-bit grid.  ``skip_empty`` binds the volume
+    for this one render (``IsosurfacePlan.bind``) and marches bound, as the
+    JAX function does by default; the image is the same either way.  Here
+    it is off by default: a bind costs about what one bound frame saves,
+    and on an H100 a one-shot bind plus the bound render took 1.4-1.9x the
+    unbound render (1024^2 rays, the 256^3 turbulence at its median;
+    ``chip_smoke.py``'s skip_empty phase).  Bind once with ``IsosurfacePlan.bind`` where a (volume,
+    isovalue) pair is rendered more than once."""
     Z, Y, X = volume.shape
     plan = IsosurfacePlan(entry_uv, direction, hit, (X, Y, Z), max_samples, wrap)
-    return plan.render(volume, iso_value)
+    bound = plan.bind(volume, iso_value) if skip_empty else None
+    return plan.render(volume, iso_value, bound=bound)

@@ -12,6 +12,12 @@ tap to 8 bits as it reads it (``composite_march_f32_cuda``), and writes the
 displayed image in its epilogue; ``composite_march_cuda`` is B1 on a byte
 volume.
 
+``CompositingPlan.bind`` is the exact empty-space skip of B1, B6 and B7 (a
+``CompositeBound``: the block grid of ``ops/blockgrid.py``, shared with the
+isosurface bind, in place of the TPU plan's occupancy word tables); the
+TPU grids ``expand_mip`` and ``occupancy_mip`` are ported as plain torch
+functions, and no kernel reads them.
+
 The compressed-domain render state lives here too: ``build_slab_pool``
 (pair16 words) and ``build_slab_pool_narrow`` (f32 pair values) keep only the
 z-slabs of the volume that can be sampled, deduplicated by content, and the
@@ -33,18 +39,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..raycast import (MAX_SAMPLES, apply_reference_transfer, composite_march_steps,
-                       step_sizes)
+from ..blockgrid import check_grid, data_source, iso_block_grid, iso_grid_from_mip8, \
+    iso_grid_from_pool
+from ..raycast import (MAX_SAMPLES, CompositeBound, apply_reference_transfer,
+                       composite_march_steps, step_sizes)
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
 from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
-                      check_tensors, check_volume, launch)
+                      check_tensors, check_volume, launch, ptr)
 
 __all__ = ["composite_march_cuda", "composite_march_f32_cuda",
            "composite_march_pooled_narrow_cuda", "composite_march_pooled_pair16_cuda",
-           "quantize_u8", "CompositingPlan",
-           "render_compositing_kernel", "load_kernel", "block_max8", "pack_pairs",
-           "pack_pairs16", "build_slab_pool", "build_slab_pool_narrow", "pool_dims", "SLAB_H"]
+           "quantize_u8", "CompositingPlan", "CompositeBound",
+           "render_compositing_kernel", "load_kernel", "block_max8", "expand_mip",
+           "occupancy_mip", "pack_pairs", "pack_pairs16", "build_slab_pool",
+           "build_slab_pool_narrow", "pool_dims", "SLAB_H"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -56,13 +65,35 @@ def load_kernel() -> _build.BuiltLibrary:
 
 @functools.cache
 def _dense_launcher(entry: str):
-    # entry_uv, dir_step, hit, vol; H, W, X, Y, Z, max_samples, repeat, rgb;
-    # out, alpha, stream
-    return bind("composite_march", 4, 8, [ctypes.c_void_p] * 3, entry=entry)
+    # entry_uv, dir_step, hit, vol, grid; H, W, X, Y, Z, max_samples, repeat,
+    # rgb; out, alpha, stream
+    return bind("composite_march", 5, 8, [ctypes.c_void_p] * 3, entry=entry)
+
+
+def _grid(bound, dims, wrap, device=None, data=None):
+    """The block grid of ``bound`` after checking that it was made for this
+    march ((X, Y, Z) dims, wrap, and, given ``data``, from those tensors)
+    and, given ``device``, lies there; None for no bound."""
+    if bound is None:
+        return None
+    if not isinstance(bound, CompositeBound):
+        raise TypeError(f"bound must be a CompositeBound (CompositingPlan.bind), got "
+                        f"{type(bound).__name__}")
+    bound.check(dims, wrap)
+    if data is not None:
+        bound.check_source(*data)
+    check_grid(bound.grid, dims, device)
+    return bound.grid
+
+
+def _skipping(bound):
+    """``bound`` where its grid holds a block to skip, else None: on a field
+    with data everywhere the skip test would only cost."""
+    return bound if bound is not None and bound.has_empty else None
 
 
 def _march_dense(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, max_samples, wrap,
-                 transfer: bool):
+                 transfer: bool, bound):
     name = "vol_u8" if dtype == torch.uint8 else "volume"
     tensors = {name: volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit}
     check_tensors(tensors, name)
@@ -72,30 +103,31 @@ def _march_dense(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, ma
     check_max_samples(max_samples)
     if wrap not in WRAP_MODES:
         raise ValueError(f"unknown wrap mode: {wrap}")
+    Z, Y, X = volume.shape
+    grid = _grid(bound, (X, Y, Z), wrap, volume.device)
     if volume.device.type == "cpu":
-        vol_u8 = volume if dtype == torch.uint8 else quantize_u8(volume)
-        color, alpha = composite_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
-                                             hit.to(torch.bool), max_samples, wrap,
-                                             early_exit=True)
+        color, alpha = composite_march_steps(as_normalized_volume(quantize_u8(volume)), entry_uv,
+                                             dir_step, hit.to(torch.bool), max_samples, wrap,
+                                             early_exit=True, bound=bound)
         return (apply_reference_transfer(color, alpha) if transfer else color), alpha
     H, W = hit.shape
-    Z, Y, X = volume.shape
     out = torch.empty((H, W, 3) if transfer else (H, W), dtype=torch.float32,
                       device=volume.device)
     alpha = torch.empty((H, W), dtype=torch.float32, device=volume.device)
     if H * W == 0:
         return out, alpha
     launch(lambda: _dense_launcher(entry), "composite_march", volume.device,
-           entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), volume.data_ptr(), H, W,
-           X, Y, Z, max_samples, int(wrap == "repeat"), int(transfer), out.data_ptr(),
-           alpha.data_ptr())
+           entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), volume.data_ptr(),
+           ptr(grid), H, W, X, Y, Z, max_samples, int(wrap == "repeat"), int(transfer),
+           out.data_ptr(), alpha.data_ptr())
     wrapper.launches += 1
     return out, alpha
 
 
 def composite_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                          hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                         wrap: str = "clamp", transfer: bool = False):
+                         wrap: str = "clamp", transfer: bool = False,
+                         bound: CompositeBound | None = None):
     """March an (H, W) ray image through the 8-bit volume (B1).
 
     Args:
@@ -105,6 +137,12 @@ def composite_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step:
       hit: (H, W) uint8, nonzero where the ray enters the cube.
       wrap: "clamp" (clamp-to-edge) or "repeat" (GL_REPEAT).
       transfer: write the displayed image in the kernel's epilogue.
+      bound: None, or a :class:`CompositeBound` of this volume made for
+        ``wrap`` (``CompositingPlan.bind``): samples in blocks that read
+        only zero bytes are skipped, the result is the same bit for bit.  A
+        bound for other dims or another wrap raises ValueError; that it
+        describes this volume, the caller answers for
+        (``CompositingPlan.render`` checks it).
 
     Returns (color, alpha), each (H, W) float32; with ``transfer`` (rgb
     (H, W, 3), alpha), rgb bit for bit ``apply_reference_transfer(color,
@@ -112,7 +150,7 @@ def composite_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step:
     ``composite_march_cuda.launches``; CPU tensors run the plain version.
     """
     return _march_dense(composite_march_cuda, "composite_march", torch.uint8, vol_u8, entry_uv,
-                        dir_step, hit, max_samples, wrap, transfer)
+                        dir_step, hit, max_samples, wrap, transfer, bound)
 
 
 composite_march_cuda.launches = 0
@@ -121,25 +159,30 @@ composite_march_cuda.launches = 0
 def composite_march_f32_cuda(volume: torch.Tensor, entry_uv: torch.Tensor,
                              dir_step: torch.Tensor, hit: torch.Tensor,
                              max_samples: int = MAX_SAMPLES, wrap: str = "clamp",
-                             transfer: bool = False):
+                             transfer: bool = False, bound: CompositeBound | None = None):
     """B1 on the (Z, Y, X) float32 volume: the kernel quantizes each tap to 8
     bits as it reads it, so the result is :func:`composite_march_cuda`'s on
     ``quantize_u8(volume)``, bit for bit, with no quantize pass and no byte
-    copy.  The other arguments and the returns are
-    :func:`composite_march_cuda`'s.  CUDA tensors run the kernel and add one
-    to ``composite_march_f32_cuda.launches``; CPU tensors run the plain
-    version on ``quantize_u8(volume)``."""
+    copy.  The other arguments (``bound`` from this volume or its bytes)
+    and the returns are :func:`composite_march_cuda`'s.  CUDA tensors run
+    the kernel and add one to ``composite_march_f32_cuda.launches``; CPU
+    tensors run the plain version on ``quantize_u8(volume)``."""
     return _march_dense(composite_march_f32_cuda, "composite_march_f32", torch.float32, volume,
-                        entry_uv, dir_step, hit, max_samples, wrap, transfer)
+                        entry_uv, dir_step, hit, max_samples, wrap, transfer, bound)
 
 
 composite_march_f32_cuda.launches = 0
 
 
 def quantize_u8(volume: torch.Tensor) -> torch.Tensor:
-    """(Z, Y, X) float32 in [0, 1] -> uint8 ``round(clamp(v, 0, 1) * 255)``,
-    the 8-bit grid the TPU kernel samples too.  Exact for volumes made by
-    ``as_normalized_volume`` from bytes."""
+    """The 8-bit grid the marches sample (the TPU kernel's too): a float32
+    volume in [0, 1] -> uint8 ``round(clamp(v, 0, 1) * 255)``, exact for
+    volumes made by ``as_normalized_volume`` from bytes; a uint8 volume is
+    its own bytes and is returned as it is.  Any other dtype raises."""
+    if volume.dtype == torch.uint8:
+        return volume
+    if volume.dtype != torch.float32:
+        raise ValueError(f"the volume must be float32 in [0, 1] or uint8, got {volume.dtype}")
     return torch.round(torch.clamp(volume, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
@@ -160,6 +203,10 @@ class CompositingPlan:
     direction * (1/X, 1/Y, 1/Z)`` and ``hit`` as uint8.  ``dims`` is
     (X, Y, Z).  ``render`` runs the CUDA kernel when the rays lie on a CUDA
     device and the plain PyTorch march when they lie on the CPU.
+    ``bind`` is the exact empty-space skip: one ``CompositeBound`` (the
+    dims, the wrap, the block grid of a volume or a slab pool, in place of
+    the TPU plan's occupancy word tables, and that data's identity) that
+    ``render`` and ``render_pooled`` take and check against their data.
     ``seg_starts`` keeps the segment marches' entry tables of these rays by
     (owned box, max_samples, device), built at first use by the
     volume-sharded renders (``parallel/kernel_sharded.py``): 16 bytes per ray
@@ -203,36 +250,93 @@ class CompositingPlan:
             raise ValueError(f"volume shape {tuple(volume.shape)} does not match the "
                              f"plan's (Z, Y, X) = {(Z, Y, X)}")
 
-    def render(self, volume: torch.Tensor):
+    def bind(self, volume: torch.Tensor | None = None, mip8: torch.Tensor | None = None,
+             pool=None) -> CompositeBound:
+        """The exact empty-space skip of this plan's marches (the port of the
+        JAX plan's ``bind``): a :class:`CompositeBound` holding the dims, the
+        wrap, the block grid and the identity of the data it describes,
+        exactly one of ``volume`` ((Z, Y, X) float32 in [0, 1] or uint8, the
+        tensor later passed to :meth:`render`) and ``pool`` (a ``(pool,
+        slab_map)`` pair, later passed to :meth:`render_pooled`; clamp
+        only).  The grid comes from that data's bytes, or, given ``mip8``
+        (per-8^3-block maxima of the same data, e.g.
+        ``codecs/device.tree_occupancy_mip8``), from the mip, with no pass
+        over the data: the compositing skip needs only each block's largest
+        byte, and the mip's grid (a block's maximum with its upper
+        neighbours', which covers the footprint) skips a subset of the
+        samples the exact grid skips.
+
+        A zero sample composites as a no-op, so the bound render equals the
+        unbound one bit for bit.  Pass the bound with the same data: a bound
+        made for other dims or another wrap, or from another tensor (or one
+        written in place since), raises ValueError there.  The grid depends
+        only on the data and the wrap: one bound serves every plan of the
+        same dims and wrap.  Where the grid holds no empty block (a field
+        with data everywhere) the bound has nothing to skip, and
+        :meth:`render` marches without it: the skip test would cost every
+        sample (``has_empty``)."""
+        if self.wrap not in WRAP_MODES:
+            raise ValueError(f"unknown wrap mode: {self.wrap}")
+        if (volume is None) == (pool is None):
+            raise ValueError("bind takes a volume or a (pool, slab_map) pair, exactly one of "
+                             "the two")
+        if volume is not None:
+            self.check_volume(volume)
+            data = (volume,)
+        else:
+            check_clamp(self.wrap, "pooled binds")
+            data = tuple(pool)
+            if len(data) != 2 or pool_dims(*data) != self.dims:
+                raise ValueError(f"pool must be a (pool, slab_map) pair holding a volume of "
+                                 f"(X, Y, Z) = {self.dims}")
+        if mip8 is not None:
+            grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
+        elif volume is not None:
+            grid = iso_block_grid(volume, self.wrap)
+        else:
+            grid = iso_grid_from_pool(*data, self.dims)
+        grid = grid.to(self.hit.device)
+        return CompositeBound(self.dims, self.wrap, grid, data_source(*data),
+                              has_empty=bool((grid[..., 1] == 0).any()))
+
+    def render(self, volume: torch.Tensor, bound: CompositeBound | None = None):
         """volume: (Z, Y, X) on the plan's device, float32 in [0, 1] or
         uint8.  One launch of B1 marches it and writes the displayed image
         (the reference transfer in its epilogue): it quantizes a float32
         volume's taps to 8 bits as it reads them (no quantize pass; bit for
         bit the march on ``quantize_u8(volume)``) and reads a uint8 volume's
         bytes.  Any other dtype raises.  A view (a slice of a larger volume)
-        is copied first, as the kernel reads the volume in place.  Returns
+        is copied first, as the kernel reads the volume in place.
+        ``bound``: None, or :meth:`bind`'s result from this very volume
+        tensor (the march skips exactly; the image is the same).  Returns
         (rgb (H, W, 3), alpha (H, W))."""
         self.check_volume(volume)
+        _grid(bound, self.dims, self.wrap, data=(volume,))
         volume = volume.contiguous()
         return _dense_march_for(volume)(volume, self.entry_uv, self.dir_step, self.hit,
-                                        self.max_samples, self.wrap, transfer=True)
+                                        self.max_samples, self.wrap, transfer=True,
+                                        bound=_skipping(bound))
 
-    def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor):
+    def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
+                      bound: CompositeBound | None = None):
         """Compressed-domain render from a slab pool on the plan's device:
         the pool's dtype picks the kernel, B7 for an int32 pair16 pool
         (``build_slab_pool``), B6 for a float32 narrow pool
         (``build_slab_pool_narrow``).  Equal bit for bit to :meth:`render`
         of the volume the pool was built from.  Clamp-only: a plan with
-        ``wrap="repeat"`` raises.  The kernel writes the displayed image, as
-        for :meth:`render`.  Returns (rgb (H, W, 3), alpha (H, W))."""
+        ``wrap="repeat"`` raises.  ``bound``: None, or :meth:`bind`'s result
+        from this very pool and slab map (``bind(pool=(pool, slab_map))``).
+        The kernel writes the displayed image, as for :meth:`render`.
+        Returns (rgb (H, W, 3), alpha (H, W))."""
         dims = pool_dims(pool, slab_map)
         if dims != self.dims:
             raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's is "
                              f"{self.dims}")
+        _grid(bound, dims, self.wrap, data=(pool, slab_map))
         march = (composite_march_pooled_pair16_cuda if pool.dtype == torch.int32
                  else composite_march_pooled_narrow_cuda)
         return march(pool, slab_map, self.entry_uv, self.dir_step, self.hit, self.max_samples,
-                     self.wrap, transfer=True)
+                     self.wrap, transfer=True, bound=_skipping(bound))
 
 
 def _byte_values(volume: torch.Tensor) -> torch.Tensor:
@@ -257,6 +361,41 @@ def block_max8(volume: torch.Tensor) -> torch.Tensor:
     s = F.pad(s, (0, (-X) % 8, 0, (-Y) % 8, 0, (-Z) % 8))
     Zp, Yp, Xp = s.shape
     return s.reshape(Zp // 8, 8, Yp // 8, 8, Xp // 8, 8).amax(dim=(1, 3, 5))
+
+
+def expand_mip(m8: torch.Tensor, reach_x: int = 3, reach_z: int = 2) -> torch.Tensor:
+    """Forward-max expansion of the 8^3 block grid (counterpart of
+    ``volumerenderer_tpu/ops/pallas/raycast_kernel.py::expand_mip``): cell
+    (i, j, k) covers z in [8i, 8i + 8*reach_z), y in [8j, 8j + 16), x in
+    [8k, 8k + 8*reach_x), the last cell of each axis repeated past the
+    edge.  The TPU plan bounds a whole DMA window's footprint with one
+    gather of it; the CUDA marches look up each sample's own anchor block
+    in the tight per-anchor grid (``ops/blockgrid.py``) instead, so no
+    kernel reads this grid."""
+
+    def fwd_max(m, axis, reach):
+        out = m
+        n = m.shape[axis]
+        for r in range(1, reach):
+            shifted = torch.cat([m.narrow(axis, min(r, n), n - min(r, n)),
+                                 m.narrow(axis, n - 1, 1).repeat_interleave(min(r, n), dim=axis)],
+                                dim=axis)
+            out = torch.maximum(out, shifted)
+        return out
+
+    m8 = fwd_max(m8, 0, reach_z)
+    m8 = fwd_max(m8, 1, 2)
+    return fwd_max(m8, 2, reach_x)
+
+
+def occupancy_mip(volume: torch.Tensor, reach_x: int = 3) -> torch.Tensor:
+    """The TPU plan's conservative per-window bound from a dense volume
+    (counterpart of the JAX function of that name): cell (i, j, k) is the
+    largest 8-bit sample over z in [8i, 8i + 16), y in [8j, 8j + 16), x in
+    [8k, 8k + 8*reach_x), i.e. ``expand_mip(block_max8(volume), reach_x)``.
+    As for :func:`expand_mip`, the GPU skip uses the per-anchor grid in its
+    place."""
+    return expand_mip(block_max8(volume), reach_x)
 
 
 def pack_pairs(volume: torch.Tensor) -> torch.Tensor:
@@ -385,14 +524,14 @@ def pool_dims(pool: torch.Tensor, slab_map: torch.Tensor, fmt: str | None = None
 
 @functools.cache
 def _pooled_launcher(fmt: str):
-    # entry_uv, dir_step, hit, pool, slab_map; H, W, X, Y, Z, n_slots,
+    # entry_uv, dir_step, hit, pool, slab_map, grid; H, W, X, Y, Z, n_slots,
     # max_samples, rgb; out, alpha, stream
-    return bind("composite_march", 5, 8, [ctypes.c_void_p] * 3,
+    return bind("composite_march", 6, 8, [ctypes.c_void_p] * 3,
                 entry=f"composite_march_pooled_{fmt}")
 
 
 def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit,
-                            max_samples, wrap, transfer):
+                            max_samples, wrap, transfer, bound):
     tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv,
                "dir_step": dir_step, "hit": hit}
     check_tensors(tensors, "pool")
@@ -401,10 +540,11 @@ def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hi
     check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
     check_max_samples(max_samples)
     check_clamp(wrap, "the pooled marches")
+    grid = _grid(bound, dims, wrap, pool.device)
     if pool.device.type == "cpu":
         color, alpha = composite_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv,
                                              dir_step, hit.to(torch.bool), max_samples,
-                                             early_exit=True)
+                                             early_exit=True, bound=bound)
         return (apply_reference_transfer(color, alpha) if transfer else color), alpha
     H, W = hit.shape
     X, Y, Z = dims
@@ -414,8 +554,8 @@ def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hi
         return out, alpha
     launch(lambda: _pooled_launcher(fmt), "composite_march", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), pool.data_ptr(),
-           slab_map.data_ptr(), H, W, X, Y, Z, int(pool.shape[0]), max_samples, int(transfer),
-           out.data_ptr(), alpha.data_ptr())
+           slab_map.data_ptr(), ptr(grid), H, W, X, Y, Z, int(pool.shape[0]), max_samples,
+           int(transfer), out.data_ptr(), alpha.data_ptr())
     wrapper.launches += 1
     return out, alpha
 
@@ -423,18 +563,22 @@ def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hi
 def composite_march_pooled_narrow_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                        entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                        hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                                       wrap: str = "clamp", transfer: bool = False):
+                                       wrap: str = "clamp", transfer: bool = False,
+                                       bound: CompositeBound | None = None):
     """B6: :func:`composite_march_cuda`'s march, sampling the narrow f32
     slab pool (``build_slab_pool_narrow``) through its slab map.  Equal bit
     for bit to the dense march on the volume the pool was built from.
-    ``wrap`` must be "clamp".  Returns (color, alpha), each (H, W) float32,
+    ``wrap`` must be "clamp"; ``bound``, as for
+    :func:`composite_march_cuda`, describes this pool
+    (``CompositingPlan.render_pooled`` checks that it was bound from it).
+    Returns (color, alpha), each (H, W) float32,
     or with ``transfer`` (rgb (H, W, 3), alpha) as the dense march does.
     CUDA tensors run the kernel and add one to
     ``composite_march_pooled_narrow_cuda.launches``; CPU tensors run the
     plain version."""
     return _composite_march_pooled(composite_march_pooled_narrow_cuda, "narrow", pool,
                                    slab_map, entry_uv, dir_step, hit, max_samples, wrap,
-                                   transfer)
+                                   transfer, bound)
 
 
 composite_march_pooled_narrow_cuda.launches = 0
@@ -443,13 +587,14 @@ composite_march_pooled_narrow_cuda.launches = 0
 def composite_march_pooled_pair16_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                        entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                        hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                                       wrap: str = "clamp", transfer: bool = False):
+                                       wrap: str = "clamp", transfer: bool = False,
+                                       bound: CompositeBound | None = None):
     """B7: as :func:`composite_march_pooled_narrow_cuda`, on the pair16 pool
     (``build_slab_pool``); adds one to
     ``composite_march_pooled_pair16_cuda.launches`` per kernel launch."""
     return _composite_march_pooled(composite_march_pooled_pair16_cuda, "pair16", pool,
                                    slab_map, entry_uv, dir_step, hit, max_samples, wrap,
-                                   transfer)
+                                   transfer, bound)
 
 
 composite_march_pooled_pair16_cuda.launches = 0
@@ -458,8 +603,8 @@ composite_march_pooled_pair16_cuda.launches = 0
 def render_compositing_kernel(volume, entry_uv, direction, hit,
                               max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
     """Drop-in replacement for ``render_compositing`` through the march
-    kernel (both wrap modes); the volume (float32 or uint8) is sampled on
-    its 8-bit grid."""
+    kernel (both wrap modes); the volume (float32 in [0, 1] or uint8) is
+    sampled on its 8-bit grid."""
     Z, Y, X = volume.shape
     plan = CompositingPlan(entry_uv, direction, hit, (X, Y, Z), max_samples, wrap)
     return plan.render(volume)

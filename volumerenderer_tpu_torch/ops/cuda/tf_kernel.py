@@ -114,8 +114,7 @@ def _tf_march(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, tf_sc
                "tf_scalars": tf_scalars}
     check_march_inputs(tensors, max_samples, wrap, dtype, name)
     if volume.device.type == "cpu":
-        vol_u8 = volume if dtype == torch.uint8 else quantize_u8(volume)
-        return tf_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
+        return tf_march_steps(as_normalized_volume(quantize_u8(volume)), entry_uv, dir_step,
                               hit.to(torch.bool), tf_scalars, max_samples)
     H, W = hit.shape
     Z, Y, X = volume.shape

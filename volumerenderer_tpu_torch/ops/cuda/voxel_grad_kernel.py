@@ -136,7 +136,7 @@ def voxel_grad_block_stats(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_ste
 def _voxel_grad(params: TFParams, volume: torch.Tensor, plan: CompositingPlan,
                 gc: torch.Tensor, gaT_term: torch.Tensor, P_tot: torch.Tensor):
     # B5 reads bytes: a float32 volume is quantized here, in the backward
-    vol_u8 = volume if volume.dtype == torch.uint8 else quantize_u8(volume)
+    vol_u8 = quantize_u8(volume)
     return voxel_grad_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, _tf_scalars(params),
                            gc.contiguous(), gaT_term.contiguous(), P_tot.contiguous(),
                            plan.max_samples, plan.wrap)
@@ -146,7 +146,8 @@ def voxel_grad_kernel(params: TFParams, volume: torch.Tensor, plan: CompositingP
                       g_rgb, g_alpha, alpha_T: torch.Tensor, P_tot: torch.Tensor):
     """The voxel cotangent of one rendered frame, given the output cotangents
     (``None`` counts as zero) and the forward pass's (alpha_T, P_total)
-    images.  ``volume`` is (Z, Y, X) float32 in [0, 1] on the plan's device."""
+    images.  ``volume`` is (Z, Y, X) float32 in [0, 1] or uint8 on the
+    plan's device."""
     check_plan(plan)
     gc, gaT_term = cotangent_images(params, g_rgb, g_alpha, alpha_T)
     return _voxel_grad(params, volume, plan, gc, gaT_term, P_tot)

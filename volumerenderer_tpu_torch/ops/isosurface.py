@@ -18,10 +18,10 @@ Counterpart of ``volumerenderer_tpu/ops/isosurface.py`` (the reference's
   missed rays are white.
 
 An :class:`IsoBound` (``iso_block_grid``, ``iso_grid_from_pool``,
-``iso_grid_from_mip8``) lets the march skip exactly: per 8^3 block of tap
-anchors the least and largest byte its trilinear taps can read, so a
-lookahead whose block lies wholly below or above the isovalue is not
-sampled (``iso_march_steps(..., bound=)``).
+``iso_grid_from_mip8``, in ``ops/blockgrid.py``) lets the march skip exactly:
+per 8^3 block of tap anchors the least and largest byte its trilinear taps
+can read, so a lookahead whose block lies wholly below or above the
+isovalue is not sampled (``iso_march_steps(..., bound=)``).
 
 ``render_isosurface`` is exactly the two composed.  As in ``ops/raycast.py``
 each product and sum is its own tensor operation, the three-term dot products
@@ -32,12 +32,13 @@ follow XLA's rounding of ``jnp.linalg.norm`` (see ``_norm``).
 from __future__ import annotations
 
 import dataclasses
-import weakref
 
 import torch
 
+from .blockgrid import (ISO_BLOCK, anchor_cells, check_made_for, check_source, data_source,
+                        iso_block_grid, iso_grid_from_mip8, iso_grid_from_pool)
 from .raycast import step_sizes
-from .sampling import WRAP_MODES, as_sampler, texel_coords
+from .sampling import as_sampler
 
 __all__ = ["render_isosurface", "iso_march_steps", "shade_hits", "bisection_refine",
            "gradient_normal", "phong", "IsoBound", "iso_block_grid", "iso_grid_from_pool",
@@ -47,7 +48,6 @@ MAX_SAMPLES = 300       # isosurface.frag:15
 DELTA = 0.01            # isosurface.frag:18
 SPEC_POWER = 250.0      # isosurface.frag:155
 DIFFUSE = (0.39, 0.58, 0.93)  # isosurface.frag:155
-ISO_BLOCK = 8           # voxels per side of a bound grid's block
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -111,12 +111,6 @@ def phong(L, N, V, spec_power: float = SPEC_POWER, diffuse_color=DIFFUSE):
     return diffuse[..., None] * color + spec[..., None]
 
 
-def data_source(*tensors) -> tuple:
-    """Who the tensors are: a weak reference to each and its version counter
-    (which every in-place change bumps), for :meth:`IsoBound.check_source`."""
-    return tuple((weakref.ref(t), None if t.is_inference() else t._version) for t in tensors)
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class IsoBound:
     """An isovalue, the (X, Y, Z) dims and wrap mode of a volume, the
@@ -141,111 +135,14 @@ class IsoBound:
     def check_source(self, *tensors) -> None:
         """Raise ValueError unless ``tensors`` are the very tensors this
         bound was made from, unchanged since (no in-place write)."""
-        same = len(tensors) == len(self.source) and all(
-            ref() is t and v == (None if t.is_inference() else t._version)
-            for (ref, v), t in zip(self.source, tensors))
-        if not same:
-            raise ValueError("the bound was made from other data than this render's (another "
-                             "volume or pool, or one changed since): bind it from this one")
+        check_source(self.source, *tensors)
 
     def check(self, iso, dims, wrap: str) -> None:
         """Raise ValueError unless this bound was made for ``iso``, ``dims``
         (X, Y, Z; ``None`` skips that check) and ``wrap``."""
         if float(iso) != self.iso:
             raise ValueError(f"the bound was made for iso {self.iso!r}, not {float(iso)!r}")
-        if dims is not None and tuple(int(d) for d in dims) != self.dims:
-            raise ValueError(f"the bound was made for a volume of (X, Y, Z) = {self.dims}, "
-                             f"not {tuple(dims)}")
-        if wrap != self.wrap:
-            raise ValueError(f"the bound was made for wrap={self.wrap!r}, not {wrap!r}")
-
-
-def _block_counts(dims):
-    return tuple(-(-int(n) // ISO_BLOCK) for n in dims)
-
-
-def _footprint_reduce(r: torch.Tensor, axis: int, reduce, pair, wrap: str) -> torch.Tensor:
-    """``reduce`` over the texels [8b, 8b + 8] of each block b of ``axis``
-    (the last one clamped to the edge, or wrapped)."""
-    n = r.shape[axis]
-    nb = -(-n // ISO_BLOCK)
-    j = torch.arange(ISO_BLOCK * nb + 1, device=r.device)
-    ext = r.index_select(axis, j.clamp(max=n - 1) if wrap == "clamp" else j % n)
-    body = ext.narrow(axis, 0, ISO_BLOCK * nb)
-    blocks = reduce(body.reshape(body.shape[:axis] + (nb, ISO_BLOCK) + body.shape[axis + 1:]),
-                    dim=axis + 1)
-    return pair(blocks, ext.index_select(axis, j[ISO_BLOCK::ISO_BLOCK]))
-
-
-def iso_block_grid(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
-    """The block grid of :class:`IsoBound` from a (Z, Y, X) uint8 volume,
-    or a float volume in [0, 1] quantized as the marches sample it
-    (``round(clamp(v, 0, 1) * 255)``): plain reductions on each axis in
-    turn, over the texels [8b, 8b + 8] of block b."""
-    if wrap not in WRAP_MODES:
-        raise ValueError(f"unknown wrap mode: {wrap}")
-    if volume.dim() != 3 or min(volume.shape) < 1:
-        raise ValueError(f"expected a non-empty (Z, Y, X) volume, got {tuple(volume.shape)}")
-    s = volume if volume.dtype == torch.uint8 else \
-        torch.round(torch.clamp(volume.to(torch.float32), 0.0, 1.0) * 255.0).to(torch.uint8)
-    out = []
-    for reduce, pair in ((torch.amin, torch.minimum), (torch.amax, torch.maximum)):
-        r = s
-        for axis in range(3):
-            r = _footprint_reduce(r, axis, reduce, pair, wrap)
-        out.append(r)
-    return torch.stack(out, dim=-1).contiguous()
-
-
-def iso_grid_from_pool(pool: torch.Tensor, slab_map: torch.Tensor, dims) -> torch.Tensor:
-    """The block grid of :class:`IsoBound` from the bytes a pooled march
-    reads (``ops/sampling.py::sample_trilinear_slab_pool``, clamp): for the
-    anchors of z-block b, the rows z - 8b in [0, 8] (z clamped to Z - 1) of
-    slot ``slab_map[0, b]``; of x-block b, both bytes of the pairs
-    [8b, 8b + 8); of y-block b, the rows [8b, 8b + 8], clamped.  For a pool
-    built from a volume this is :func:`iso_block_grid` of that volume.
-    ``pool`` is an int32 pair16 or float32 narrow pool, ``dims`` (X, Y, Z)
-    as ``raycast_kernel.pool_dims`` gives them."""
-    X, Y, Z = (int(d) for d in dims)
-    dev = pool.device
-    nbz, nbx = Z // ISO_BLOCK, -(-X // ISO_BLOCK)
-    base = ISO_BLOCK * torch.arange(nbz, device=dev)[:, None]
-    rows = (base + torch.arange(ISO_BLOCK + 1, device=dev)).clamp(max=Z - 1) - base
-    w = pool[slab_map.reshape(-1).to(torch.int64)[:, None], rows]  # (nbz, 9, Y, words)
-    if pool.dtype == torch.int32:  # two pairs a word, x even in the low half
-        w = torch.stack([w & 0xFFFF, (w >> 16) & 0xFFFF], dim=-1).reshape(nbz, ISO_BLOCK + 1,
-                                                                        Y, X)
-    else:
-        w = w.to(torch.int32)
-    taps = torch.stack([w >> 8, w & 255], dim=-1).to(torch.uint8)  # s[x], s[x + 1]
-    jx = torch.arange(ISO_BLOCK * nbx, device=dev).clamp(max=X - 1)
-    out = []
-    for reduce, pair in ((torch.amin, torch.minimum), (torch.amax, torch.maximum)):
-        r = _footprint_reduce(reduce(taps, dim=(1, 4)), 1, reduce, pair, "clamp")
-        out.append(reduce(r.index_select(2, jx).reshape(nbz, -1, nbx, ISO_BLOCK), dim=3))
-    return torch.stack(out, dim=-1).contiguous()
-
-
-def iso_grid_from_mip8(mip8: torch.Tensor, dims, wrap: str = "clamp") -> torch.Tensor:
-    """The block grid of :class:`IsoBound` from per-8^3-block maxima in
-    0..255 units (``raycast_kernel.block_max8``,
-    ``codecs/device.tree_occupancy_mip8``; no minima, so the least byte is
-    0): each block's max taken with its upper neighbour on each axis
-    (clamped, or wrapped for "repeat"), which covers the texels [8b, 8b + 8].
-    ``dims`` is (X, Y, Z)."""
-    if wrap not in WRAP_MODES:
-        raise ValueError(f"unknown wrap mode: {wrap}")
-    nx, ny, nz = _block_counts(dims)
-    if tuple(mip8.shape) != (nz, ny, nx):
-        raise ValueError(f"mip8 of shape {tuple(mip8.shape)} is not the (Z/8, Y/8, X/8) = "
-                         f"{(nz, ny, nx)} block grid of a volume of (X, Y, Z) = {tuple(dims)}")
-    m = torch.clamp(torch.ceil(mip8.to(torch.float32)), 0.0, 255.0)
-    for axis in range(3):
-        n = m.shape[axis]
-        upper = torch.roll(m, -1, axis) if wrap == "repeat" else \
-            torch.cat([m.narrow(axis, 1, n - 1), m.narrow(axis, n - 1, 1)], dim=axis)
-        m = torch.maximum(m, upper)
-    return torch.stack([torch.zeros_like(m), m], dim=-1).to(torch.uint8).contiguous()
+        check_made_for(self, dims, wrap)
 
 
 def classify_blocks(bound: IsoBound, uvw: torch.Tensor):
@@ -257,13 +154,7 @@ def classify_blocks(bound: IsoBound, uvw: torch.Tensor):
     The half-byte margin is far wider than the ulps by which a float32 lerp
     may leave its taps' range, so a sample of a below block is below iso
     and one of an above block is not."""
-    if bound.wrap == "repeat":
-        uvw = uvw - torch.floor(uvw)
-    i0, _ = texel_coords(uvw, bound.dims)
-    n = torch.tensor(bound.dims, dtype=torch.int64, device=uvw.device)
-    i = torch.remainder(i0, n) if bound.wrap == "repeat" else torch.clamp(i0, min=0).minimum(n - 1)
-    b = i // ISO_BLOCK
-    cell = bound.grid[b[..., 2], b[..., 1], b[..., 0]].to(torch.float32)
+    cell = anchor_cells(bound.grid, bound.dims, bound.wrap, uvw).to(torch.float32)
     iso255 = _f32(bound.iso, uvw.device) * 255.0
     return cell[..., 1] + 0.5 < iso255, cell[..., 0] - 0.5 >= iso255
 

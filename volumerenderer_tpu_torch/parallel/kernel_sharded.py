@@ -9,7 +9,8 @@ copied to the mesh's first device and reduced there.
 * Row-sharded (``render_planned_sharded``, ``tf_fit_step_kernel``,
   ``voxel_fit_step_kernel``): each device marches its block of image rows
   (``CompositingPlan.rows``) with the kernel the single-device path uses, on
-  its byte route: the volume is quantized once and each device receives the
+  its byte route: the volume is quantized once (a uint8 volume is its own
+  bytes) and each device receives the
   byte volume, a quarter of the float32 bytes (the voxel step's B5 reads
   bytes anyway); the images gather, and the loss and the gradients sum, on
   the first device.  Rays never interact, and the byte route samples what
@@ -48,6 +49,7 @@ from ..ops.cuda.seg_kernel import (compose_tf_segments, seg_entry_table_cuda, se
 from ..ops.cuda.tf_kernel import check_plan, tf_march_cuda
 from ..ops.cuda.voxel_grad_kernel import voxel_grad_cuda
 from ..ops.raycast import apply_reference_transfer
+from ..ops.sampling import as_normalized_volume
 from .bricks import as_sharded, composite_segments_ordered, extend_halos
 from .sharding import DeviceMesh
 
@@ -76,9 +78,10 @@ def _row_shards(mesh: DeviceMesh, plan: CompositingPlan, axis: str):
 def render_planned_sharded(mesh: DeviceMesh, plan: CompositingPlan, volume: torch.Tensor,
                            axis: str = "rays"):
     """Render a planned view with image rows sharded over ``mesh`` axis
-    ``axis``: the volume is quantized to bytes once and the byte volume,
-    a quarter of the float32 bytes, is copied to each device, which runs
-    the march (B1, the transfer in its epilogue) on its rows.  Returns
+    ``axis``: a float32 volume in [0, 1] is quantized to bytes once (a
+    uint8 volume is its own bytes) and the byte volume, a quarter of the
+    float32 bytes, is copied to each device, which runs the march (B1, the
+    transfer in its epilogue) on its rows.  Returns
     (rgb, alpha) as full (H, W) images on the mesh's first device, equal
     bit for bit to ``plan.render(volume)``, whose taps are quantized as
     they are read."""
@@ -154,12 +157,13 @@ def voxel_fit_step_kernel(mesh: DeviceMesh, plan: CompositingPlan, params: TFPar
     """One SGD step of the voxels and the TF parameters with image rows
     sharded over ``axis``: each device runs the TF march (B4) and one
     voxel-gradient pass (B5) on its rows; the (Z, Y, X) cotangent volumes
-    sum on the first device beside the parameter gradients.  Returns
-    (new_params, new_volume clamped to [0, 1], loss) there."""
+    sum on the first device beside the parameter gradients.  ``volume`` is
+    float32 in [0, 1] or uint8 (bytes / 255).  Returns (new_params,
+    new_volume float32 clamped to [0, 1], loss) there."""
     loss, grads, g_vol = _row_sharded_step(mesh, plan, params, volume, target_rgb, axis, True)
     params = _on(params, mesh.first)
     new_params = TFParams(*(p - lr_tf * g for p, g in zip(params, grads)))
-    new_volume = torch.clamp(volume.to(mesh.first) - lr_vol * g_vol, 0.0, 1.0)
+    new_volume = torch.clamp(as_normalized_volume(volume, mesh.first) - lr_vol * g_vol, 0.0, 1.0)
     return new_params, new_volume, loss
 
 
@@ -173,9 +177,10 @@ def seg_plan_ok(plan: CompositingPlan, n_z: int, n_y: int = 1, n_x: int = 1) -> 
 
 def seg_shards(mesh: DeviceMesh, plan: CompositingPlan, volume):
     """The inputs of the segment marches, one shard at a time: each shard
-    quantized to 8 bits on its device, then one halo plane in z and one row
-    in y exchanged.  Returns [(slab_u8, launch keywords: dims, z_lo, n_z,
-    y_lo, n_y, max_samples)] in the mesh's order."""
+    quantized to 8 bits on its device (a uint8 volume's shards are its own
+    bytes), then one halo plane in z and one row in y exchanged.  Returns
+    [(slab_u8, launch keywords: dims, z_lo, n_z, y_lo, n_y, max_samples)] in
+    the mesh's order."""
     sv = as_sharded(mesh, volume)
     nz, ny, nx = sv.bricks.shape
     if tuple(sv.shape) != plan.dims[::-1]:
