@@ -47,7 +47,18 @@ calls:
   its plan), ``tf_fit_step_bricksharded`` x 5 (B11 once per brick), and the
   row-sharded ``render_planned_sharded``,
   ``tf_fit_step_kernel`` and ``voxel_fit_step_kernel`` on ``make_mesh(4)``
-  (B1, B4 and B5 once per row shard).
+  (B1, B4 and B5 once per row shard);
+* BASELINE config 4 at 256^3: ``io.bricks.load_bricks`` of 8 synthetic
+  128^3 bricks -> ``codecs.hashed.build`` (the native builder
+  ``csrc/hashed_build.cu``, host code) -> ``to_device_hashed`` ->
+  ``level_cut_device_hashed`` (chunked) -> ``tf_fit_step_fast`` x 5 through
+  ``make_render_tf_kernel`` (B4) at 1024^2; the decode against itself on CPU
+  tensors (flat and chunked) and, at 64^3, the host ``level_cut``; the
+  native builder against the Python one;
+* ``codecs.device_build.build_device`` of the 256^3 source on the card,
+  equal to the host build, its frame through ``CompressedRenderer`` (B7);
+  ``codecs.octree.build`` and its depth-6 cut through the compositing plan
+  (B1).
 
 On the way it builds the kernels from ``volumerenderer_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -64,7 +75,7 @@ vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
 vg_tile, grad_launch_count, then codec, decode, pools, pooled_parity,
 pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
 then composite_bind (one per field), skip_empty, diff_finetune, midrange,
-then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
+config4, device_build, octree, then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
 sharded_timing, seg_starts, sharded_layers, sharded_launch_count).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
@@ -121,6 +132,13 @@ GRAD_REPLACES = {"tf_march": "volumerenderer_tpu/ops/pallas/tf_kernel.py:222",
                  "voxel_grad": "volumerenderer_tpu/ops/pallas/voxel_grad_kernel.py:268"}
 # the compressed domain: config 3's middle tolerance (scripts/run_configs.py)
 TREE_TOLERANCE, TREE_EPOCHS = 4, 2
+# BASELINE config 4 (scripts/run_configs.py:167-224): 8 bricks of a 2x2x2
+# grid, timestep 273, the hashed codec at its default tolerance
+CONFIG4_BRICK, CONFIG4_TIMESTEP, CONFIG4_TOLERANCE = (128, 128, 128), 273, 4
+CONFIG4_TF_RTOL = 2e-3
+HASHED_FIELDS = ("distance_map", "tree_data", "tree_structure", "coll_keys", "coll_vals",
+                 "coll_data", "coll_structure")
+OCTREE_CUTS, OCTREE_RENDER_CUT = (3, 6, 8), 6
 POOLED_SOURCES = {"composite_march_pooled_narrow": KERNEL_SOURCE,
                   "composite_march_pooled_pair16": KERNEL_SOURCE,
                   "iso_march_pooled_narrow": ISO_SOURCES["iso_march"],
@@ -1211,7 +1229,7 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
 def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                    samples: float) -> list:
     """The compressed-domain phases; returns the kernels line's five entries,
-    the tree and the volume it was built from.
+    the tree, the volume it was built from and the tree's build seconds.
     ``dense`` holds the kernels line's entries of B1, B2 and B3: each pooled
     kernel's output, and so its samples, are its dense kernel's; ``samples``
     is B1's per launch over the orbit."""
@@ -1641,7 +1659,8 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                           "gathered_per_ray": iso["gathered_per_ray"]})
     return [{"name": n, "route": "cuda", "source": POOLED_SOURCES[n],
              "replaces": POOLED_REPLACES[n], "launches": launches[n], "max_abs_err": err[n],
-             "ms": ms[n], "plain_ms": plain_ms[n], **bounds[n]} for n in names], tree, source
+             "ms": ms[n], "plain_ms": plain_ms[n], **bounds[n]} for n in names], tree, source, \
+        build_s
 
 
 def run_composite_bind(dev, smi: str, turb, sphere, bundles) -> list:
@@ -1981,6 +2000,237 @@ def run_midrange(dev, smi: str, source, tree, bundles) -> None:
           "mid_equal_to_kdtree": True, "range_device_equal_to_host": True,
           "range_level_cut_host_s": range_host_s,
           "range_mean": float(host_range.mean()), "frame_equal_to_kdtree": True, "gpu": smi})
+
+
+def once_ms(fn) -> float:
+    """One call of ``fn`` (the first, cold), in ms by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def hashed_trees_equal(a, b) -> bool:
+    return a.tree_depth == b.tree_depth and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in HASHED_FIELDS)
+
+
+def run_config4(dev, smi: str) -> None:
+    """BASELINE config 4 at 256^3: 8 synthetic 128^3 bricks -> the hashed
+    kd-tree, built natively on the host (``csrc/hashed_build.cu``) -> its
+    chunked decode on the card -> a TF fit of 5 steps through B4 at 1024^2
+    against a 0.5-gray target.  The decode equals the same function on CPU
+    tensors, flat and chunked; at 64^3 it equals the host ``level_cut``; the
+    native builder equals the Python one at 16x32x16 and 32^3; B4 on the
+    decoded volume matches its plain version within the TF bar; the losses
+    fall; B4 launched once per step."""
+    from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
+    from volumerenderer_tpu_torch.codecs import hashed as HC
+    from volumerenderer_tpu_torch.diff import closed_form as CF
+    from volumerenderer_tpu_torch.io.bricks import BrickGrid, load_bricks, synthetic_brick_source
+    from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
+    from volumerenderer_tpu_torch.models import plan_compositing
+    from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
+    from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import quantize_u8
+
+    # the native builder against the Python one
+    for shape in ((16, 32, 16), (32, 32, 32)):
+        v = turbulence_volume(shape, seed=5)
+        if not hashed_trees_equal(HC.build(v, CONFIG4_TOLERANCE, use_native=True),
+                                  HC.build(v, CONFIG4_TOLERANCE, use_native=False)):
+            raise AssertionError(f"the native hashed builder differs from the Python one at "
+                                 f"{shape}")
+    # at 64^3 (32^3 bricks) the device decode against the host level cut
+    g64 = BrickGrid(brick_dims=(32, 32, 32), grid=(2, 2, 2))
+    small = load_bricks(synthetic_brick_source(g64), g64, 8, 2, 2, 2, CONFIG4_TIMESTEP)
+    t64 = HC.build(small, CONFIG4_TOLERANCE)
+    t0 = time.perf_counter()
+    host64 = HC.level_cut(t64)
+    host64_s = time.perf_counter() - t0
+    dev64 = HC.level_cut_device_hashed(t64, HC.to_device_hashed(t64, dev))
+    if not np.array_equal(dev64.cpu().numpy(), host64):
+        raise AssertionError("64^3: the hashed device decode differs from the host level_cut")
+
+    grid = BrickGrid(brick_dims=CONFIG4_BRICK, grid=(2, 2, 2))
+    t0 = time.perf_counter()
+    multi = load_bricks(synthetic_brick_source(grid), grid, 8, 2, 2, 2, CONFIG4_TIMESTEP)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = HC.build(multi, CONFIG4_TOLERANCE)  # native on a machine with a CUDA device
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dtree = HC.to_device_hashed(tree, dev)
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    holder = {}
+    cold_ms = once_ms(lambda: holder.setdefault("cut", HC.level_cut_device_hashed(tree, dtree)))
+    dec = holder["cut"]
+    warm_ms = time_ms(lambda: HC.level_cut_device_hashed(tree, dtree))
+    flat = HC.level_cut_device_hashed(tree, dtree, chunk_bits=tree.orig_depth)
+    flat_ms = time_ms(lambda: HC.level_cut_device_hashed(tree, dtree, chunk_bits=tree.orig_depth))
+    cpu_tree = HC.to_device_hashed(tree, "cpu")
+    t0 = time.perf_counter()
+    cpu_chunked = HC.level_cut_device_hashed(tree, cpu_tree)
+    cpu_chunked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_flat = HC.level_cut_device_hashed(tree, cpu_tree, chunk_bits=tree.orig_depth)
+    cpu_flat_s = time.perf_counter() - t0
+    dec_cpu = dec.cpu()
+    if dec.shape != tuple(VOLUME) or not (torch.equal(flat.cpu(), dec_cpu)
+                                          and torch.equal(cpu_chunked, dec_cpu)
+                                          and torch.equal(cpu_flat, dec_cpu)):
+        raise AssertionError("256^3: the hashed decode on the card differs from the same "
+                             "decode on CPU tensors or from its flat form")
+    err = (dec_cpu.to(torch.int32) - torch.from_numpy(multi).to(torch.int32)).abs()
+    del cpu_tree, cpu_chunked, cpu_flat, flat
+
+    vol = as_normalized_volume(dec)
+    rays = generate_rays(Camera(width=W, height=H), device=dev)
+    plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, VOLUME[::-1])
+    reference = TFParams.reference(dev)
+    # B4 on the decoded volume against its plain version
+    tf = CF.tf_scalars(reference)
+    k = TK.tf_march_f32_cuda(vol, plan.entry_uv, plan.dir_step, plan.hit, tf)
+    p = CF.tf_march_steps(as_normalized_volume(quantize_u8(vol)), plan.entry_uv, plan.dir_step,
+                          plan.hit.bool(), tf)
+    torch.cuda.synchronize()
+    res = compare(k[:2], p[:2], W * H)
+    rel = torch.stack([(a - b).abs() / torch.clamp(b.abs(), min=1.0)
+                       for a, b in zip(k[2:], p[2:])]).amax(dim=0)
+    if float(rel.max()) > CONFIG4_TF_RTOL:
+        raise AssertionError(f"config4: B4's sums on the decoded volume differ from the plain "
+                             f"version's by {float(rel.max())} relative (bar {CONFIG4_TF_RTOL})")
+
+    # the fit, as a user drives it; the counts cover exactly these steps
+    target = torch.full((H, W, 3), 0.5, device=dev)
+    f_tf = TK.make_render_tf_kernel(plan)
+    TK.tf_march_f32_cuda.launches = 0
+    TK.tf_march_cuda.launches = 0
+    params, losses, step_ms = reference, [], []
+    for _ in range(FIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = TK.tf_fit_step_fast(f_tf, params, vol, target, lr=FIT_LR)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = {"tf_march_f32": TK.tf_march_f32_cuda.launches,
+                "tf_march": TK.tf_march_cuda.launches}
+    if launches != {"tf_march_f32": FIT_STEPS, "tf_march": 0}:
+        raise AssertionError(f"config4: {FIT_STEPS} fit steps launched {launches}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"config4: the fit's losses {losses} do not decrease")
+    emit({"phase": "config4", "volume": list(VOLUME), "bricks": 8,
+          "brick_dims": list(CONFIG4_BRICK), "timestep": CONFIG4_TIMESTEP,
+          "tolerance": CONFIG4_TOLERANCE, "load_s": load_s, "build_s": build_s,
+          "builder": "native", "collisions": tree.num_collisions, "orig_depth": tree.orig_depth,
+          "tree_depth": tree.tree_depth, "upload_ms": upload_ms,
+          "decode_cold_ms": cold_ms, "decode_warm_ms": warm_ms, "decode_flat_warm_ms": flat_ms,
+          "decode_cpu_chunked_s": cpu_chunked_s, "decode_cpu_flat_s": cpu_flat_s,
+          "decode_equal_cpu_flat_and_chunked": True, "decode_max_err": int(err.max()),
+          "decode_mean_err": float(err.double().mean()),
+          "decode_64_equal_host_level_cut": True, "host_level_cut_64_s": host64_s,
+          "native_equal_python": ["16x32x16", "32x32x32"], "b4_vs_plain": res,
+          "b4_sums_max_rel_err": float(rel.max()), "hw": [H, W], "fit_losses": losses,
+          "fit_lr": FIT_LR, "fit_step_ms": step_ms, "launches": launches, "gpu": smi})
+
+
+def run_device_build(dev, smi: str, source: np.ndarray, tree, host_build_s: float,
+                     bundles) -> None:
+    """``build_device`` of the codec phase's 256^3 source on the card: in
+    exact-seed mode equal to the host ``kdtree.build`` tree (``tree``)
+    array for array, its orbit frame 0 through ``CompressedRenderer(...)
+    .make_plan(pooled=True)`` (B7) equal to the host tree's; in parallel
+    mode held by quality."""
+    from volumerenderer_tpu_torch.codecs import kdtree as KT
+    from volumerenderer_tpu_torch.codecs.device_build import build_device
+    from volumerenderer_tpu_torch.models import CompressedRenderer
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+
+    seconds = {}
+    trees = {}
+    for mode in ("exact", "parallel"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trees[mode] = build_device(source, tolerance=TREE_TOLERANCE, max_epochs=TREE_EPOCHS,
+                                   seed_mode=mode, device=dev)
+        seconds[mode] = time.perf_counter() - t0
+    got = trees["exact"]
+    pairs = [(got.distance_map, tree.distance_map), (got.chain_codes, tree.chain_codes),
+             (got.leaf_recon, tree.leaf_recon), *zip(got.level_codes, tree.level_codes)]
+    if got.num_active_nodes != tree.num_active_nodes or len(got.level_codes) != \
+            len(tree.level_codes) or not all(np.array_equal(a, b) for a, b in pairs):
+        raise AssertionError("build_device (exact seed) differs from kdtree.build")
+    err = {m: KT.measure_mean_error(KT.level_cut(t), source)
+           for m, t in (("host", tree), ("parallel", trees["parallel"]))}
+    if not err["parallel"] <= err["host"] * 1.25 + 0.5:
+        raise AssertionError(f"build_device (parallel seed): mean error {err['parallel']} "
+                             f"against the host build's {err['host']}")
+    want = CompressedRenderer(tree, dev).make_plan(bundles[0], pooled=True)()
+    RK.composite_march_pooled_pair16_cuda.launches = 0
+    frame = CompressedRenderer(got, dev).make_plan(bundles[0], pooled=True)()
+    torch.cuda.synchronize()
+    b7 = RK.composite_march_pooled_pair16_cuda.launches
+    if b7 != 1 or not all(torch.equal(x, y) for x, y in zip(frame, want)) \
+            or not bool(torch.isfinite(frame[0]).all()):
+        raise AssertionError(f"build_device's tree: frame 0 differs from the host tree's, or "
+                             f"B7 launched {b7} times")
+    emit({"phase": "device_build", "volume": list(VOLUME), "tolerance": TREE_TOLERANCE,
+          "max_epochs": TREE_EPOCHS, "build_device_exact_s": seconds["exact"],
+          "build_device_parallel_s": seconds["parallel"], "host_build_s": host_build_s,
+          "exact_equal_to_host_build": True,
+          "distance_map_parallel": trees["parallel"].distance_map.tolist(),
+          "distance_map_exact": got.distance_map.tolist(),
+          "mean_err": err, "frame0_equal_to_host_tree": True,
+          "launches": {"composite_march_pooled_pair16": b7}, "gpu": smi})
+
+
+def run_octree(dev, smi: str, source: np.ndarray, bundles) -> None:
+    """``octree.build`` of the 256^3 source on the host, its level cuts at
+    depths 3, 6 and 8, and the depth-6 cut rendered through the compositing
+    plan (B1) on orbit frame 0, bit-equal to its plain march."""
+    from volumerenderer_tpu_torch import as_normalized_volume
+    from volumerenderer_tpu_torch.codecs import octree as OC
+    from volumerenderer_tpu_torch.models import plan_compositing
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
+
+    t0 = time.perf_counter()
+    ot = OC.build(source)
+    build_s = time.perf_counter() - t0
+    cuts, cut_s, err = {}, {}, {}
+    for d in OCTREE_CUTS:
+        t0 = time.perf_counter()
+        cuts[d] = OC.level_cut(ot, d)
+        cut_s[d] = time.perf_counter() - t0
+        err[d] = float(np.abs(cuts[d].astype(np.int32) - source.astype(np.int32)).mean())
+    if not np.array_equal(OC.level_cut(ot, ot.depth), source) \
+            or any(c.shape != source.shape for c in cuts.values()):
+        raise AssertionError("octree: the full-depth cut is not the source")
+    vol = as_normalized_volume(cuts[OCTREE_RENDER_CUT], device=dev)
+    r0 = bundles[0]
+    plan = plan_compositing(r0.entry_uv, r0.direction, r0.hit, VOLUME[::-1])
+    RK.composite_march_f32_cuda.launches = 0
+    rgb, alpha = plan.render(vol)
+    torch.cuda.synchronize()
+    b1 = RK.composite_march_f32_cuda.launches
+    c_p, a_p = composite_march_steps(as_normalized_volume(RK.quantize_u8(vol)), plan.entry_uv,
+                                     plan.dir_step, plan.hit.bool(), plan.max_samples)
+    if b1 != 1 or not (torch.equal(rgb, apply_reference_transfer(c_p, a_p))
+                       and torch.equal(alpha, a_p)):
+        raise AssertionError(f"octree: the depth-{OCTREE_RENDER_CUT} frame differs from its "
+                             f"plain march, or B1 launched {b1} times")
+    emit({"phase": "octree", "volume": list(VOLUME), "depth": ot.depth,
+          "node_count": ot.node_count(), "build_s": build_s,
+          "level_cut_s": {str(d): cut_s[d] for d in OCTREE_CUTS},
+          "mean_err": {str(d): err[d] for d in OCTREE_CUTS},
+          "render_cut": OCTREE_RENDER_CUT, "frame_bit_equal_plain": True,
+          "alpha_sum": float(alpha.sum()), "launches": {"composite_march_f32": b1},
+          "gpu": smi})
 
 
 def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
@@ -2397,10 +2647,11 @@ def main() -> int:
     # 2. build the kernels from the checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
     _build.load_many(["composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad",
-                      "kdtree_seed", "seg_march"])
+                      "kdtree_seed", "seg_march", "hashed_build"])
     libraries = {"composite_march": RK.load_kernel(), **IK.load_kernels(),
                  "tf_march": TK.load_kernel(), "voxel_grad": VK.load_kernel(),
-                 "kdtree_seed": _build.load("kdtree_seed"), "seg_march": SK.load_kernel()}
+                 "kdtree_seed": _build.load("kdtree_seed"), "seg_march": SK.load_kernel(),
+                 "hashed_build": _build.load("hashed_build")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": {
         name: {"nvcc_seconds": built.build_seconds,
                "library": str(built.path.relative_to(HERE)),
@@ -2606,13 +2857,16 @@ def main() -> int:
     iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles, adversarial)
     grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles, samples, touched,
                                  adversarial)
-    pooled_kernels, tree, source = run_compressed(dev, smi, turb, sphere, cameras, bundles,
-                                                  {k["name"]: k for k in (b1, *iso_kernels)},
-                                                  samples)
+    pooled_kernels, tree, source, tree_build_s = run_compressed(
+        dev, smi, turb, sphere, cameras, bundles, {k["name"]: k for k in (b1, *iso_kernels)},
+        samples)
     bind_kernels = run_composite_bind(dev, smi, turb, sphere, bundles)
     run_skip_empty(dev, smi, tree, turb, bundles)
     run_diff_finetune(dev, smi, tree, turb, bundles)
     run_midrange(dev, smi, source, tree, bundles)
+    run_config4(dev, smi)
+    run_device_build(dev, smi, source, tree, tree_build_s, bundles)
+    run_octree(dev, smi, source, bundles)
     sharded_kernels = run_sharded(dev, smi, turb, sphere, cameras, bundles)
 
     emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *bind_kernels,

@@ -6,9 +6,11 @@ reference compositing and isosurface renders and the differentiable TF render
 (``diff``); the compositing march, the isosurface march and shade, and the
 TF-gradient and voxel-gradient marches also run as hand-written CUDA kernels
 for Hopper (``ops/cuda``, ``csrc/``), built with ``nvcc`` at first use.
-The compressed domain (``codecs``: the kd-tree built on the host, decoded on
-the device) renders through ``CompressedRenderer`` from sparse slab pools,
-with pooled variants of the same kernels.  ``parallel`` shards the image
+The compressed domain (``codecs``: the kd-tree built on the host or with its
+passes on the device, decoded on the device; the mid-range, Morton-hashed
+and octree codecs) renders through ``CompressedRenderer`` from sparse slab
+pools, with pooled variants of the same kernels; ``io.bricks`` assembles
+bricked volumes.  ``parallel`` shards the image
 rows, or the volume in z slabs or bricks, over a mesh of devices; inside a
 volume shard the segment marches run.  It imports neither jax nor
 ``volumerenderer_tpu``.

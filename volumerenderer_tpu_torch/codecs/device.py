@@ -148,21 +148,35 @@ def _level_cut_chunked_impl(dtree: DeviceKdTree, spec_key, cut_depth: int, K: in
     coordinate, so chunk c is a contiguous (bZ, bY, bX) box of the output and
     a contiguous run of every deeper level's codes."""
     dims, orig_depth, max_depth, schedule, chain_len = spec_key
-    X, Y, Z = dims
-    sched = list(schedule)
     scalars, frozen = _top_levels(dtree, K, cut_depth)
 
+    def group(c0, g):
+        return _descend(dtree, spec_key, cut_depth, K, scalars[c0:c0 + g], frozen[c0:c0 + g], c0)
+
+    return _place_chunks(dims, schedule, K, group, scalars.device)
+
+
+def _place_chunks(dims, schedule, K: int, decode_group, device,
+                  group_leaf_bits: int = CHUNK_GROUP_LEAF_BITS) -> torch.Tensor:
+    """The (Z, Y, X) uint8 volume from its depth-K chunks: ``decode_group(c0,
+    g)`` gives the leaf scalars of chunks c0 .. c0 + g − 1 in breadth-first
+    leaf order, g chunks holding up to 2^group_leaf_bits leaves; each chunk
+    is a (bZ, bY, bX) box, put in place by tensors of at most D − K + 1
+    dims.  Shared with the hashed codec's decode."""
+    X, Y, Z = dims
+    sched = list(schedule)
+    orig_depth = len(sched)
     pfx, tfx = sched[:K], sched[K:]
     gX, gY, gZ = 1 << pfx.count(0), 1 << pfx.count(1), 1 << pfx.count(2)
     bX, bY, bZ = X // gX, Y // gY, Z // gZ
     C = 1 << K
     perm_T, _ = _leaf_axes_perm(bX, bY, bZ, tfx)
     inv_T = [1 + int(i) for i in np.argsort(perm_T)]
-    group = 1 << max(0, CHUNK_GROUP_LEAF_BITS - (orig_depth - K))
-    boxes = torch.empty((C, bZ, bY, bX), dtype=torch.uint8, device=scalars.device)
+    group = 1 << max(0, group_leaf_bits - (orig_depth - K))
+    boxes = torch.empty((C, bZ, bY, bX), dtype=torch.uint8, device=device)
     for c0 in range(0, C, group):
         g = min(group, C - c0)
-        s = _descend(dtree, spec_key, cut_depth, K, scalars[c0:c0 + g], frozen[c0:c0 + g], c0)
+        s = decode_group(c0, g)
         box = s.to(torch.uint8).reshape((g,) + (2,) * (orig_depth - K)).permute([0] + inv_T)
         boxes[c0:c0 + g] = box.reshape(g, bZ, bY, bX)
     # chunk index -> (gz, gy, gx) grid position (breadth-first over pfx)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["KdTree", "build", "level_cut", "split_schedule", "volume_to_leaves",
-           "leaves_to_volume", "encode_level", "seed_level", "gd_fit_level",
+           "leaves_to_volume", "encode_level", "seed_level", "gd_fit_level", "fit_distance",
            "measure_max_error", "measure_mean_error", "ADD_LEVEL_DISTANCES",
            "MAX_ADD_LEVELS", "NO_NODE"]
 
@@ -193,12 +193,22 @@ def _mean_sq_err(truth: np.ndarray, parent: np.ndarray, distance: int) -> float:
 
 def gd_fit_level(truth: np.ndarray, parent: np.ndarray, max_epochs: int,
                  seed_distance: float):
-    """Gradient descent on Δ for one level (``VolumeKdTree_recover.cpp:271-369``):
-    revert on an error increase with step halving, stop on a re-quantized
-    repeat, central difference at Δ±1, step = clamp(−γ·DF, ±4).
+    """Gradient descent on Δ for one level (``VolumeKdTree_recover.cpp:271-369``,
+    :func:`fit_distance`) on the host.
 
     Returns (distance, codes, recon), the codes and recon from a final encode
     at the chosen Δ."""
+    distance = fit_distance(lambda d: _mean_sq_err(truth, parent, d), max_epochs, seed_distance)
+    codes, recon, _ = encode_level(truth, parent, distance)
+    return distance, codes, recon
+
+
+def fit_distance(mean_sq_err, max_epochs: int, seed_distance: float) -> int:
+    """The gradient descent on Δ, given the level's mean squared error as a
+    function of an integer Δ: revert on an error increase with step
+    halving, stop on a re-quantized repeat, central difference at Δ±1,
+    step = clamp(−γ·DF, ±4).  Shared by the host build and
+    ``codecs/device_build.py``, whose errors are evaluated on the device."""
     epoch = 0
     current_distance = seed_distance
     previous_distance = 0.0
@@ -217,7 +227,7 @@ def gd_fit_level(truth: np.ndarray, parent: np.ndarray, max_epochs: int,
             if current_distance == previous_distance:
                 break
 
-        current_error = _mean_sq_err(truth, parent, int(current_distance))
+        current_error = mean_sq_err(int(current_distance))
 
         if current_error < 1.0:
             break
@@ -232,15 +242,13 @@ def gd_fit_level(truth: np.ndarray, parent: np.ndarray, max_epochs: int,
 
         lo = int(max(0.0, current_distance - H))
         hi = int(min(255.0, current_distance + H))
-        err_lo = _mean_sq_err(truth, parent, lo)
-        err_hi = _mean_sq_err(truth, parent, hi)
+        err_lo = mean_sq_err(lo)
+        err_hi = mean_sq_err(hi)
         current_df = (err_hi - err_lo) / (2.0 * H)
         current_step = max(-MAX_ABS_STEP, min(MAX_ABS_STEP, -GAMMA * current_df))
         epoch += 1
 
-    distance = int(current_distance)
-    codes, recon, _ = encode_level(truth, parent, distance)
-    return distance, codes, recon
+    return int(current_distance)
 
 
 @dataclasses.dataclass

@@ -4,8 +4,8 @@ The renderer's inputs play the part of a model's weights: a volume, a ray
 bundle, the transfer-function parameters and a compressed kd-tree.  A JAX
 run hands them over as numpy arrays (``np.asarray`` of its jax arrays) and
 its camera and trees as the fields of their dataclasses; these functions turn
-them into the port's tensors, ``Camera``, ``TFParams``, ``KdTree`` and
-``MidRangeTree``.
+them into the port's tensors, ``Camera``, ``TFParams``, ``KdTree``,
+``MidRangeTree``, ``HashedKdTree`` and ``Octree``.
 """
 from __future__ import annotations
 
@@ -15,13 +15,16 @@ import torch
 import dataclasses
 
 from .camera import Camera, RayBundle
+from .codecs.hashed import HashedKdTree
 from .codecs.kdtree import KdTree
 from .codecs.midrange import MidRangeTree
+from .codecs.octree import Octree
 from .diff.transfer import TFParams
 from .ops.sampling import as_normalized_volume
 
 __all__ = ["volume_from_numpy", "rays_from_numpy", "camera_from_jax_fields",
-           "tf_params_from_numpy", "kdtree_from_numpy", "midrange_from_numpy"]
+           "tf_params_from_numpy", "kdtree_from_numpy", "midrange_from_numpy",
+           "hashed_from_numpy", "octree_from_numpy"]
 
 
 def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
@@ -76,13 +79,17 @@ def tf_params_from_numpy(device: torch.device | str = "cuda", **fields) -> TFPar
     return TFParams(**out)
 
 
+def _check_fields(cls, fields) -> None:
+    names = {f.name for f in dataclasses.fields(cls)}
+    if set(fields) != names:
+        raise TypeError(f"expected the fields {sorted(names)}, got {sorted(fields)}")
+
+
 def kdtree_from_numpy(**fields) -> KdTree:
     """``kdtree_from_numpy(**dataclasses.asdict(jax_tree))``: a JAX-built
     ``KdTree`` as the port's, its arrays copied.  Every field is required;
     an unknown one raises ``TypeError``."""
-    names = {f.name for f in dataclasses.fields(KdTree)}
-    if set(fields) != names:
-        raise TypeError(f"expected the fields {sorted(names)}, got {sorted(fields)}")
+    _check_fields(KdTree, fields)
 
     def copy(a, dtype):
         return None if a is None else np.array(a, dtype=dtype)
@@ -106,9 +113,7 @@ def midrange_from_numpy(**fields) -> MidRangeTree:
     midpoint channel's fields as a dict (what ``dataclasses.asdict`` makes
     of it; see :func:`kdtree_from_numpy`) or a port ``KdTree``.  Every field
     is required; an unknown one raises ``TypeError``."""
-    names = {f.name for f in dataclasses.fields(MidRangeTree)}
-    if set(fields) != names:
-        raise TypeError(f"expected the fields {sorted(names)}, got {sorted(fields)}")
+    _check_fields(MidRangeTree, fields)
     mid = fields["mid"]
     if not isinstance(mid, KdTree):
         mid = kdtree_from_numpy(**mid)
@@ -122,3 +127,29 @@ def midrange_from_numpy(**fields) -> MidRangeTree:
         range_chain_codes=copy(fields["range_chain_codes"], np.uint8),
         leaf_recon_range=copy(fields["leaf_recon_range"], np.int32),
         leaf_truth_range=copy(fields["leaf_truth_range"], np.int32))
+
+
+def hashed_from_numpy(**fields) -> HashedKdTree:
+    """``hashed_from_numpy(**dataclasses.asdict(jax_tree))``: a JAX-built
+    ``HashedKdTree`` as the port's, its arrays copied.  Every field is
+    required; an unknown one raises ``TypeError``."""
+    _check_fields(HashedKdTree, fields)
+    arrays = {"distance_map": np.uint8, "tree_data": np.uint8, "tree_structure": np.uint8,
+              "coll_keys": np.int64, "coll_vals": np.int32, "coll_data": np.uint8,
+              "coll_structure": np.uint8}
+    return HashedKdTree(
+        dims=tuple(int(d) for d in fields["dims"]), orig_depth=int(fields["orig_depth"]),
+        tree_depth=int(fields["tree_depth"]), hash_mask=int(fields["hash_mask"]),
+        tolerance=int(fields["tolerance"]),
+        **{k: np.array(fields[k], dtype=t) for k, t in arrays.items()})
+
+
+def octree_from_numpy(**fields) -> Octree:
+    """``octree_from_numpy(**dataclasses.asdict(jax_tree))``: a JAX-built
+    ``Octree`` as the port's, its level arrays copied.  Every field is
+    required; an unknown one raises ``TypeError``."""
+    _check_fields(Octree, fields)
+    return Octree(dims=tuple(int(d) for d in fields["dims"]),
+                  start_depth=int(fields["start_depth"]), depth=int(fields["depth"]),
+                  split_dims=[int(a) for a in fields["split_dims"]],
+                  level_scalars=[np.array(s, dtype=np.uint8) for s in fields["level_scalars"]])

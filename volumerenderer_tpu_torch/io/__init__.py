@@ -1,1 +1,2 @@
-"""Host-side volume sources for the PyTorch port."""
+"""Host-side volume sources for the PyTorch port: synthetic volumes
+(``synthetic``) and bricked loads (``bricks``)."""
