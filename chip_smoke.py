@@ -58,7 +58,18 @@ calls:
 * ``codecs.device_build.build_device`` of the 256^3 source on the card,
   equal to the host build, its frame through ``CompressedRenderer`` (B7);
   ``codecs.octree.build`` and its depth-6 cut through the compositing plan
-  (B1).
+  (B1);
+* the application layer: the compressed phase's tree through its
+  checkpoint file (``codecs.kdtree.save`` -> ``open_tree_full``, the inverse
+  walk in ``csrc/kdtree_native.cu``, host code) and the native
+  ``decode_preorder`` and ``build_arbitrary`` (volumes whose sides are not
+  powers of two) against their Python versions; ``app.run(AppConfig())`` at
+  its defaults in both render modes (the 256^3 turbulence of seed 273, the
+  kd-tree at tolerance 6, 1600x1200, each frame one call of the pooled plan:
+  B7, or B8 and the pooled shade), a frame under ``utils.timer.timed(...,
+  profile=True)``; BASELINE config 5 through ``io.streaming.TimestepStreamer``
+  (4 timesteps of 8 synthetic 128^3 bricks, a brick-sharded render, B10,
+  and a TF step, B11, per timestep), then resumed from its checkpoints.
 
 On the way it builds the kernels from ``volumerenderer_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -76,7 +87,8 @@ vg_tile, grad_launch_count, then codec, decode, pools, pooled_parity,
 pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
 then composite_bind (one per field), skip_empty, diff_finetune, midrange,
 config4, device_build, octree, then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
-sharded_timing, seg_starts, sharded_layers, sharded_launch_count).
+sharded_timing, seg_starts, sharded_layers, sharded_launch_count, then checkpoint, app (one per
+render mode) and config5).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
 kernels line's ``max_abs_err`` is over the parity cases, kernel against
@@ -89,11 +101,14 @@ it exits non-zero and prints no result.  Any failed check raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -139,6 +154,11 @@ CONFIG4_TF_RTOL = 2e-3
 HASHED_FIELDS = ("distance_map", "tree_data", "tree_structure", "coll_keys", "coll_vals",
                  "coll_data", "coll_structure")
 OCTREE_CUTS, OCTREE_RENDER_CUT = (3, 6, 8), 6
+# the app and tooling: the checkpoint's native builds on (Z, Y, X) volumes
+# whose sides are not powers of two; app.run at its defaults; config 5
+CHECKPOINT_SMALL, CHECKPOINT_LARGE, CHECKPOINT_SEED = (12, 20, 24), (96, 160, 192), 7
+APP_FRAMES, APP_COMP_BAR, APP_ISO_BAR, PROFILE_WARM_KERNELS = 16, 6e-7, 5e-3, 300
+CONFIG5_TIMESTEPS, CONFIG5_BRICK, CONFIG5_TOLERANCE = (270, 271, 272, 273), (128, 128, 128), 4
 POOLED_SOURCES = {"composite_march_pooled_narrow": KERNEL_SOURCE,
                   "composite_march_pooled_pair16": KERNEL_SOURCE,
                   "iso_march_pooled_narrow": ISO_SOURCES["iso_march"],
@@ -2233,6 +2253,317 @@ def run_octree(dev, smi: str, source: np.ndarray, bundles) -> None:
           "gpu": smi})
 
 
+def run_checkpoint(dev, smi: str, tree, source: np.ndarray, work: Path) -> None:
+    """The codec phase's 256^3 tree through its checkpoint file:
+    ``kdtree.save``, ``open_tree_full`` (the native inverse walk, verified by
+    serializing again), equal to the tree array for array; the native
+    ``decode_preorder`` of the file's stream at ``max_depth`` equal to the
+    host ``level_cut`` and to the device decode of the opened tree; the
+    native ``build_arbitrary`` equal to ``SequentialKdTree.build`` on a
+    24x20x12 volume, and timed on a 192x160x96 one (neither side a power of
+    two but 160 = 5 x 32)."""
+    from volumerenderer_tpu_torch.codecs import device as CD
+    from volumerenderer_tpu_torch.codecs import kdtree as KT
+    from volumerenderer_tpu_torch.codecs import reference_impl as RI
+    from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
+
+    path = work / "tree_256.bin"
+    t0 = time.perf_counter()
+    KT.save(tree, str(path))
+    save_s = time.perf_counter() - t0
+    want_bytes = KT.FILE_HEADER.size + tree.max_depth + 1 + (tree.num_active_nodes + 3) // 4
+    t0 = time.perf_counter()
+    opened = KT.open_tree_full(str(path))   # the native walk on a machine with a CUDA device
+    open_s = time.perf_counter() - t0
+    raw = KT.open_tree(str(path))
+    t0 = time.perf_counter()
+    KT.preorder_to_levels(raw["preorder"], tree.orig_depth, tree.max_depth, use_native=True)
+    walk_s = time.perf_counter() - t0
+    pairs = [(opened.distance_map, tree.distance_map), (opened.chain_codes, tree.chain_codes),
+             *zip(opened.level_codes, tree.level_codes)]
+    if path.stat().st_size != want_bytes or opened.num_active_nodes != tree.num_active_nodes \
+            or len(opened.level_codes) != len(tree.level_codes) \
+            or list(opened.schedule) != list(tree.schedule) \
+            or not all(np.array_equal(a, b) for a, b in pairs):
+        raise AssertionError("checkpoint: the opened tree differs from the saved one")
+    X, Y, Z = tree.dims
+    t0 = time.perf_counter()
+    native_cut = RI.decode_preorder(raw["preorder"], raw["distance_map"], X, Y, Z,
+                                    tree.orig_depth, tree.max_depth, tree.max_depth)
+    decode_s = time.perf_counter() - t0
+    host_cut = KT.level_cut(tree)
+    device_cut = CD.level_cut_device(*CD.to_device(opened, dev)).cpu().numpy()
+    if not (np.array_equal(native_cut, host_cut) and np.array_equal(device_cut, host_cut)):
+        raise AssertionError("checkpoint: the native decode_preorder, the host level_cut and "
+                             "the device decode of the opened tree differ")
+
+    small = turbulence_volume(CHECKPOINT_SMALL, seed=CHECKPOINT_SEED)
+    Zs, Ys, Xs = small.shape
+    seq = RI.SequentialKdTree(small.reshape(-1), Xs, Ys, Zs, 6, 5)
+    t0 = time.perf_counter()
+    seq.build()
+    seq_s = time.perf_counter() - t0
+    nat = RI.build_arbitrary(small, 6, 5)   # native on a machine with a CUDA device
+    if (nat.num_active_nodes, nat.orig_depth) != (seq.num_active_nodes, seq.orig_depth) or \
+            not all(np.array_equal(getattr(nat, f), getattr(seq, f))
+                    for f in ("distance_map", "preorder", "recon")):
+        raise AssertionError(f"checkpoint: the native build_arbitrary differs from "
+                             f"SequentialKdTree.build at {CHECKPOINT_SMALL[::-1]}")
+    large = turbulence_volume(CHECKPOINT_LARGE, seed=CHECKPOINT_SEED)
+    t0 = time.perf_counter()
+    big = RI.build_arbitrary(large, 6, 5)
+    big_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_cut = big.level_cut(big.max_depth)
+    big_decode_s = time.perf_counter() - t0
+    emit({"phase": "checkpoint", "volume": list(VOLUME), "file_bytes": path.stat().st_size,
+          "num_active_nodes": tree.num_active_nodes, "save_s": save_s,
+          "open_tree_full_s": open_s, "open_tree_full_walk": "native, verified",
+          "native_preorder_to_levels_s": walk_s, "opened_equal_saved": True,
+          "native_decode_preorder_s": decode_s, "native_decode_equal_host_and_device": True,
+          "build_arbitrary_small_xyz": list(CHECKPOINT_SMALL[::-1]),
+          "sequential_build_s": seq_s, "native_equal_sequential": True,
+          "build_arbitrary_large_xyz": list(CHECKPOINT_LARGE[::-1]),
+          "native_build_s": big_s, "native_build_nodes": big.num_active_nodes,
+          "native_build_err": {"max": int(np.abs(big_cut.astype(np.int32) - large).max()),
+                               "mean": float(np.abs(big_cut.astype(np.int32) - large).mean())},
+          "native_decode_large_s": big_decode_s, "gpu": smi})
+
+
+def trace_kernels(trace_file: str) -> dict:
+    """Device kernels of a Chrome trace by name: how many launches each."""
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "")[:60]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def run_app(dev, smi: str, work: Path) -> None:
+    """``app.run(AppConfig(), num_frames=APP_FRAMES)`` in both render
+    modes, as a user calls it: the 256^3 turbulence of seed 273 (the
+    timestep), the kd-tree at tolerance 6 with 5 epochs, cut at its full
+    depth, the 1600x1200 window; compositing marches 300 samples, the
+    isosurface is at 40/255.  Each frame is one plan call: B7, or B8 and the
+    pooled shade, and no other march.  Then, on the tree opened from the
+    file ``run`` saved: frame 0 bit-equal to the plain pooled march, within
+    the plain path's bars (``use_pallas_kernel=False``), a frame by CUDA
+    events and two frames under ``timed(profile=True)``."""
+    from volumerenderer_tpu_torch import app as TA
+    from volumerenderer_tpu_torch import generate_rays
+    from volumerenderer_tpu_torch.codecs import kdtree as KT
+    from volumerenderer_tpu_torch.config import AppConfig, RenderConfig
+    from volumerenderer_tpu_torch.models import CompressedRenderer
+    from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.isosurface import iso_march_steps, shade_hits
+    from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
+    from volumerenderer_tpu_torch.ops.sampling import slab_pool_sampler
+    from volumerenderer_tpu_torch.utils.timer import DebugTimer, timed
+
+    counted = {"composite_march_pooled_pair16": RK.composite_march_pooled_pair16_cuda,
+               "composite_march_pooled_narrow": RK.composite_march_pooled_narrow_cuda,
+               "composite_march_f32": RK.composite_march_f32_cuda,
+               "composite_march": RK.composite_march_cuda,
+               "iso_march_pooled_narrow": IK.iso_march_pooled_narrow_cuda,
+               "iso_march_pooled_pair16": IK.iso_march_pooled_pair16_cuda,
+               "iso_march": IK.iso_march_cuda, "iso_shade_pooled": IK.iso_shade_pooled_cuda,
+               "iso_shade": IK.iso_shade_cuda}
+    for mode in ("compositing", "isosurface"):
+        cfg = AppConfig(render=RenderConfig(render_mode=mode),
+                        tree_path=str(work / f"app_{mode}.bin"))
+        for f in counted.values():
+            f.launches = 0
+        DebugTimer.reset()
+        t0 = time.perf_counter()
+        frames, metrics = TA.run(cfg, num_frames=APP_FRAMES, save_tree=True, device=dev)
+        run_s = time.perf_counter() - t0
+        launches = {name: f.launches for name, f in counted.items() if f.launches}
+        want = {"composite_march_pooled_pair16": APP_FRAMES} if mode == "compositing" else \
+            {"iso_march_pooled_narrow": APP_FRAMES, "iso_shade_pooled": APP_FRAMES}
+        cam = cfg.render.camera
+        if launches != want or len(frames) != APP_FRAMES or \
+                not all(f.shape == (cam.height, cam.width, 3) and np.isfinite(f).all()
+                        for f in frames):
+            raise AssertionError(f"app {mode}: {len(frames)} frames, launches {launches}, "
+                                 f"expected {want} and finite (H, W, 3) frames")
+
+        # the same tree from the file run saved: the plain pooled march, the
+        # plain path, the frame by events and under the profiler
+        tree = KT.open_tree_full(cfg.tree_path)
+        renderer = CompressedRenderer(tree, dev)
+        rays = generate_rays(cam, device=dev)
+        plan_call = TA.frame_renderer(cfg, renderer, rays)
+        frame0 = torch.from_numpy(frames[0]).to(dev)
+        if not torch.equal(plan_call()[0], frame0):
+            raise AssertionError(f"app {mode}: the saved tree's plan renders another frame 0")
+        fmt = "pair16" if mode == "compositing" else "narrowf32"
+        sampler = slab_pool_sampler(*renderer.slab_pool_at(None, fmt), tree.dims)
+        rplan = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, tree.dims)
+        args = (rplan.entry_uv, rplan.dir_step, rplan.hit.bool())
+        plain_cfg = dataclasses.replace(
+            cfg, render=dataclasses.replace(cfg.render, use_pallas_kernel=False))
+        plain_rgb, plain_aux = TA.frame_renderer(plain_cfg, renderer, rays)()
+        n_px = cam.width * cam.height
+        allowed = KNIFE_PER_MPX * n_px / 2**20
+        if mode == "compositing":
+            c_p, a_p = composite_march_steps(sampler, *args, cfg.render.max_samples)
+            pooled_equal = bool(torch.equal(apply_reference_transfer(c_p, a_p), frame0))
+            d = (frame0 - plain_rgb).abs().amax(dim=-1)
+            bars = {"max_abs": float(d.max()), "px_beyond_6e-7": int((d > APP_COMP_BAR).sum()),
+                    "px_allowed": allowed}
+            ok = bars["px_beyond_6e-7"] <= allowed and bars["max_abs"] <= LOOSE
+        else:
+            iso = cfg.render.iso_value
+            f_p, t_p = iso_march_steps(sampler, *args, iso)
+            rgb_p = shade_hits(sampler, *args[:2], rplan.direction, f_p, t_p, iso)
+            pooled_equal = bool(torch.equal(rgb_p, frame0))
+            found_k = plan_call()[1]
+            agree = found_k == plain_aux
+            bars = {"px_found_differ": int((~agree).sum()), "px_allowed": allowed,
+                    "rgb_max_abs_where_found_agrees": float(
+                        ((frame0 - plain_rgb).abs().amax(dim=-1) * agree).max()),
+                    "hits": int(found_k.sum())}
+            ok = bars["px_found_differ"] <= allowed and \
+                bars["rgb_max_abs_where_found_agrees"] <= APP_ISO_BAR
+        if not pooled_equal or not ok:
+            raise AssertionError(f"app {mode}: frame 0 bit-equal to the plain pooled march "
+                                 f"{pooled_equal}; against use_pallas_kernel=False {bars}")
+        frame_event_ms = time_ms(plan_call)
+        # two frames in the profiled scope after PROFILE_WARM_KERNELS small
+        # kernels: on the H100 (torch 2.11), a profiler run that follows GPU
+        # work done while nothing was profiled can lose the records of its
+        # first kernels, all of them in a scope this small; 300 small kernels
+        # first lost 9 of their own and kept the frames
+        # (scripts/torch_profiler_probe.py)
+        with timed(f"app_{mode}_frames", profile=True, profile_dir=str(work / "trace")) as r:
+            scratch = torch.zeros(1, device=dev)
+            for _ in range(PROFILE_WARM_KERNELS):
+                scratch.add_(1.0)
+            for _ in range(2):
+                out = plan_call()
+            torch.cuda.synchronize()
+        kernels = trace_kernels(r["trace_file"])
+        march = "composite_march_kernel" if mode == "compositing" else "iso_march_kernel"
+        if not any(march in k for k in kernels) or (mode == "isosurface" and not any(
+                "iso_shade_kernel" in k for k in kernels)):
+            raise AssertionError(f"app {mode}: the profiled frame's trace names no {march}: "
+                                 f"{kernels}")
+        emit({"phase": "app", "mode": mode, "hw": [cam.height, cam.width],
+              "volume": list(cfg.dataset.synthetic_dims), "seed": cfg.dataset.timestep,
+              "tolerance": cfg.codec.tolerance, "max_epochs": cfg.codec.max_epochs,
+              "frames": APP_FRAMES, "run_s": run_s,
+              "build_s": DebugTimer.mean_ms("TOTAL_CONSTRUCTION") / 1e3,
+              "load_ms": DebugTimer.mean_ms("LOAD"), "plan_ms": DebugTimer.mean_ms("PLAN"),
+              "frame_ms_host_clock": metrics.values["frame_ms"], "frame_ms_events": frame_event_ms,
+              "metrics": metrics.values, "launches": launches,
+              "frame0_bit_equal_plain_pooled_march": pooled_equal, "vs_plain_path": bars,
+              "profiled_frames_s": r["seconds"], "trace_file": os.path.basename(r["trace_file"]),
+              "trace_kernels": kernels, "frame_sum": float(out[0].sum()), "gpu": smi})
+
+
+def run_config5(dev, smi: str, work: Path) -> None:
+    """BASELINE config 5 through ``TimestepStreamer``: timesteps 270-273,
+    each 8 synthetic turbulence bricks of 128^3 in a 2x2x2 grid (256^3),
+    the kd-tree at tolerance 4, 1 epoch, prefetch 2, checkpoints in a cache
+    directory; per timestep a 1024^2 render from the brick-sharded layout
+    (``render_bricksharded_kernel``, B10 once per brick) and one TF-gradient
+    step (``tf_fit_step_bricksharded``, B11 once per brick), the four
+    bricks on ``cuda:0``.  Each render lies within the sharded envelope
+    (``docs/PARITY.md`` deviation 6) of the unsharded B1 on the same volume;
+    the losses are finite.  Then a second pass resumes from the checkpoint
+    files: no brick is read, every renderer is a ``CompressedRenderer`` and
+    every image equals the first pass's."""
+    from volumerenderer_tpu_torch import Camera, TFParams, generate_rays
+    from volumerenderer_tpu_torch.io.bricks import BrickGrid, synthetic_brick_source
+    from volumerenderer_tpu_torch.io.streaming import TimestepStreamer
+    from volumerenderer_tpu_torch.models import CompressedRenderer, plan_compositing
+    from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK
+    from volumerenderer_tpu_torch.ops.raycast import ALPHA_SCALE, EARLY_OUT_ALPHA
+    from volumerenderer_tpu_torch.parallel import bricks as PB
+    from volumerenderer_tpu_torch.parallel import kernel_sharded as KS
+
+    grid = BrickGrid(brick_dims=CONFIG5_BRICK, grid=(2, 2, 2))
+    source = synthetic_brick_source(grid)
+    reads = []
+
+    def counting(b, t):
+        reads.append((b, t))
+        return source(b, t)
+
+    rays = generate_rays(Camera(width=W, height=H), device=dev)
+    plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, grid.volume_dims())
+    mesh = PB.make_brick_mesh(BRICKS)
+    target = torch.full((H, W, 3), 0.5, device=dev)
+    tau0 = 1.0 - EARLY_OUT_ALPHA
+    bars = {"rgb": tau0 / ALPHA_SCALE + 1e-5, "alpha": tau0 + 1e-5}
+    cache = work / "config5"
+    cache.mkdir()
+
+    def stream(src):
+        return TimestepStreamer(src, grid, CONFIG5_TIMESTEPS, num_bricks=8, I=2, J=2, K_bricks=2,
+                                tolerance=CONFIG5_TOLERANCE, max_epochs=1, prefetch=2,
+                                cache_dir=str(cache), device=dev)
+
+    params = TFParams.reference(dev)
+    images, steps, losses = {}, [], []
+    t_start = time.perf_counter()
+    t_prev = t_start
+    for t, renderer in stream(counting):
+        vol = renderer.volume_at()
+        SK.seg_march_cuda.launches = 0
+        SK.seg_tf_march_cuda.launches = 0
+        sv = PB.shard_volume(mesh, vol)
+        rgb, alpha = KS.render_bricksharded_kernel(mesh, plan, sv)
+        params, loss = KS.tf_fit_step_bricksharded(mesh, plan, params, sv, target, lr=FIT_LR)
+        loss = float(loss)
+        launches = {"seg_march": SK.seg_march_cuda.launches,
+                    "seg_tf_march": SK.seg_tf_march_cuda.launches}
+        now = time.perf_counter()
+        rgb_d, a_d = plan.render(vol)
+        err = {"rgb": float((rgb - rgb_d).abs().max()), "alpha": float((alpha - a_d).abs().max())}
+        if launches != {"seg_march": mesh.size, "seg_tf_march": mesh.size} or \
+                not math.isfinite(loss) or not bool(torch.isfinite(rgb).all()) or \
+                any(err[n] > bars[n] for n in bars) or not isinstance(renderer, CompressedRenderer):
+            raise AssertionError(f"config5 timestep {t}: launches {launches}, loss {loss}, "
+                                 f"vs unsharded B1 {err} (bars {bars})")
+        images[t] = rgb
+        losses.append(loss)
+        steps.append({"timestep": t, "s": now - t_prev, "launches": launches,
+                      "vs_unsharded_b1": err, "loss": loss})
+        t_prev = time.perf_counter()
+    first_s = time.perf_counter() - t_start
+    first_reads = len(reads)
+    reads.clear()
+
+    t0 = time.perf_counter()
+    resumed = []
+    for t, renderer in stream(counting):
+        if not isinstance(renderer, CompressedRenderer):
+            raise AssertionError(f"config5 resume: timestep {t} came back as "
+                                 f"{type(renderer).__name__}")
+        sv = PB.shard_volume(mesh, renderer.volume_at())
+        rgb, _ = KS.render_bricksharded_kernel(mesh, plan, sv)
+        resumed.append(t)
+        if not torch.equal(rgb, images[t]):
+            raise AssertionError(f"config5 resume: timestep {t} renders another image")
+    resume_s = time.perf_counter() - t0
+    if reads or resumed != list(CONFIG5_TIMESTEPS) or sorted(images) != resumed:
+        raise AssertionError(f"config5 resume: {len(reads)} brick reads, timesteps {resumed}")
+    emit({"phase": "config5", "timesteps": list(CONFIG5_TIMESTEPS), "bricks": 8,
+          "brick_dims": list(CONFIG5_BRICK), "volume": list(grid.volume_dims()),
+          "tolerance": CONFIG5_TOLERANCE, "max_epochs": 1, "prefetch": 2, "hw": [H, W],
+          "layout": f"bricks {BRICKS} on {[str(d) for d in mesh.devices.flat]}",
+          "brick_reads": first_reads, "total_s": first_s,
+          "per_timestep_s": first_s / len(CONFIG5_TIMESTEPS), "steps": steps, "losses": losses,
+          "envelope_bars": bars, "resume_s": resume_s, "resume_brick_reads": 0,
+          "resume_images_equal": True, "checkpoint_bytes": {
+              p.name: p.stat().st_size for p in sorted(cache.iterdir())}, "gpu": smi})
+
+
 def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
     """The volume-sharded phases; returns the kernels line's three entries."""
     from volumerenderer_tpu_torch import Camera, TFParams, as_normalized_volume, generate_rays
@@ -2647,11 +2978,12 @@ def main() -> int:
     # 2. build the kernels from the checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
     _build.load_many(["composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad",
-                      "kdtree_seed", "seg_march", "hashed_build"])
+                      "kdtree_seed", "seg_march", "hashed_build", "kdtree_native"])
     libraries = {"composite_march": RK.load_kernel(), **IK.load_kernels(),
                  "tf_march": TK.load_kernel(), "voxel_grad": VK.load_kernel(),
                  "kdtree_seed": _build.load("kdtree_seed"), "seg_march": SK.load_kernel(),
-                 "hashed_build": _build.load("hashed_build")}
+                 "hashed_build": _build.load("hashed_build"),
+                 "kdtree_native": _build.load("kdtree_native")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": {
         name: {"nvcc_seconds": built.build_seconds,
                "library": str(built.path.relative_to(HERE)),
@@ -2868,6 +3200,10 @@ def main() -> int:
     run_device_build(dev, smi, source, tree, tree_build_s, bundles)
     run_octree(dev, smi, source, bundles)
     sharded_kernels = run_sharded(dev, smi, turb, sphere, cameras, bundles)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        run_checkpoint(dev, smi, tree, source, Path(work))
+        run_app(dev, smi, Path(work))
+        run_config5(dev, smi, Path(work))
 
     emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *bind_kernels,
                       *sharded_kernels]})

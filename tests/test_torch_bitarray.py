@@ -32,3 +32,34 @@ def test_pack2_np_and_unpack2_np_match_jax(n):
 def test_unpack2_rejects_non_bytes():
     with pytest.raises(ValueError, match="uint8"):
         TB.unpack2(torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 7, 1000])
+def test_pack4_np_and_unpack4_np_match_jax(n):
+    vals = np.random.default_rng(n + 7).integers(0, 256, n, dtype=np.uint8)  # high bits dropped
+    packed = TB.pack4_np(vals)
+    np.testing.assert_array_equal(packed, JB.pack4_np(vals))
+    np.testing.assert_array_equal(TB.unpack4_np(packed, n), JB.unpack4_np(packed, n))
+    np.testing.assert_array_equal(TB.unpack4_np(packed, n), vals & 0xF)
+    np.testing.assert_array_equal(TB.unpack4_np(packed), JB.unpack4_np(packed))
+
+
+@pytest.mark.parametrize("shape", [(4,), (8, 12), (2, 3, 16)])
+def test_device_pack2_pack4_unpack4_match_jax(shape):
+    rng = np.random.default_rng(sum(shape))
+    vals = rng.integers(0, 256, shape, dtype=np.uint8)
+    t = torch.from_numpy(vals)
+    for got, want in ((TB.pack2(t), JB.pack2(vals)), (TB.pack4(t), JB.pack4(vals)),
+                      (TB.unpack4(t), JB.unpack4(vals))):
+        want = np.asarray(want)
+        assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    # the device packs write the host packs' bytes
+    np.testing.assert_array_equal(TB.pack2(t).numpy().ravel(), TB.pack2_np(vals))
+    np.testing.assert_array_equal(TB.pack4(t).numpy().ravel(), TB.pack4_np(vals))
+
+
+@pytest.mark.parametrize("fn", ["pack2", "pack4", "unpack4"])
+def test_device_packs_reject_non_bytes(fn):
+    with pytest.raises(ValueError, match="uint8"):
+        getattr(TB, fn)(torch.zeros(4, dtype=torch.int32))

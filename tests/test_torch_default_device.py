@@ -13,6 +13,13 @@ import torch
 
 from volumerenderer_tpu_torch import (Camera, TFParams, as_normalized_volume, generate_rays,
                                       interop)
+from volumerenderer_tpu_torch import app as TA
+from volumerenderer_tpu_torch import config as TCFG
+from volumerenderer_tpu_torch import native
+from volumerenderer_tpu_torch.codecs import reference_impl as RI
+from volumerenderer_tpu_torch.io.bricks import BrickGrid, synthetic_brick_source
+from volumerenderer_tpu_torch.io.streaming import TimestepStreamer
+from volumerenderer_tpu_torch.utils.timer import DebugTimer
 from volumerenderer_tpu_torch.camera import RayBundle
 from volumerenderer_tpu_torch.codecs import device as CD
 from volumerenderer_tpu_torch.codecs import kdtree as KT
@@ -53,7 +60,21 @@ ENTRY_POINTS = {
     "DiffDecoder": (DiffDecoder.__init__, lambda: DiffDecoder(_tree()).dm0),
     "to_device_pair": (MR.to_device_pair, lambda: MR.to_device_pair(
         MR.build(_tree_volume(), tolerance=2, max_epochs=1))),
+    "TimestepStreamer": (TimestepStreamer.__init__, lambda: next(iter(_streamer()))[1]),
 }
+
+
+def _streamer():
+    grid = BrickGrid(brick_dims=(4, 4, 4), grid=(2, 2, 2))
+    return TimestepStreamer(synthetic_brick_source(grid), grid, [270, 271], num_bricks=8, I=2,
+                            J=2, K_bricks=2, tolerance=2, max_epochs=1)
+
+
+def _app_config():
+    return TCFG.AppConfig(
+        render=TCFG.RenderConfig(camera=Camera(width=8, height=4), max_samples=16),
+        codec=TCFG.CodecConfig(tolerance=2, max_epochs=1),
+        dataset=TCFG.DatasetConfig(synthetic_dims=(8, 8, 8)))
 
 MESHES = {"make_mesh": lambda: make_mesh(2), "make_z_mesh": lambda: make_z_mesh(2),
           "make_brick_mesh": lambda: make_brick_mesh((2, 1, 1)),
@@ -118,3 +139,60 @@ def test_cpu_meshes_are_asked_for():
     assert make_mesh(devices=cpu, dp=2).shape == {"dp": 2, "rays": 2}
     assert context.make_z_mesh(devices=cpu).shape == {"z": 4}
     assert bricks.make_brick_mesh((2, 2, 1), devices=cpu).shape == {"bz": 2, "by": 2, "bx": 1}
+
+
+def test_app_run_defaults_to_the_card(monkeypatch):
+    """``app.run`` uploads its tree to the card: its frames come back as
+    numpy arrays, so the renderer it makes is watched."""
+    assert inspect.signature(TA.run).parameters["device"].default == "cuda"
+    devices = []
+    made = TA.CompressedRenderer
+
+    def watched(tree, device):
+        devices.append(torch.device(device))
+        return made(tree, device)
+
+    monkeypatch.setattr(TA, "CompressedRenderer", watched)
+    if not torch.cuda.is_available():
+        with pytest.raises(AssertionError, match="CUDA"):
+            TA.run(_app_config())
+        return
+    frames, _ = TA.run(_app_config())
+    assert devices == [torch.device("cuda")] and frames[0].shape == (4, 8, 3)
+
+
+@pytest.mark.parametrize("call", ["build_arbitrary", "preorder_to_levels"])
+def test_native_helper_by_default_where_there_is_a_card(call, monkeypatch):
+    """``use_native=None`` takes the native pass on a machine with a CUDA
+    device and the Python walk elsewhere (no build is tried here)."""
+    used = []
+    for name in ("build_full", "preorder_to_levels"):
+        real = getattr(native.kdtree_native, name)
+        monkeypatch.setattr(native.kdtree_native, name,
+                            staticmethod(lambda *a, _r=real, _n=name, **k: used.append(_n)
+                                         or _r(*a, **k)))
+    vol = _tree_volume()
+    if call == "build_arbitrary":
+        tree = RI.build_arbitrary(vol, tolerance=2, max_epochs=1)
+        want = RI.build_arbitrary(vol, tolerance=2, max_epochs=1, use_native=False)
+        np.testing.assert_array_equal(tree.preorder, want.preorder)
+    else:
+        t = _tree()
+        levels, _ = KT.preorder_to_levels(KT.to_preorder(t), t.orig_depth, t.max_depth)
+        for a, b in zip(levels, t.level_codes):
+            np.testing.assert_array_equal(a, b)
+    want_calls = {"build_arbitrary": ["build_full"], "preorder_to_levels": ["preorder_to_levels"]}
+    assert used == (want_calls[call] if torch.cuda.is_available() else [])
+
+
+def test_timer_end_waits_for_the_card(monkeypatch):
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: synced.append(device))
+    DebugTimer.begin(1, "card")
+    if not torch.cuda.is_available():
+        with pytest.raises(AssertionError, match="CUDA"):
+            DebugTimer.end("card", sync=torch.ones(2, device="cuda"))
+        return
+    x = torch.ones(2, device="cuda")
+    DebugTimer.end("card", sync={"rgb": x, "host": torch.ones(2)})
+    assert synced == [x.device]

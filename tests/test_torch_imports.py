@@ -14,7 +14,8 @@ PACKAGE = REPO / "volumerenderer_tpu_torch"
 
 def test_port_imports_without_jax():
     """Every module of the port, found by walking the package (the sharded
-    layouts and the segment kernels' wrappers included)."""
+    layouts, the segment kernels' wrappers and the application layer
+    included)."""
     code = ("import importlib, pkgutil, sys, volumerenderer_tpu_torch as P; "
             "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]; "
             "[importlib.import_module(n) for n in names]; "
@@ -23,7 +24,10 @@ def test_port_imports_without_jax():
             "'volumerenderer_tpu_torch.parallel.context', "
             "'volumerenderer_tpu_torch.parallel.sharding', "
             "'volumerenderer_tpu_torch.ops.cuda.seg_kernel', "
-            "'volumerenderer_tpu_torch.interop'}; "
+            "'volumerenderer_tpu_torch.interop', 'volumerenderer_tpu_torch.app', "
+            "'volumerenderer_tpu_torch.config', 'volumerenderer_tpu_torch.io.streaming', "
+            "'volumerenderer_tpu_torch.codecs.reference_impl', "
+            "'volumerenderer_tpu_torch.utils.timer', 'volumerenderer_tpu_torch.native'}; "
             "assert need <= set(names), need - set(names); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'volumerenderer_tpu' or m.startswith('volumerenderer_tpu.')); "

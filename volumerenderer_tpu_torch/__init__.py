@@ -12,8 +12,15 @@ and octree codecs) renders through ``CompressedRenderer`` from sparse slab
 pools, with pooled variants of the same kernels; ``io.bricks`` assembles
 bricked volumes.  ``parallel`` shards the image
 rows, or the volume in z slabs or bricks, over a mesh of devices; inside a
-volume shard the segment marches run.  It imports neither jax nor
-``volumerenderer_tpu``.
+volume shard the segment marches run.  The application layer: ``config``
+(the ``AppConfig`` dataclass tree), ``app`` (the reference ``main()`` flow,
+``app.run``, and the camera-state machine), ``io.streaming`` (the
+multi-timestep ``TimestepStreamer``), the kd-tree and mid-range checkpoint
+files (``codecs.kdtree.save`` / ``open_tree_full``, byte for byte the JAX
+package's), ``codecs.reference_impl`` (the sequential codec for any
+dimensions, natively in ``csrc/kdtree_native.cu``) and ``utils.timer``
+(``DebugTimer``, ``timed`` with a ``torch.profiler`` trace, ``Metrics``).
+It imports neither jax nor ``volumerenderer_tpu``.
 """
 
 from .camera import Camera, RayBundle, generate_rays
@@ -23,6 +30,7 @@ from .ops.isosurface import render_isosurface
 from .diff.transfer import TFParams, render_tf
 from .codecs.kdtree import KdTree
 from .models.compressed import CompressedRenderer
+from .config import AppConfig, CodecConfig, DatasetConfig, DistributedConfig, RenderConfig
 from .parallel import (DeviceMesh, make_brick_mesh, make_mesh, make_z_mesh,
                        render_bricksharded_kernel, render_zsharded_kernel, shard_volume)
 
@@ -41,6 +49,11 @@ __all__ = [
     "render_tf",
     "KdTree",
     "CompressedRenderer",
+    "AppConfig",
+    "CodecConfig",
+    "DatasetConfig",
+    "DistributedConfig",
+    "RenderConfig",
     "DeviceMesh",
     "make_mesh",
     "make_z_mesh",

@@ -21,24 +21,36 @@ tree's device.  Every pass is numpy array code except the Δ seeding, a
 running mean carried node by node: on a machine with a CUDA device it runs in
 the compiled host helper ``csrc/kdtree_seed.cu`` (the JAX package's
 ``native/kdtree_native.cpp::seed_level_f64``), elsewhere in a Python loop.
-The file I/O functions (``to_preorder``, ``save``, ``open_tree``,
-``open_tree_full``, ``preorder_to_levels``) and ``query_error`` are not
-ported yet.
 
-Power-of-two dimensions only, as in the JAX package.
+Checkpoints (:func:`save`, :func:`open_tree`, :func:`open_tree_full`) are the
+reference's file format (``VolumeKdTree_recover.cpp:521-552``), byte for byte
+the JAX package's: a file written by either package opens in the other.
+:func:`preorder_to_levels` rebuilds the level layout from the stored preorder
+stream, natively (``csrc/kdtree_native.cu``) on a machine with a CUDA device
+and in a Python walk elsewhere; ``use_native`` forces either, and a native
+walk whose library fails to build raises.  The JAX package gives way to the
+Python walk on any ``OSError`` of its native library
+(``volumerenderer_tpu/codecs/kdtree.py:617-636``); here nothing falls back.
+
+Power-of-two dimensions only, as in the JAX package; any dimensions build
+through ``codecs/reference_impl.py``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import struct
 
 import numpy as np
 import torch
 
+from ..utils.bitarray import pack2_np, unpack2_np
+
 __all__ = ["KdTree", "build", "level_cut", "split_schedule", "volume_to_leaves",
            "leaves_to_volume", "encode_level", "seed_level", "gd_fit_level", "fit_distance",
-           "measure_max_error", "measure_mean_error", "ADD_LEVEL_DISTANCES",
+           "measure_max_error", "measure_mean_error", "query_error", "to_preorder", "save",
+           "open_tree", "open_tree_full", "preorder_to_levels", "ADD_LEVEL_DISTANCES",
            "MAX_ADD_LEVELS", "NO_NODE"]
 
 MAX_ADD_LEVELS = 7                                # VolumeKdTree_recover.cpp:22
@@ -474,3 +486,156 @@ def measure_max_error(decoded: np.ndarray, original: np.ndarray) -> int:
 def measure_mean_error(decoded: np.ndarray, original: np.ndarray) -> float:
     """Mean L1 error (``measureMeanError``, ``:394-401``)."""
     return float(np.abs(decoded.astype(np.float64) - original.astype(np.float64)).mean())
+
+
+def query_error(decoded: np.ndarray, original: np.ndarray) -> np.ndarray:
+    """|error| as a renderable uint8 volume (``queryError``, ``:404-411``),
+    the reference's error-field view (``main.cpp:285-292``)."""
+    return np.abs(decoded.astype(np.int32) - original.astype(np.int32)).astype(np.uint8)
+
+
+def to_preorder(tree: KdTree) -> np.ndarray:
+    """The unbalanced preorder code stream (uint8 codes, unpacked) in the
+    order of ``convertToPreorder``: node, left subtree, right subtree; a
+    pruned (code 3) subtree is one node; a leaf's chain follows it.  Subtree
+    sizes bottom-up, then preorder offsets top-down: pos(left) = pos(node) +
+    1, pos(right) = pos(left) + size(left)."""
+    D = tree.orig_depth
+    sizes = _subtree_sizes(tree)
+    out = np.empty(int(sizes[0][0]), dtype=np.uint8)
+
+    gidx = np.zeros(1, dtype=np.int64)  # breadth-first indices of emitted nodes
+    pos = np.zeros(1, dtype=np.int64)   # their preorder positions
+    for d in range(D + 1):
+        codes = tree.level_codes[d][gidx]
+        out[pos] = codes
+        if d < D:
+            keep = codes != 3
+            pg, pp = gidx[keep], pos[keep]
+            left_pos = pp + 1
+            gidx = np.empty(2 * pg.shape[0], dtype=np.int64)
+            gidx[0::2], gidx[1::2] = 2 * pg, 2 * pg + 1
+            pos = np.empty_like(gidx)
+            pos[0::2], pos[1::2] = left_pos, left_pos + sizes[d + 1][2 * pg]
+        else:
+            chains = tree.chain_codes[gidx]
+            lens = np.sum(chains != NO_NODE, axis=1)
+            for step in range(chains.shape[1]):
+                sel = lens > step
+                if not sel.any():
+                    break
+                out[pos[sel] + 1 + step] = chains[sel, step]
+    return out
+
+
+FILE_HEADER = struct.Struct("<3q3qii4q")  # rootMin, rootMax, depths, X Y Z numActiveNodes
+
+
+def save(tree: KdTree, path: str) -> None:
+    """The reference binary format (``VolumeKdTree_recover.cpp:521-552``):
+    rootMin (3 x i64, zeros) rootMax (3 x i64) maxTreeDepth (i32)
+    origTreeDepth (i32) X Y Z numActiveNodes (4 x i64), the distance map
+    (maxTreeDepth + 1 bytes), then the packed 2-bit codes."""
+    X, Y, Z = tree.dims
+    pre = to_preorder(tree)
+    with open(path, "wb") as f:
+        f.write(FILE_HEADER.pack(0, 0, 0, X, Y, Z, tree.max_depth, tree.orig_depth,
+                                 X, Y, Z, len(pre)))
+        f.write(np.asarray(tree.distance_map, dtype=np.uint8).tobytes())
+        f.write(pack2_np(pre).tobytes())
+
+
+def open_tree(path: str) -> dict:
+    """Read a checkpoint's fields (the preorder codes unpacked).  A file
+    shorter than its header says raises ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < FILE_HEADER.size:
+        raise ValueError(f"{path}: {len(data)} bytes, shorter than the header")
+    f0 = FILE_HEADER.unpack_from(data)
+    root_min, root_max = f0[0:3], f0[3:6]
+    max_depth, orig_depth = f0[6], f0[7]
+    X, Y, Z, num_active = f0[8:12]
+    off = FILE_HEADER.size
+    if len(data) < off + max_depth + 1 + (num_active + 3) // 4:
+        raise ValueError(f"{path}: {len(data)} bytes, shorter than its {num_active} codes need")
+    dm = np.frombuffer(data, dtype=np.uint8, count=max_depth + 1, offset=off)
+    packed = np.frombuffer(data, dtype=np.uint8, offset=off + max_depth + 1)
+    return dict(root_min=root_min, root_max=root_max, max_depth=max_depth,
+                orig_depth=orig_depth, dims=(X, Y, Z), num_active_nodes=num_active,
+                distance_map=np.array(dm), preorder=unpack2_np(packed, num_active))
+
+
+def preorder_to_levels(preorder: np.ndarray, orig_depth: int, max_depth: int,
+                       use_native: bool | None = None):
+    """The inverse of :func:`to_preorder`: (level_codes, chain_codes) of an
+    unpacked preorder stream, walked with the decoders' stack automaton
+    (``reference_impl.decode_preorder``), each node's code recorded at its
+    (depth, breadth-first index).  Unvisited slots (under pruned nodes) stay
+    code 3 / ``NO_NODE``, which no consumer reads.
+
+    ``use_native=None`` walks in ``csrc/kdtree_native.cu`` on a machine
+    with a CUDA device (a failed build raises) and in Python elsewhere;
+    ``True`` / ``False`` force either.  A stream that ends inside the tree
+    raises ``ValueError``."""
+    if use_native is None:
+        use_native = torch.cuda.is_available()
+    if use_native:
+        from ..native import kdtree_native
+
+        levels_flat, chains = kdtree_native.preorder_to_levels(preorder, orig_depth, max_depth)
+    else:
+        levels_flat, chains = _preorder_to_levels_py(preorder, orig_depth, max_depth)
+    level_codes = [levels_flat[(1 << d) - 1:(1 << (d + 1)) - 1] for d in range(orig_depth + 1)]
+    return level_codes, chains
+
+
+def _preorder_to_levels_py(preorder: np.ndarray, orig_depth: int, max_depth: int):
+    chain_len = max_depth - orig_depth
+    levels_flat = np.full((1 << (orig_depth + 1)) - 1, 3, np.uint8)
+    chains = np.full((1 << orig_depth, chain_len), NO_NODE, np.uint8)
+    n = len(preorder)
+    if n == 0:
+        raise ValueError("an empty preorder stream")
+    stack = [(0, 0, 0)]  # (preorder index, depth, breadth-first index)
+    while stack:
+        idx, depth, bf = stack[-1]
+        code = int(preorder[idx])
+        if depth <= orig_depth:
+            levels_flat[(1 << depth) - 1 + bf] = code
+        elif depth - orig_depth - 1 < chain_len:
+            chains[bf, depth - orig_depth - 1] = code
+        if code == 3 or depth == max_depth:
+            stack.pop()
+            if stack and idx + 1 >= n:
+                raise ValueError("the preorder stream ends inside the tree")
+            if idx + 1 < n and stack:
+                _, pdep, pbf = stack.pop()
+                stack.append((idx + 1, pdep + 1, 2 * pbf + 1))
+        else:
+            if idx + 1 >= n:
+                raise ValueError("the preorder stream ends inside the tree")
+            if depth >= orig_depth:
+                stack.pop()
+            stack.append((idx + 1, depth + 1, 2 * bf if depth < orig_depth else bf))
+    return levels_flat, chains
+
+
+def open_tree_full(path: str, verify: bool = True, use_native: bool | None = None) -> KdTree:
+    """Open a checkpoint as a level-structured :class:`KdTree`, so a resumed
+    tree keeps the compressed-domain path (device decode, block maxima from
+    the tree, slab pools, cut-depth control).  ``verify`` serializes the
+    rebuilt tree again and raises ``ValueError`` unless it equals the stored
+    stream.  ``use_native`` as in :func:`preorder_to_levels`."""
+    raw = open_tree(path)
+    X, Y, Z = raw["dims"]
+    orig_depth, max_depth = raw["orig_depth"], raw["max_depth"]
+    level_codes, chains = preorder_to_levels(raw["preorder"], orig_depth, max_depth,
+                                             use_native=use_native)
+    tree = KdTree(dims=(X, Y, Z), orig_depth=orig_depth, max_depth=max_depth,
+                  distance_map=raw["distance_map"].copy(), level_codes=level_codes,
+                  chain_codes=chains, schedule=split_schedule(X, Y, Z),
+                  num_active_nodes=raw["num_active_nodes"])
+    if verify and not np.array_equal(to_preorder(tree), raw["preorder"]):
+        raise ValueError(f"preorder round-trip mismatch for {path}")
+    return tree

@@ -20,8 +20,10 @@ Counterpart of ``volumerenderer_tpu/codecs/midrange.py`` (the reference's
 
 ``to_device_pair`` puts both channels on a device for ``codecs/device.py``'s
 decode; ``models.CompressedRenderer`` renders a ``MidRangeTree``'s midpoint
-channel.  Not ported yet: ``save``, ``open_tree``, ``to_preorder_pair`` and
-``convert_to_byte_array``, which need the kd-tree's preorder stream.
+channel.  ``save`` / ``open_tree`` are the reference's dual-tree file
+(``MidRangeTree.cpp:753-786``) and ``convert_to_byte_array`` its
+interleaved texture layout (``:1095-1128``), byte for byte the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -30,9 +32,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.bitarray import pack2_np, unpack2_np
 from . import kdtree as K
 
-__all__ = ["MidRangeTree", "build", "level_cut", "level_cut_range", "to_device_pair"]
+__all__ = ["MidRangeTree", "build", "level_cut", "level_cut_range", "to_device_pair",
+           "to_preorder_pair", "save", "open_tree", "convert_to_byte_array"]
 
 
 @dataclasses.dataclass
@@ -203,3 +207,64 @@ def to_device_pair(tree: MidRangeTree, device: torch.device | str = "cuda"):
     mid_dev, spec = to_device(tree.mid, device)
     rng_dev, _ = to_device(_range_view(tree), device)
     return mid_dev, rng_dev, spec
+
+
+def to_preorder_pair(tree: MidRangeTree) -> tuple[np.ndarray, np.ndarray]:
+    """Both channels' preorder streams; their positions agree by
+    construction (one structure)."""
+    return K.to_preorder(tree.mid), K.to_preorder(_range_view(tree))
+
+
+def save(tree: MidRangeTree, path: str) -> None:
+    """The dual-tree reference format (``MidRangeTree.cpp:753-786``): the
+    kd-tree's header, both distance maps, then both packed streams."""
+    X, Y, Z = tree.mid.dims
+    pre_m, pre_r = to_preorder_pair(tree)
+    with open(path, "wb") as f:
+        f.write(K.FILE_HEADER.pack(0, 0, 0, X, Y, Z, tree.mid.max_depth, tree.mid.orig_depth,
+                                   X, Y, Z, len(pre_m)))
+        f.write(np.asarray(tree.mid.distance_map, dtype=np.uint8).tobytes())
+        f.write(np.asarray(tree.range_distance_map, dtype=np.uint8).tobytes())
+        f.write(pack2_np(pre_m).tobytes())
+        f.write(pack2_np(pre_r).tobytes())
+
+
+def open_tree(path: str) -> dict:
+    """Read a dual-tree file's fields (both streams unpacked).  A file
+    shorter than its header says raises ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < K.FILE_HEADER.size:
+        raise ValueError(f"{path}: {len(data)} bytes, shorter than the header")
+    fields = K.FILE_HEADER.unpack_from(data)
+    max_depth, orig_depth = fields[6], fields[7]
+    X, Y, Z, num_active = fields[8:12]
+    off = K.FILE_HEADER.size
+    nbytes = (num_active + 3) // 4
+    if len(data) < off + 2 * (max_depth + 1) + 2 * nbytes:
+        raise ValueError(f"{path}: {len(data)} bytes, shorter than its {num_active} codes need")
+    dm_m = np.frombuffer(data, np.uint8, max_depth + 1, off)
+    off += max_depth + 1
+    dm_r = np.frombuffer(data, np.uint8, max_depth + 1, off)
+    off += max_depth + 1
+    pre_m = unpack2_np(np.frombuffer(data, np.uint8, nbytes, off), num_active)
+    pre_r = unpack2_np(np.frombuffer(data, np.uint8, nbytes, off + nbytes), num_active)
+    return dict(dims=(X, Y, Z), max_depth=max_depth, orig_depth=orig_depth,
+                num_active_nodes=num_active, distance_map=np.array(dm_m),
+                range_distance_map=np.array(dm_r), preorder=pre_m, range_preorder=pre_r)
+
+
+def convert_to_byte_array(tree: MidRangeTree) -> np.ndarray:
+    """The interleaved layout for a texture upload (``convertToByteArray``,
+    ``MidRangeTree.cpp:1095-1128``): byte i = ``mid[2i] << 6 | range[2i] <<
+    4 | mid[2i+1] << 2 | range[2i+1]``, zero-padded to a power of two
+    bytes."""
+    pre_m, pre_r = to_preorder_pair(tree)
+    n = len(pre_m)
+    nbytes = (n + 1) // 2
+    v = 1 << max(0, int(np.ceil(np.log2(max(nbytes, 1)))))
+    m = np.zeros(2 * v, dtype=np.uint8)
+    r = np.zeros(2 * v, dtype=np.uint8)
+    m[:n] = pre_m
+    r[:n] = pre_r
+    return ((m[0::2] << 6) | (r[0::2] << 4) | (m[1::2] << 2) | r[1::2]).astype(np.uint8)

@@ -5,7 +5,10 @@ bundle, the transfer-function parameters and a compressed kd-tree.  A JAX
 run hands them over as numpy arrays (``np.asarray`` of its jax arrays) and
 its camera and trees as the fields of their dataclasses; these functions turn
 them into the port's tensors, ``Camera``, ``TFParams``, ``KdTree``,
-``MidRangeTree``, ``HashedKdTree`` and ``Octree``.
+``MidRangeTree``, ``HashedKdTree`` and ``Octree``, and its configuration
+(``AppConfig``) as nested dicts.  The other carrier is the checkpoint file
+(``codecs.kdtree.save``): a file written by either package opens in the
+other.
 """
 from __future__ import annotations
 
@@ -19,12 +22,13 @@ from .codecs.hashed import HashedKdTree
 from .codecs.kdtree import KdTree
 from .codecs.midrange import MidRangeTree
 from .codecs.octree import Octree
+from .config import AppConfig, CodecConfig, DatasetConfig, DistributedConfig, RenderConfig
 from .diff.transfer import TFParams
 from .ops.sampling import as_normalized_volume
 
 __all__ = ["volume_from_numpy", "rays_from_numpy", "camera_from_jax_fields",
            "tf_params_from_numpy", "kdtree_from_numpy", "midrange_from_numpy",
-           "hashed_from_numpy", "octree_from_numpy"]
+           "hashed_from_numpy", "octree_from_numpy", "app_config_from_jax_fields"]
 
 
 def volume_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
@@ -153,3 +157,24 @@ def octree_from_numpy(**fields) -> Octree:
                   start_depth=int(fields["start_depth"]), depth=int(fields["depth"]),
                   split_dims=[int(a) for a in fields["split_dims"]],
                   level_scalars=[np.array(s, dtype=np.uint8) for s in fields["level_scalars"]])
+
+
+def app_config_from_jax_fields(**fields) -> AppConfig:
+    """``app_config_from_jax_fields(**dataclasses.asdict(jax_config))``: a
+    JAX ``AppConfig`` (nested dicts, tuples or lists) as the port's, the
+    camera through :func:`camera_from_jax_fields`.  Every field is required;
+    an unknown one raises ``TypeError``."""
+    _check_fields(AppConfig, fields)
+    render = dict(fields["render"])
+    _check_fields(RenderConfig, render)
+    render["camera"] = camera_from_jax_fields(**render["camera"])
+    dataset = dict(fields["dataset"])
+    _check_fields(DatasetConfig, dataset)
+    for k in ("brick_dims", "volume_grid", "load_grid", "synthetic_dims"):
+        dataset[k] = tuple(int(v) for v in dataset[k])
+    for cls, name in ((CodecConfig, "codec"), (DistributedConfig, "distributed")):
+        _check_fields(cls, fields[name])
+    return AppConfig(render=RenderConfig(**render), codec=CodecConfig(**fields["codec"]),
+                     dataset=DatasetConfig(**dataset),
+                     distributed=DistributedConfig(**fields["distributed"]),
+                     tree_path=fields["tree_path"])

@@ -25,7 +25,10 @@ Departures from the JAX class, on purpose:
   was made from, so the plan's callable renders only that data.
 * The isosurface plan shades from the slab pool it marched, so there is no
   ``shade_pool_at``.
-* Not ported yet: the file I/O of the trees (``save``, ``open_tree``).
+
+A tree's file I/O is the codec's (``codecs.kdtree.save``,
+``open_tree_full``): a tree opened from a checkpoint renders here as the
+tree that was saved.
 """
 from __future__ import annotations
 

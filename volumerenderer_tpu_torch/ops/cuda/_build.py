@@ -30,6 +30,9 @@ BUILD_DIR = PACKAGE_DIR / "build"
 # PyTorch and JAX versions the kernels are held against.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# Flags of one library only: the kd-tree's native passes fork threads
+# (std::async), which the host compiler links with -pthread.
+EXTRA_FLAGS = {"kdtree_native": ("-Xcompiler", "-pthread")}
 
 _lock = threading.Lock()  # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}
@@ -65,16 +68,21 @@ def find_nvcc() -> str:
         "the CUDA kernels of volumerenderer_tpu_torch are built with it at first use")
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str, csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
     """Where the build of ``csrc_dir/<name>.cu`` lives: named by a hash of the
-    source, of every header ``csrc_dir/*.cuh`` (name and bytes) and of the
+    source, of every header ``csrc_dir/*.cuh`` (name and bytes) and of its
     flags."""
     digest = hashlib.sha256()
     for path in [csrc_dir / f"{name}.cu", *sorted(csrc_dir.glob("*.cuh"))]:
         data = path.read_bytes()
         digest.update(f"{path.name}\0{len(data)}\0".encode())
         digest.update(data)
-    digest.update("\0".join(NVCC_FLAGS).encode())
+    digest.update("\0".join(flags(name)).encode())
     return build_dir / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -99,7 +107,7 @@ def load(name: str) -> BuiltLibrary:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             try:
-                proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
+                proc = subprocess.run([nvcc, *flags(name), "-I", str(CSRC_DIR), "-o", tmp,
                                        str(source)],
                                       capture_output=True, text=True)
                 if proc.returncode != 0:
