@@ -69,7 +69,19 @@ calls:
   B7, or B8 and the pooled shade), a frame under ``utils.timer.timed(...,
   profile=True)``; BASELINE config 5 through ``io.streaming.TimestepStreamer``
   (4 timesteps of 8 synthetic 128^3 bricks, a brick-sharded render, B10,
-  and a TF step, B11, per timestep), then resumed from its checkpoints.
+  and a TF step, B11, per timestep), then resumed from its checkpoints;
+* the multi-process layer: two ranks on ``cuda:0`` over gloo
+  (``parallel.multihost.spawn`` of ``chip_smoke.py --multihost-rank``, each
+  rank ``multihost.initialize`` -> ``host_local_bricks`` /
+  ``load_bricks_for_host`` and ``bricks.host_local_bricks_3d``, reading only
+  its bricks of config 5's 256^3 volume -> ``global_mesh`` ->
+  ``shard_volume(..., offset=)``): ``render_zsharded_kernel`` and
+  ``render_bricksharded_kernel`` over the orbit (B10, two launches per rank
+  and frame, the segment maps gathered in mesh order),
+  ``render_planned_sharded`` (B1) and ``tf_fit_step_kernel`` x 5 (B4) on
+  the volume replicated from the z slabs, one ``tf_fit_step_bricksharded``
+  step (B11) and ``scaling_probe_kernel``; each output held against this
+  process's single-process port on the assembled volume.
 
 On the way it builds the kernels from ``volumerenderer_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -88,7 +100,7 @@ pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
 then composite_bind (one per field), skip_empty, diff_finetune, midrange,
 config4, device_build, octree, then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
 sharded_timing, seg_starts, sharded_layers, sharded_launch_count, then checkpoint, app (one per
-render mode) and config5).
+render mode), config5 and multihost).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
 kernels line's ``max_abs_err`` is over the parity cases, kernel against
@@ -102,6 +114,7 @@ it exits non-zero and prints no result.  Any failed check raises.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -180,6 +193,11 @@ SEG_REPLACES = {"seg_march": "volumerenderer_tpu/ops/pallas/seg_kernel.py:235",
                 "seg_entry_table": "volumerenderer_tpu/ops/pallas/seg_kernel.py:553"}
 Z_SHARDS, BRICKS = 4, (2, 2, 1)
 NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
+# the multi-process layouts: two ranks on cuda:0 (gloo), each with two
+# entries of every mesh, config 5's 2x2x2 grid of 128^3 bricks at timestep 273
+MULTIHOST_RANKS, MULTIHOST_TIMESTEP, MULTIHOST_TIMEOUT_S = 2, 273, 300
+# tests/test_torch_sharded.py's bar for B11 against the single-device fit step
+B11_LOSS_RTOL, B11_PARAM_RTOL, B11_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 
 # The bound of a launch: the larger of its bytes (each input read once, each
 # output written once) over the card's memory rate and its float32
@@ -2943,6 +2961,327 @@ def run_sharded(dev, smi: str, turb, sphere, cameras, bundles) -> list:
             for name in names]
 
 
+def multihost_argv(work: Path) -> list[str]:
+    """One rank of the multihost phase: this script with ``--multihost-rank``
+    (``multihost.spawn`` appends the coordinator, the count and the rank)."""
+    return [sys.executable, "-u", str(HERE / "chip_smoke.py"), "--multihost-rank", str(work)]
+
+
+def digest(*tensors) -> str:
+    """A hash of the tensors' bytes: equal digests, bit-equal tensors."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def local_block(grid, wanted, source, timestep):
+    """The bricks ``wanted`` assembled into the box they fill: (block, its
+    (z, y, x) offset in the volume)."""
+    bx, by, bz = grid.brick_dims
+    coords = [grid.brick_coords(b) for b in wanted]
+    lo = [min(c[a] for c in coords) for a in range(3)]
+    hi = [max(c[a] for c in coords) + 1 for a in range(3)]
+    block = np.zeros(((hi[2] - lo[2]) * bz, (hi[1] - lo[1]) * by, (hi[0] - lo[0]) * bx),
+                     dtype=np.uint8)
+    for b, (i, j, k) in zip(wanted, coords):
+        i, j, k = i - lo[0], j - lo[1], k - lo[2]
+        block[k * bz:(k + 1) * bz, j * by:(j + 1) * by, i * bx:(i + 1) * bx] = source(b, timestep)
+    return block, (lo[2] * bz, lo[1] * by, lo[0] * bx)
+
+
+def multihost_rank(dev, work: Path, coordinator: str, num_processes: int, process_id: int):
+    """One rank of the multihost phase, on ``dev`` (``cuda:0``, shared with
+    the other rank): joins the group (gloo: the ranks share the card), reads
+    only its bricks, places them on a z4 and a bricks221 mesh over both
+    ranks, renders the orbit through B10 on each layout, then row-sharded
+    B1 on frame 0 and FIT_STEPS B4 fit steps on a replicated volume, and one
+    B11 step; writes its digests, images, parameters, timings, launch
+    counts and peak memory to ``work``."""
+    from volumerenderer_tpu_torch import Camera, TFParams, generate_rays
+    from volumerenderer_tpu_torch.io.bricks import BrickGrid, synthetic_brick_source
+    from volumerenderer_tpu_torch.models import plan_compositing
+    from volumerenderer_tpu_torch.ops.cuda import _build
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK
+    from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
+    from volumerenderer_tpu_torch.parallel import bricks as PB
+    from volumerenderer_tpu_torch.parallel import kernel_sharded as KS
+    from volumerenderer_tpu_torch.parallel import multihost as MH
+
+    t_start = time.perf_counter()
+    torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_rank = Z_SHARDS // num_processes
+    backend = MH.initialize(coordinator, num_processes, process_id, local_devices=[dev] * per_rank)
+    rank = MH.process_index()
+    # the parent built every kernel: each load finds its library
+    built = _build.load_many(["seg_march", "composite_march", "tf_march"])
+
+    # 1. per-host brick I/O: this rank's k-layers for the z mesh, the bricks
+    # of its own (bz, by, bx) shards for the bricks mesh
+    grid = BrickGrid(brick_dims=CONFIG5_BRICK, grid=(2, 2, 2))
+    X, Y, Z = grid.volume_dims()
+    source = synthetic_brick_source(grid)
+    reads = []
+
+    def counting(b, t):
+        reads.append(b)
+        return source(b, t)
+
+    mine = MH.host_local_bricks(grid, Z_SHARDS)
+    t0 = time.perf_counter()
+    slab = MH.load_bricks_for_host(counting, grid, MULTIHOST_TIMESTEP)
+    load_s = time.perf_counter() - t0
+    zmesh = MH.global_mesh(("z",))
+    sv_z = PB.shard_volume(zmesh, torch.from_numpy(slab), offset=(slab.shape[0] * rank, 0, 0))
+    z_reads = sorted(reads)
+    reads.clear()
+    bmesh = MH.global_mesh(("bz", "by", "bx"), shape=BRICKS)
+    wanted = sorted({b for i in bmesh.local_indices()
+                     for b in PB.host_local_bricks_3d(grid, BRICKS, np.unravel_index(i, BRICKS))})
+    block, offset = local_block(grid, wanted, counting, MULTIHOST_TIMESTEP)
+    sv_b = PB.shard_volume(bmesh, torch.from_numpy(block), offset=offset)
+    b_reads = sorted(reads)
+    if z_reads != mine or b_reads != wanted or len(mine) != grid.num_bricks() // num_processes:
+        raise AssertionError(f"rank {rank} read bricks {z_reads} and {b_reads}, its own are "
+                             f"{mine} and {wanted}")
+
+    # 2, 3. z4 and bricks221 over the orbit, each frame two B10 launches per
+    # rank (from its shards' entry tables, built at a camera's first frame)
+    # and the gather of the segment maps; every rank returns the full image
+    bundles = [generate_rays(orbit_camera(Camera, 2.0 * i, W, H), device=dev)
+               for i in range(N_FRAMES)]
+    plans = [plan_compositing(r.entry_uv, r.direction, r.hit, (X, Y, Z)) for r in bundles]
+    layouts = {"z4": (zmesh, sv_z, KS.render_zsharded_kernel),
+               "bricks221": (bmesh, sv_b, KS.render_bricksharded_kernel)}
+    SK.seg_march_cuda.launches = 0
+    SK.seg_entry_table_cuda.launches = 0
+    renders = dict.fromkeys(layouts, 0)
+
+    def sweep(name):
+        mesh, sv, render = layouts[name]
+        acc = torch.zeros((), device=dev)
+        for plan in plans:
+            rgb, _ = render(mesh, plan, sv)
+            renders[name] += 1
+            acc = acc + rgb.sum()
+        return float(acc)
+
+    ms = {name: 1e3 * sweep_seconds(lambda: sweep(name)) / N_FRAMES for name in layouts}
+    digests = {}
+    for name, (mesh, sv, render) in layouts.items():
+        digests[name] = [digest(*render(mesh, plan, sv)) for plan in plans]
+        renders[name] += len(plans)
+    seg_launches = {"seg_march": SK.seg_march_cuda.launches,
+                    "seg_entry_table": SK.seg_entry_table_cuda.launches}
+
+    # the gather's share of a z4 frame: frame 0's segment maps of this
+    # rank's shards gathered alone; within it gloo's all_gather of the same
+    # bytes between host buffers; and the halo exchange, one small gather
+    # (host clock, each ended by a device sync; min of REPS after a warm call)
+    plan0 = plans[0]
+    outs = [SK.seg_march_cuda(s, plan0.entry_uv.to(s.device), plan0.dir_step.to(s.device),
+                              plan0.hit.to(s.device), **kw,
+                              starts=KS.shard_starts(plan0, kw, s.device))
+            for s, kw in KS.seg_shards(zmesh, plan0, sv_z)]
+    host = torch.empty((len(outs), 3 * H * W), dtype=torch.float32)
+    received = [torch.empty_like(host) for _ in range(num_processes)]
+
+    def host_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, 1e3 * (time.perf_counter() - t0))
+        return best
+
+    gather_ms = {"gather": host_ms(lambda: MH.gather(zmesh, outs)),
+                 "gloo_all_gather_host_buffers": host_ms(
+                     lambda: torch.distributed.all_gather(received, host)),
+                 "halo_exchange": host_ms(lambda: PB.extend_halos(sv_z.bricks, axes=(0,),
+                                                                  mesh=zmesh))}
+
+    # 4, 5. the row-sharded paths on the volume replicated from the z slabs
+    # (one gather): B1 on frame 0, FIT_STEPS B4 steps; then one B11 step
+    full = torch.cat([b for (b,) in MH.gather(zmesh, [(sv_z.bricks[i, 0, 0],)
+                                                      for i in zmesh.local_indices()])])
+    rmesh = MH.global_mesh()
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    target = torch.full((H, W, 3), 0.5, device=dev)
+    RK.composite_march_cuda.launches = 0
+    TK.tf_march_cuda.launches = 0
+    SK.seg_tf_march_cuda.launches = 0
+    rgb_r, a_r = KS.render_planned_sharded(rmesh, plan0, full)
+    params, losses = TFParams(*(f32(v) for v in NON_REFERENCE_TF)), []
+    for _ in range(FIT_STEPS):
+        params, loss = KS.tf_fit_step_kernel(rmesh, plan0, params, full, target, lr=FIT_LR)
+        losses.append(loss)
+    b11_params, b11_loss = KS.tf_fit_step_bricksharded(
+        bmesh, plan0, TFParams(*(f32(v) for v in NON_REFERENCE_TF)), sv_b, target, lr=FIT_LR)
+    row_launches = {"composite_march": RK.composite_march_cuda.launches,
+                    "tf_march": TK.tf_march_cuda.launches,
+                    "seg_tf_march": SK.seg_tf_march_cuda.launches}
+    rows_ms = 1e3 * sweep_seconds(lambda: float(sum(
+        KS.render_planned_sharded(rmesh, p, full)[0].sum() for p in plans))) / N_FRAMES
+    probe = KS.scaling_probe_kernel(rmesh, plan0, full)
+    np.savez(work / f"rank{rank}.npz", rows_frame0=np.stack([
+        rgb_r.cpu().numpy(), np.repeat(a_r.cpu().numpy()[..., None], 3, axis=-1)]),
+        tf_losses=np.stack([x.cpu().numpy() for x in losses]),
+        **{f"tf_params/{n}": t.cpu().numpy() for n, t in zip(TFParams._fields, params)},
+        b11_loss=b11_loss.cpu().numpy(),
+        **{f"b11_params/{n}": t.cpu().numpy() for n, t in zip(TFParams._fields, b11_params)})
+    (work / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "backend": backend, "devices": [str(dev)] * per_rank,
+        "z_mesh_ranks": zmesh.ranks.tolist(), "bricks_mesh_ranks": bmesh.ranks.reshape(-1).tolist(),
+        "builds_reused": all(b.build_seconds == 0.0 for b in built.values()),
+        "brick_reads": {"z4": z_reads, "bricks221": b_reads}, "brick_load_s": load_s,
+        "ms_per_frame": {**ms, "rows": rows_ms}, "renders": renders,
+        "z4_gather_ms": gather_ms, "digests": digests,
+        "launches": {**seg_launches, **row_launches}, "scaling_probe_kernel": probe,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+        "seconds": time.perf_counter() - t_start}))
+
+
+def multihost_main(argv) -> int:
+    """``chip_smoke.py --multihost-rank <dir> --coordinator A --num-processes
+    N --process-id R``: one rank of the multihost phase on ``cuda:0``."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--multihost-rank", type=Path, required=True)
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--num-processes", type=int, required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: a multihost rank needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import_port()
+    multihost_rank(torch.device("cuda", 0), args.multihost_rank, args.coordinator,
+                   args.num_processes, args.process_id)
+    return 0
+
+
+def run_multihost(dev, smi: str) -> None:
+    """The multi-process layouts: ``MULTIHOST_RANKS`` ranks on ``dev`` over
+    gloo (``multihost_rank``), each reading only its bricks of config 5's
+    256^3 volume; their z4 and bricks221 orbit renders (B10), row-sharded B1
+    frame and B4 fit steps held bit for bit against this process's
+    single-process port on the assembled volume, their B11 step within
+    tests/test_torch_sharded.py's bar.  A rank that fails fails the phase."""
+    from volumerenderer_tpu_torch import Camera, TFParams, generate_rays
+    from volumerenderer_tpu_torch.io.bricks import BrickGrid, load_bricks, synthetic_brick_source
+    from volumerenderer_tpu_torch.models import plan_compositing
+    from volumerenderer_tpu_torch.parallel import bricks as PB
+    from volumerenderer_tpu_torch.parallel import context as PC
+    from volumerenderer_tpu_torch.parallel import kernel_sharded as KS
+    from volumerenderer_tpu_torch.parallel import multihost as MH
+    from volumerenderer_tpu_torch.parallel import sharding as PS
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as work:
+        MH.spawn(multihost_argv(Path(work)), MULTIHOST_RANKS, MULTIHOST_TIMEOUT_S)
+        ranks = [json.loads((Path(work) / f"rank{r}.json").read_text())
+                 for r in range(MULTIHOST_RANKS)]
+        arrays = [dict(np.load(Path(work) / f"rank{r}.npz")) for r in range(MULTIHOST_RANKS)]
+    ranks_s = time.perf_counter() - t0
+
+    # the single-process port on the assembled volume, the same cameras
+    grid = BrickGrid(brick_dims=CONFIG5_BRICK, grid=(2, 2, 2))
+    X, Y, Z = grid.volume_dims()
+    full = torch.from_numpy(load_bricks(synthetic_brick_source(grid), grid, grid.num_bricks(),
+                                        *grid.grid, MULTIHOST_TIMESTEP)).to(dev)
+    bundles = [generate_rays(orbit_camera(Camera, 2.0 * i, W, H), device=dev)
+               for i in range(N_FRAMES)]
+    plans = [plan_compositing(r.entry_uv, r.direction, r.hit, (X, Y, Z)) for r in bundles]
+    zmesh, bmesh = PC.make_z_mesh(Z_SHARDS), PB.make_brick_mesh(BRICKS)
+    layouts = {"z4": (zmesh, PB.shard_volume(zmesh, full), KS.render_zsharded_kernel),
+               "bricks221": (bmesh, PB.shard_volume(bmesh, full), KS.render_bricksharded_kernel)}
+    want = {name: [digest(*render(mesh, plan, sv)) for plan in plans]
+            for name, (mesh, sv, render) in layouts.items()}
+
+    def sweep(name):
+        mesh, sv, render = layouts[name]
+        return float(sum(render(mesh, plan, sv)[0].sum() for plan in plans))
+
+    single_ms = {name: 1e3 * sweep_seconds(lambda: sweep(name)) / N_FRAMES for name in layouts}
+    rmesh, plan0 = PS.make_mesh(Z_SHARDS), plans[0]
+    single_ms["rows"] = 1e3 * sweep_seconds(lambda: float(sum(
+        KS.render_planned_sharded(rmesh, p, full)[0].sum() for p in plans))) / N_FRAMES
+    rgb_r, a_r = KS.render_planned_sharded(rmesh, plan0, full)
+    rows_frame0 = np.stack([rgb_r.cpu().numpy(), np.repeat(a_r.cpu().numpy()[..., None], 3, -1)])
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    target = torch.full((H, W, 3), 0.5, device=dev)
+    params, losses = TFParams(*(f32(v) for v in NON_REFERENCE_TF)), []
+    for _ in range(FIT_STEPS):
+        params, loss = KS.tf_fit_step_kernel(rmesh, plan0, params, full, target, lr=FIT_LR)
+        losses.append(loss)
+    b11_params, b11_loss = KS.tf_fit_step_bricksharded(
+        bmesh, plan0, TFParams(*(f32(v) for v in NON_REFERENCE_TF)), layouts["bricks221"][1],
+        target, lr=FIT_LR)
+
+    per_rank = Z_SHARDS // MULTIHOST_RANKS
+    want_launches = {"seg_march": per_rank * sum(ranks[0]["renders"].values()),
+                     "seg_entry_table": per_rank * N_FRAMES * len(layouts),
+                     "composite_march": per_rank, "tf_march": per_rank * FIT_STEPS,
+                     "seg_tf_march": per_rank}
+    checks = []
+    for info, arr in zip(ranks, arrays):
+        r = info["rank"]
+        b11_loss_rel = abs(float(arr["b11_loss"]) - float(b11_loss)) / abs(float(b11_loss))
+        b11_param_err = {n: float((np.abs(arr[f"b11_params/{n}"] - t.cpu().numpy())
+                                   - B11_PARAM_RTOL * np.abs(t.cpu().numpy())).max())
+                         for n, t in zip(TFParams._fields, b11_params)}
+        check = {
+            "rank": r, "backend": info["backend"],
+            "frames_differ": {name: [i for i, (a, b) in enumerate(zip(info["digests"][name],
+                                                                      want[name])) if a != b]
+                              for name in layouts},
+            "rows_frame0_bit_equal": np.array_equal(arr["rows_frame0"], rows_frame0),
+            "tf_losses_bit_equal": np.array_equal(
+                arr["tf_losses"], np.stack([x.cpu().numpy() for x in losses])),
+            "tf_params_bit_equal": all(np.array_equal(arr[f"tf_params/{n}"], t.cpu().numpy())
+                                       for n, t in zip(TFParams._fields, params)),
+            "b11_bit_equal": float(arr["b11_loss"]) == float(b11_loss) and all(
+                np.array_equal(arr[f"b11_params/{n}"], t.cpu().numpy())
+                for n, t in zip(TFParams._fields, b11_params)),
+            "b11_loss_rel_err": b11_loss_rel, "b11_param_err_beyond_rtol": b11_param_err,
+            "launches": info["launches"]}
+        if info["backend"] != "gloo" or any(check["frames_differ"].values()) \
+                or not (check["rows_frame0_bit_equal"] and check["tf_losses_bit_equal"]
+                        and check["tf_params_bit_equal"]) \
+                or b11_loss_rel > B11_LOSS_RTOL or max(b11_param_err.values()) > B11_PARAM_ATOL \
+                or info["launches"] != want_launches or info["renders"] != ranks[0]["renders"]:
+            raise AssertionError(f"multihost rank {r} against the single-process port: {check}; "
+                                 f"launches wanted {want_launches}")
+        checks.append(check)
+    z4_ms = [info["ms_per_frame"]["z4"] for info in ranks]
+    emit({"phase": "multihost", "ranks": MULTIHOST_RANKS, "backend": ranks[0]["backend"],
+          "collectives": "gloo all_gather over TCP on the host; CUDA tensors staged through "
+                         "pinned host buffers",
+          "device_per_rank": ranks[0]["devices"], "z_mesh_ranks": ranks[0]["z_mesh_ranks"],
+          "bricks_mesh_ranks": ranks[0]["bricks_mesh_ranks"], "volume": [Z, Y, X],
+          "brick_dims": list(CONFIG5_BRICK), "timestep": MULTIHOST_TIMESTEP, "hw": [H, W],
+          "frames": N_FRAMES, "brick_reads": [info["brick_reads"] for info in ranks],
+          "ms_per_frame": [info["ms_per_frame"] for info in ranks],
+          "single_process_ms_per_frame": single_ms,
+          "z4_gather_ms": [info["z4_gather_ms"] for info in ranks],
+          "z4_gather_share": [g["z4_gather_ms"]["gather"] / m for g, m in zip(ranks, z4_ms)],
+          "peak_memory_bytes": [info["peak_memory_bytes"] for info in ranks],
+          "scaling_probe_kernel": [info["scaling_probe_kernel"] for info in ranks],
+          "builds_reused": [info["builds_reused"] for info in ranks],
+          "rank_seconds": [info["seconds"] for info in ranks], "phase_seconds":
+          time.perf_counter() - t0, "ranks_wall_s": ranks_s, "checks": checks,
+          "launches_per_rank": want_launches, "tf_losses": [float(x) for x in losses],
+          "gpu": smi})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an "
@@ -3204,6 +3543,7 @@ def main() -> int:
         run_checkpoint(dev, smi, tree, source, Path(work))
         run_app(dev, smi, Path(work))
         run_config5(dev, smi, Path(work))
+    run_multihost(dev, smi)
 
     emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *bind_kernels,
                       *sharded_kernels]})
@@ -3214,4 +3554,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multihost_main(sys.argv[1:]) if "--multihost-rank" in sys.argv else main())

@@ -14,8 +14,8 @@ PACKAGE = REPO / "volumerenderer_tpu_torch"
 
 def test_port_imports_without_jax():
     """Every module of the port, found by walking the package (the sharded
-    layouts, the segment kernels' wrappers and the application layer
-    included)."""
+    layouts, the multi-process layer, ``dryrun_multichip``, the segment
+    kernels' wrappers and the application layer included)."""
     code = ("import importlib, pkgutil, sys, volumerenderer_tpu_torch as P; "
             "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]; "
             "[importlib.import_module(n) for n in names]; "
@@ -27,7 +27,8 @@ def test_port_imports_without_jax():
             "'volumerenderer_tpu_torch.interop', 'volumerenderer_tpu_torch.app', "
             "'volumerenderer_tpu_torch.config', 'volumerenderer_tpu_torch.io.streaming', "
             "'volumerenderer_tpu_torch.codecs.reference_impl', "
-            "'volumerenderer_tpu_torch.utils.timer', 'volumerenderer_tpu_torch.native'}; "
+            "'volumerenderer_tpu_torch.utils.timer', 'volumerenderer_tpu_torch.native', "
+            "'volumerenderer_tpu_torch.parallel.multihost', 'volumerenderer_tpu_torch.entry'}; "
             "assert need <= set(names), need - set(names); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'volumerenderer_tpu' or m.startswith('volumerenderer_tpu.')); "
@@ -48,7 +49,7 @@ def test_port_sources_never_name_jax_modules(pattern):
     so any dotted module name or import of jax is an import in the making."""
     sources = [p for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh")
                and "build" not in p.relative_to(PACKAGE).parts]
-    sources.append(REPO / "chip_smoke.py")
+    sources += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_scaling_probe.py"]
     assert len(sources) > 10
     offenders = [f"{path.relative_to(REPO)}:{n}: {line.strip()}"
                  for path in sources

@@ -11,8 +11,11 @@ passes on the device, decoded on the device; the mid-range, Morton-hashed
 and octree codecs) renders through ``CompressedRenderer`` from sparse slab
 pools, with pooled variants of the same kernels; ``io.bricks`` assembles
 bricked volumes.  ``parallel`` shards the image
-rows, or the volume in z slabs or bricks, over a mesh of devices; inside a
-volume shard the segment marches run.  The application layer: ``config``
+rows, or the volume in z slabs or bricks, over a mesh of devices, which may
+span several processes (``parallel.multihost`` on ``torch.distributed``:
+``initialize``, ``global_mesh``, per-host brick I/O); inside a volume shard
+the segment marches run, and ``entry.dryrun_multichip`` runs every layout
+once at small shapes.  The application layer: ``config``
 (the ``AppConfig`` dataclass tree), ``app`` (the reference ``main()`` flow,
 ``app.run``, and the camera-state machine), ``io.streaming`` (the
 multi-timestep ``TimestepStreamer``), the kd-tree and mid-range checkpoint
@@ -31,8 +34,9 @@ from .diff.transfer import TFParams, render_tf
 from .codecs.kdtree import KdTree
 from .models.compressed import CompressedRenderer
 from .config import AppConfig, CodecConfig, DatasetConfig, DistributedConfig, RenderConfig
-from .parallel import (DeviceMesh, make_brick_mesh, make_mesh, make_z_mesh,
+from .parallel import (DeviceMesh, global_mesh, make_brick_mesh, make_mesh, make_z_mesh,
                        render_bricksharded_kernel, render_zsharded_kernel, shard_volume)
+from .entry import dryrun_multichip
 
 __version__ = "0.1.0"
 
@@ -61,4 +65,6 @@ __all__ = [
     "shard_volume",
     "render_zsharded_kernel",
     "render_bricksharded_kernel",
+    "global_mesh",
+    "dryrun_multichip",
 ]

@@ -20,8 +20,15 @@ the order of their first owned step.
 
 Exactness: equal to the single-device march without the a > 0.99 early-out,
 as the z-sharded path.  Positions are the JAX function's analytic
-``entry + (t + 1)*step`` (``parallel/context.py``).  Not ported yet:
-``host_local_bricks_3d``, which needs ``io/bricks.BrickGrid``.
+``entry + (t + 1)*step`` (``parallel/context.py``).
+
+Over several processes (a mesh from ``multihost.global_mesh``) each process
+holds and marches only the bricks of its own mesh entries: ``shard_volume``
+takes the whole volume or this process's part of it (with its offset, the
+counterpart of ``jax.make_array_from_process_local_data``; the bricks of
+``host_local_bricks_3d``), the halo planes a brick needs from another
+process come through ``multihost.gather``, and so do the segment maps, in
+mesh order, before they fold.
 """
 from __future__ import annotations
 
@@ -30,12 +37,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..io.bricks import BrickGrid
 from ..ops.raycast import ALPHA_SCALE, BIG_T, MAX_SAMPLES, apply_reference_transfer, step_sizes
 from ..ops.sampling import gather_trilerp, rebased_taps, texel_coords
+from . import multihost
 from .sharding import DeviceMesh, default_devices
 
-__all__ = ["make_brick_mesh", "ShardedVolume", "shard_volume", "extend_halos",
-           "composite_segments_ordered", "render_bricksharded", "BIG_T"]
+__all__ = ["make_brick_mesh", "ShardedVolume", "shard_volume", "host_local_bricks_3d",
+           "extend_halos", "composite_segments_ordered", "render_bricksharded", "BIG_T"]
 
 
 def make_brick_mesh(shape=(2, 2, 2), devices=None) -> DeviceMesh:
@@ -67,7 +76,8 @@ def volume_grid(mesh: DeviceMesh) -> tuple[int, int, int]:
 class ShardedVolume:
     """A (Z, Y, X) volume split over a mesh: ``bricks`` is an object array of
     shape ``volume_grid(mesh)`` whose entry (iz, iy, ix) is the brick
-    [iz*Sz, (iz+1)*Sz) x [iy*Sy, ...) x [ix*Sx, ...) on its mesh device."""
+    [iz*Sz, (iz+1)*Sz) x [iy*Sy, ...) x [ix*Sx, ...) on its mesh device,
+    or None where another process owns that entry."""
 
     mesh: DeviceMesh
     bricks: np.ndarray
@@ -78,20 +88,71 @@ class ShardedVolume:
         return tuple(s // n for s, n in zip(self.shape, self.bricks.shape))
 
 
-def shard_volume(mesh: DeviceMesh, volume: torch.Tensor) -> ShardedVolume:
-    """Split a (Z, Y, X) volume over the mesh, each brick copied to its
-    device (``volume_grid`` gives the split)."""
+def shard_volume(mesh: DeviceMesh, volume: torch.Tensor, offset=None) -> ShardedVolume:
+    """Split a (Z, Y, X) volume over the mesh (``volume_grid`` gives the
+    split), each of this process's bricks copied to its device; the bricks
+    of other processes' entries stay None.
+
+    ``offset`` = (z, y, x): ``volume`` is this process's part of the global
+    volume, starting at that voxel: the box of its own entries' bricks, as
+    ``multihost.load_bricks_for_host`` or the bricks of
+    :func:`host_local_bricks_3d` assemble it.  The global shape follows from
+    the mesh.  Without it, ``volume`` is the global volume."""
     grid = volume_grid(mesh)
-    shape = tuple(int(s) for s in volume.shape)
-    if len(shape) != 3 or any(s % n for s, n in zip(shape, grid)):
-        raise ValueError(f"volume {shape} does not split into {grid} bricks")
+    local = [np.unravel_index(i, grid) for i in mesh.local_indices()]
+    vshape = tuple(int(s) for s in volume.shape)
+    if len(vshape) != 3:
+        raise ValueError(f"volume {vshape} is not (Z, Y, X)")
+    if offset is None:
+        shape, origin = vshape, (0, 0, 0)
+        if any(s % n for s, n in zip(shape, grid)):
+            raise ValueError(f"volume {shape} does not split into {grid} bricks")
+    else:
+        lo = [int(min(idx[a] for idx in local)) for a in range(3)]
+        span = [int(max(idx[a] for idx in local)) + 1 - lo[a] for a in range(3)]
+        if len(local) != int(np.prod(span)) or any(s % n for s, n in zip(vshape, span)):
+            raise ValueError(f"this process's entries {[tuple(map(int, i)) for i in local]} "
+                             f"of a {grid} split do not tile its volume part {vshape}")
+        brick = [s // n for s, n in zip(vshape, span)]
+        origin = tuple(int(o) for o in offset)
+        if origin != tuple(b * l for b, l in zip(brick, lo)):
+            raise ValueError(f"offset {origin}: this process's part starts at "
+                             f"{tuple(b * l for b, l in zip(brick, lo))}")
+        shape = tuple(b * n for b, n in zip(brick, grid))
     Sz, Sy, Sx = (s // n for s, n in zip(shape, grid))
     devices = mesh.devices.reshape(grid)
     bricks = np.empty(grid, dtype=object)
-    for iz, iy, ix in np.ndindex(*grid):
-        brick = volume[iz * Sz:(iz + 1) * Sz, iy * Sy:(iy + 1) * Sy, ix * Sx:(ix + 1) * Sx]
+    for iz, iy, ix in local:
+        z, y, x = iz * Sz - origin[0], iy * Sy - origin[1], ix * Sx - origin[2]
+        brick = volume[z:z + Sz, y:y + Sy, x:x + Sx]
         bricks[iz, iy, ix] = brick.to(devices[iz, iy, ix]).contiguous()
     return ShardedVolume(mesh, bricks, shape)
+
+
+def host_local_bricks_3d(grid: BrickGrid, mesh_shape, shard_index) -> list[int]:
+    """Brick file numbers intersecting one mesh shard's sub-volume: per-host
+    brick I/O for the brick-sharded layout (each process reads only the
+    files backing its own shards).  ``mesh_shape`` = (nbz, nby, nbx);
+    ``shard_index`` = (iz, iy, ix)."""
+    bx, by, bz = grid.brick_dims
+    I, J, Kb = grid.grid
+    X, Y, Z = I * bx, J * by, Kb * bz
+    nbz, nby, nbx = mesh_shape
+    iz, iy, ix = shard_index
+    if Z % nbz or Y % nby or X % nbx:
+        raise ValueError(f"a volume of (X, Y, Z) = {(X, Y, Z)} does not split into "
+                         f"{tuple(mesh_shape)} shards")
+    z_lo, z_hi = iz * Z // nbz, (iz + 1) * Z // nbz
+    y_lo, y_hi = iy * Y // nby, (iy + 1) * Y // nby
+    x_lo, x_hi = ix * X // nbx, (ix + 1) * X // nbx
+    out = []
+    for b in range(grid.num_bricks()):
+        i, j, k = grid.brick_coords(b)
+        if (k * bz < z_hi and (k + 1) * bz > z_lo
+                and j * by < y_hi and (j + 1) * by > y_lo
+                and i * bx < x_hi and (i + 1) * bx > x_lo):
+            out.append(b)
+    return out
 
 
 def as_sharded(mesh: DeviceMesh, volume) -> ShardedVolume:
@@ -102,33 +163,51 @@ def as_sharded(mesh: DeviceMesh, volume) -> ShardedVolume:
         if volume.bricks.shape != grid:
             raise ValueError(f"the volume is split {volume.bricks.shape}, the mesh {grid}")
         devices = mesh.devices.reshape(grid)
-        if any(volume.bricks[idx].device != devices[idx] for idx in np.ndindex(*grid)):
+        local = [np.unravel_index(i, grid) for i in mesh.local_indices()]
+        if any(volume.bricks[idx] is None or volume.bricks[idx].device != devices[idx]
+               for idx in local):
             raise ValueError("the volume's bricks do not lie on the mesh's devices: "
                              "place it with shard_volume on this mesh")
         return volume
     return shard_volume(mesh, volume)
 
 
-def extend_halos(bricks: np.ndarray, axes=(0, 1, 2)) -> np.ndarray:
+def extend_halos(bricks: np.ndarray, axes=(0, 1, 2), mesh: DeviceMesh | None = None
+                 ) -> np.ndarray:
     """Append one halo plane to every brick along each of ``axes`` in turn:
     the next brick's first plane, copied to this brick's device; the last
     brick of an axis repeats its own last plane (the clamp at the volume's
     face).  Exchanging bricks already extended along earlier axes carries
     the edge and corner halos.  ``bricks`` is an object array of tensors,
     as ``ShardedVolume.bricks``; a new array of extended tensors is
-    returned."""
+    returned.  With a ``mesh`` over several processes (its flat order that
+    of ``bricks``), each process extends its own bricks (the others are
+    None), and the first planes of every brick come through
+    ``multihost.gather`` for the neighbours that lie on another process."""
     out = bricks
     for axis in axes:
         n = out.shape[axis]
+        firsts = None
+        if mesh is not None and mesh.multiprocess:
+            planes = multihost.gather(mesh, [(out.flat[i].narrow(axis, 0, 1).contiguous(),)
+                                             for i in mesh.local_indices()])
+            firsts = np.empty(out.size, dtype=object)
+            for i, (plane,) in enumerate(planes):
+                firsts[i] = plane
+            firsts = firsts.reshape(out.shape)
         ext = np.empty(out.shape, dtype=object)
         for idx in np.ndindex(*out.shape):
             brick = out[idx]
+            if brick is None:
+                continue
             if idx[axis] == n - 1:
                 halo = brick.narrow(axis, brick.shape[axis] - 1, 1)
             else:
                 nxt = list(idx)
                 nxt[axis] += 1
-                halo = out[tuple(nxt)].narrow(axis, 0, 1).to(brick.device)
+                nxt = tuple(nxt)
+                src = out[nxt] if out[nxt] is not None else firsts[nxt]
+                halo = src.narrow(axis, 0, 1).to(brick.device)
             ext[idx] = torch.cat([brick, halo], dim=axis)
         out = ext
     return out
@@ -185,24 +264,23 @@ def render_bricksharded(mesh: DeviceMesh, volume, entry_uv, direction, hit,
                         max_samples: int = MAX_SAMPLES):
     """Render with the volume brick-sharded over ``mesh`` (axes ("bz", "by",
     "bx")).  ``volume`` is a (Z, Y, X) float32 tensor or a ``ShardedVolume``
-    placed by :func:`shard_volume`.  Each brick marches on its device; the
-    segments fold on the mesh's first device.  Returns (rgb, alpha) equal to
-    the unsharded plain renderer without early termination."""
+    placed by :func:`shard_volume`.  Each of this process's bricks marches
+    on its device; the segments gather in mesh order (on the mesh's first
+    device in one process, on every process over several) and fold there.
+    Returns (rgb, alpha) equal to the unsharded plain renderer without early
+    termination."""
     sv = as_sharded(mesh, volume)
     Z, Y, X = sv.shape
     Sz, Sy, Sx = sv.brick_shape
-    ext = extend_halos(sv.bricks)
-    first = mesh.first
-    C_all, T_all, tf_all = [], [], []
-    for idx in np.ndindex(*ext.shape):
+    ext = extend_halos(sv.bricks, mesh=mesh)
+    local = []
+    for i in mesh.local_indices():
+        idx = np.unravel_index(i, ext.shape)
         e = ext[idx]
         dev = e.device
         lo = (idx[0] * Sz, idx[1] * Sy, idx[2] * Sx)
-        C, T, tf = _brick_march(e, entry_uv.to(dev), direction.to(dev), hit.to(dev), lo,
-                                (Sz, Sy, Sx), (X, Y, Z), max_samples)
-        C_all.append(C.to(first))
-        T_all.append(T.to(first))
-        tf_all.append(tf.to(first))
-    color, alpha = composite_segments_ordered(torch.stack(C_all), torch.stack(T_all),
-                                              torch.stack(tf_all))
+        local.append(_brick_march(e, entry_uv.to(dev), direction.to(dev), hit.to(dev), lo,
+                                  (Sz, Sy, Sx), (X, Y, Z), max_samples))
+    C_all, T_all, tf_all = (torch.stack(f) for f in zip(*multihost.gather(mesh, local)))
+    color, alpha = composite_segments_ordered(C_all, T_all, tf_all)
     return apply_reference_transfer(color, alpha), alpha

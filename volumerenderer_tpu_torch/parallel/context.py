@@ -21,13 +21,21 @@ Positions are the JAX function's analytic ``entry + (t + 1)*step``, so that
 the two plain paths agree; the kernels and their plain versions
 (``ops/raycast.py::seg_march_steps``) advance by repeated addition, and the
 two drift apart by rounding over many steps (ROADMAP queue C).
+
+A z mesh over several processes (``multihost.global_mesh(("z",))``) takes the
+volume placed by ``bricks.shard_volume`` (each process's slab, with its
+offset): each process marches its own shards, the halo plane comes from the
+next shard wherever it lies, and the segment maps gather in mesh order
+(``multihost.gather``), so every process folds the same tensors in the same
+order as one process does and returns the full image.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.raycast import MAX_SAMPLES, apply_reference_transfer
-from .bricks import _brick_march
+from . import multihost
+from .bricks import _brick_march, as_sharded, extend_halos
 from .sharding import DeviceMesh, default_devices
 
 __all__ = ["render_zsharded", "make_z_mesh", "composite_segments"]
@@ -64,28 +72,28 @@ def render_zsharded(mesh: DeviceMesh, volume, entry_uv, direction, hit,
                     max_samples: int = MAX_SAMPLES):
     """Render with the volume sharded along z over ``mesh`` axis ``"z"``.
 
-    ``volume``: (Z, Y, X) float32 (global).  Each shard's slab and its halo
-    plane go to its device, its segment maps come back to the mesh's first
-    device, and they fold there.  Returns (rgb, alpha) matching the unsharded
-    renderer without early termination."""
-    Z, Y, X = volume.shape
-    devices = list(mesh.devices.flat)
-    n = mesh.shape["z"]
-    if Z % n:
-        raise ValueError(f"Z = {Z} does not split into {n} z-shards")
-    S = Z // n
-    dims = (X, Y, Z)
-    slabs = [volume[i * S:(i + 1) * S].to(dev) for i, dev in enumerate(devices)]
-    C_all, T_all = [], []
-    for i, dev in enumerate(devices):
-        # halo: the next shard's first plane; the last shard repeats its own
-        # last plane (the global clamp at the z face)
-        halo = slabs[i][S - 1:S] if i == n - 1 else slabs[i + 1][0:1].to(dev)
-        slab_ext = torch.cat([slabs[i], halo])
+    ``volume``: (Z, Y, X) float32 (global), or a ``ShardedVolume`` of this
+    mesh (``bricks.shard_volume``).  Each of this process's shards gets its
+    slab and halo plane on its device, its segment maps gather in mesh order
+    (on the mesh's first device in one process, on every process over
+    several), and they fold there.  Returns (rgb, alpha) matching the
+    unsharded renderer without early termination."""
+    if mesh.devices.ndim != 1:
+        raise ValueError(f"expected a 1-D z mesh, got {mesh.axis_names}")
+    sv = as_sharded(mesh, volume)
+    Z, Y, X = sv.shape
+    S = Z // mesh.size
+    # halo: the next shard's first plane; the last shard repeats its own
+    # last plane (the global clamp at the z face)
+    ext = extend_halos(sv.bricks, axes=(0,), mesh=mesh)
+    local = []
+    for i in mesh.local_indices():
+        slab_ext = ext[i, 0, 0]
+        dev = slab_ext.device
         C, T, _ = _brick_march(slab_ext, entry_uv.to(dev), direction.to(dev), hit.to(dev),
-                               (i * S, 0, 0), (S, Y, X), dims, max_samples)
-        C_all.append(C.to(mesh.first))
-        T_all.append(T.to(mesh.first))
-    ascending = direction[..., 2].to(mesh.first) >= 0
-    color, alpha = composite_segments(torch.stack(C_all), torch.stack(T_all), ascending)
+                               (i * S, 0, 0), (S, Y, X), (X, Y, Z), max_samples)
+        local.append((C, T))
+    C_all, T_all = (torch.stack(f) for f in zip(*multihost.gather(mesh, local)))
+    ascending = direction[..., 2].to(mesh.home) >= 0
+    color, alpha = composite_segments(C_all, T_all, ascending)
     return apply_reference_transfer(color, alpha), alpha

@@ -2,9 +2,13 @@
 and the volume-sharded layouts through the segment marches (B10, B11).
 
 Counterpart of ``volumerenderer_tpu/parallel/kernel_sharded.py``.  Where JAX
-runs one ``shard_map`` body per device, the port runs the shards one after
-another from one process, each launching on its device; the results are
-copied to the mesh's first device and reduced there.
+runs one ``shard_map`` body per device, each process of the port runs its own
+shards (``DeviceMesh.local_indices``; every shard in one process) one after
+another, each launching on its device; the results gather in mesh order
+(``multihost.gather``: copies to the mesh's first device in one process, an
+``all_gather`` to every process over several) and are reduced there in that
+order, so a run over several processes equals the one-process run bit for
+bit (but B5's float atomics).
 
 * Row-sharded (``render_planned_sharded``, ``tf_fit_step_kernel``,
   ``voxel_fit_step_kernel``): each device marches its block of image rows
@@ -12,8 +16,8 @@ copied to the mesh's first device and reduced there.
   its byte route: the volume is quantized once (a uint8 volume is its own
   bytes) and each device receives the
   byte volume, a quarter of the float32 bytes (the voxel step's B5 reads
-  bytes anyway); the images gather, and the loss and the gradients sum, on
-  the first device.  Rays never interact, and the byte route samples what
+  bytes anyway); the images gather, and the loss and the gradients sum in
+  mesh order.  Rays never interact, and the byte route samples what
   the float32 route does, so a row-sharded frame equals the plan's, bit for
   bit.
 * Volume-sharded (``render_zsharded_kernel``, ``render_bricksharded_kernel``,
@@ -23,20 +27,22 @@ copied to the mesh's first device and reduced there.
   on its device, exchanges one halo plane in z and one row in y
   (``bricks.extend_halos``), launches the segment march once per shard
   (``ops/cuda/seg_kernel.py``), and composes the shards' segment maps in
-  per-ray traversal order on the first device.  Each march starts from its
+  per-ray traversal order after the gather.  Each march starts from its
   shard's entry table, which depends on the rays and the owned box only: it
   is built at a plan's first sharded call and kept in
-  ``CompositingPlan.seg_starts``.  No early-out: equal to the
-  unsharded march without it, so within the early-out envelope of the dense
-  frame (``docs/PARITY.md`` deviation 6).
+  ``CompositingPlan.seg_starts`` of the process that marches the shard.  No
+  early-out: equal to the unsharded march without it, so within the
+  early-out envelope of the dense frame (``docs/PARITY.md`` deviation 6).
 
 Not ported: the ``_LRU`` caches of jitted ``shard_map`` bodies (torch has no
 trace to cache), the ``words`` arguments (the entry tables take the word
 tables' place), and the TPU window checks of ``seg_plan_ok``.  The halo is one plane
-per axis, so JAX's ``_extend_axis_h`` is ``bricks.extend_halos`` here.  Later
-(with ``multihost.py``): ``scaling_probe_kernel``.
+per axis, so JAX's ``_extend_axis_h`` is ``bricks.extend_halos`` here.
+``scaling_probe_kernel`` drops the ``words`` argument for the same reason.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -50,12 +56,14 @@ from ..ops.cuda.tf_kernel import check_plan, tf_march_cuda
 from ..ops.cuda.voxel_grad_kernel import voxel_grad_cuda
 from ..ops.raycast import apply_reference_transfer
 from ..ops.sampling import as_normalized_volume
+from . import multihost
 from .bricks import as_sharded, composite_segments_ordered, extend_halos
 from .sharding import DeviceMesh
 
 __all__ = ["plan_shardable", "render_planned_sharded", "tf_fit_step_kernel",
            "voxel_fit_step_kernel", "seg_plan_ok", "seg_shards", "shard_starts",
-           "render_zsharded_kernel", "render_bricksharded_kernel", "tf_fit_step_bricksharded"]
+           "render_zsharded_kernel", "render_bricksharded_kernel", "tf_fit_step_bricksharded",
+           "scaling_probe_kernel"]
 
 
 def plan_shardable(plan: CompositingPlan, n: int) -> bool:
@@ -65,14 +73,19 @@ def plan_shardable(plan: CompositingPlan, n: int) -> bool:
 
 
 def _row_shards(mesh: DeviceMesh, plan: CompositingPlan, axis: str):
-    """(device, rows slice, the plan of those rows on that device) for each
-    device along ``axis``."""
-    devices = mesh.axis_devices(axis)
-    if not plan_shardable(plan, len(devices)):
-        raise ValueError(f"{plan.shape[0]} image rows do not split over {len(devices)} devices")
-    n = plan.shape[0] // len(devices)
-    return [(dev, slice(j * n, (j + 1) * n), plan.rows(j * n, (j + 1) * n, dev))
-            for j, dev in enumerate(devices)]
+    """The flat indices of the entries along ``axis``, and (device, rows
+    slice, the plan of those rows on that device) for each of them that
+    this process owns."""
+    entries = mesh.axis_indices(axis)
+    if not plan_shardable(plan, len(entries)):
+        raise ValueError(f"{plan.shape[0]} image rows do not split over {len(entries)} devices")
+    n = plan.shape[0] // len(entries)
+    shards = []
+    for j, i in enumerate(entries):
+        if mesh.is_local(i):
+            dev = mesh.devices.flat[i]
+            shards.append((dev, slice(j * n, (j + 1) * n), plan.rows(j * n, (j + 1) * n, dev)))
+    return entries, shards
 
 
 def render_planned_sharded(mesh: DeviceMesh, plan: CompositingPlan, volume: torch.Tensor,
@@ -80,20 +93,19 @@ def render_planned_sharded(mesh: DeviceMesh, plan: CompositingPlan, volume: torc
     """Render a planned view with image rows sharded over ``mesh`` axis
     ``axis``: a float32 volume in [0, 1] is quantized to bytes once (a
     uint8 volume is its own bytes) and the byte volume, a quarter of the
-    float32 bytes, is copied to each device, which runs the march (B1, the
-    transfer in its epilogue) on its rows.  Returns
-    (rgb, alpha) as full (H, W) images on the mesh's first device, equal
-    bit for bit to ``plan.render(volume)``, whose taps are quantized as
-    they are read."""
+    float32 bytes, is copied to each of this process's devices, which runs
+    the march (B1, the transfer in its epilogue) on its rows.  Returns
+    (rgb, alpha) as full (H, W) images on ``mesh.home`` (the mesh's first
+    device in one process), equal bit for bit to ``plan.render(volume)``,
+    whose taps are quantized as they are read."""
     plan.check_volume(volume)
     vol_u8 = quantize_u8(volume)
-    rgbs, alphas = [], []
-    for dev, _, sub in _row_shards(mesh, plan, axis):
-        rgb, a = composite_march_cuda(vol_u8.to(dev), sub.entry_uv, sub.dir_step, sub.hit,
-                                      sub.max_samples, sub.wrap, transfer=True)
-        rgbs.append(rgb.to(mesh.first))
-        alphas.append(a.to(mesh.first))
-    return torch.cat(rgbs), torch.cat(alphas)
+    entries, shards = _row_shards(mesh, plan, axis)
+    local = [composite_march_cuda(vol_u8.to(dev), sub.entry_uv, sub.dir_step, sub.hit,
+                                  sub.max_samples, sub.wrap, transfer=True)
+             for dev, _, sub in shards]
+    parts = multihost.gather(mesh, local, entries)
+    return torch.cat([rgb for rgb, _ in parts]), torch.cat([a for _, a in parts])
 
 
 def _mse_grads(params: TFParams, partials, target: torch.Tensor, npix: int):
@@ -118,25 +130,31 @@ def _row_sharded_step(mesh, plan, params, volume, target_rgb, axis, voxel: bool)
     plan.check_volume(volume)
     vol_u8 = quantize_u8(volume)
     npix = target_rgb.numel()
-    first = mesh.first
-    loss = torch.zeros((), dtype=torch.float32, device=first)
-    grads = TFParams(*(torch.zeros_like(p, device=first) for p in params))
-    g_vol = torch.zeros(volume.shape, dtype=torch.float32, device=first) if voxel else None
-    for dev, rows, sub in _row_shards(mesh, plan, axis):
+    entries, shards = _row_shards(mesh, plan, axis)
+    local = []
+    for dev, rows, sub in shards:
         p = _on(params, dev)
         u8 = vol_u8.to(dev)
         tf = tf_scalars(p)
         partials = tf_march_cuda(u8, sub.entry_uv, sub.dir_step, sub.hit, tf, sub.max_samples,
                                  sub.wrap)
-        local, g, gc = _mse_grads(p, partials, target_rgb[rows].to(dev), npix)
-        loss = loss + local.to(first)
-        grads = TFParams(*(a + b.to(first) for a, b in zip(grads, g)))
+        sq, g, gc = _mse_grads(p, partials, target_rgb[rows].to(dev), npix)
         if voxel:
-            g_vol = g_vol + voxel_grad_cuda(u8, sub.entry_uv, sub.dir_step, sub.hit, tf,
-                                            gc.contiguous(), torch.zeros_like(gc),
-                                            partials[3].contiguous(), sub.max_samples,
-                                            sub.wrap).to(first)
-    return loss / npix, grads, g_vol
+            g = (*g, voxel_grad_cuda(u8, sub.entry_uv, sub.dir_step, sub.hit, tf,
+                                     gc.contiguous(), torch.zeros_like(gc),
+                                     partials[3].contiguous(), sub.max_samples, sub.wrap))
+        local.append((sq, *g))
+    # the sums run in mesh order from zero, in one process as over several
+    home = mesh.home
+    loss = torch.zeros((), dtype=torch.float32, device=home)
+    grads = [torch.zeros(p.shape, dtype=p.dtype, device=home) for p in params]
+    if voxel:
+        grads.append(torch.zeros(volume.shape, dtype=torch.float32, device=home))
+    for sq, *g in multihost.gather(mesh, local, entries):
+        loss = loss + sq
+        grads = [a + b for a, b in zip(grads, g)]
+    g_vol = grads.pop() if voxel else None
+    return loss / npix, TFParams(*grads), g_vol
 
 
 def tf_fit_step_kernel(mesh: DeviceMesh, plan: CompositingPlan, params: TFParams,
@@ -145,9 +163,10 @@ def tf_fit_step_kernel(mesh: DeviceMesh, plan: CompositingPlan, params: TFParams
     """One SGD step of the TF fit (MSE against ``target_rgb`` (H, W, 3)) with
     image rows sharded over ``axis``: each device runs one TF march (B4) on
     its rows and forms its closed-form parameter gradients; the losses and
-    gradients sum on the first device.  Returns (new_params, loss) there."""
+    gradients gather and sum in mesh order.  Returns (new_params, loss) on
+    ``mesh.home`` (the mesh's first device in one process)."""
     loss, grads, _ = _row_sharded_step(mesh, plan, params, volume, target_rgb, axis, False)
-    params = _on(params, mesh.first)
+    params = _on(params, mesh.home)
     return TFParams(*(p - lr * g for p, g in zip(params, grads))), loss
 
 
@@ -157,13 +176,13 @@ def voxel_fit_step_kernel(mesh: DeviceMesh, plan: CompositingPlan, params: TFPar
     """One SGD step of the voxels and the TF parameters with image rows
     sharded over ``axis``: each device runs the TF march (B4) and one
     voxel-gradient pass (B5) on its rows; the (Z, Y, X) cotangent volumes
-    sum on the first device beside the parameter gradients.  ``volume`` is
-    float32 in [0, 1] or uint8 (bytes / 255).  Returns (new_params,
-    new_volume float32 clamped to [0, 1], loss) there."""
+    gather and sum in mesh order beside the parameter gradients.  ``volume``
+    is float32 in [0, 1] or uint8 (bytes / 255).  Returns (new_params,
+    new_volume float32 clamped to [0, 1], loss) on ``mesh.home``."""
     loss, grads, g_vol = _row_sharded_step(mesh, plan, params, volume, target_rgb, axis, True)
-    params = _on(params, mesh.first)
+    params = _on(params, mesh.home)
     new_params = TFParams(*(p - lr_tf * g for p, g in zip(params, grads)))
-    new_volume = torch.clamp(as_normalized_volume(volume, mesh.first) - lr_vol * g_vol, 0.0, 1.0)
+    new_volume = torch.clamp(as_normalized_volume(volume, mesh.home) - lr_vol * g_vol, 0.0, 1.0)
     return new_params, new_volume, loss
 
 
@@ -176,11 +195,12 @@ def seg_plan_ok(plan: CompositingPlan, n_z: int, n_y: int = 1, n_x: int = 1) -> 
 
 
 def seg_shards(mesh: DeviceMesh, plan: CompositingPlan, volume):
-    """The inputs of the segment marches, one shard at a time: each shard
-    quantized to 8 bits on its device (a uint8 volume's shards are its own
-    bytes), then one halo plane in z and one row in y exchanged.  Returns
-    [(slab_u8, launch keywords: dims, z_lo, n_z, y_lo, n_y, max_samples)] in
-    the mesh's order."""
+    """The inputs of the segment marches, one of this process's shards at a
+    time: each shard quantized to 8 bits on its device (a uint8 volume's
+    shards are its own bytes), then one halo plane in z and one row in y
+    exchanged (across processes where the next shard lies on another).
+    Returns [(slab_u8, launch keywords: dims, z_lo, n_z, y_lo, n_y,
+    max_samples)] for ``mesh.local_indices()``, in the mesh's order."""
     sv = as_sharded(mesh, volume)
     nz, ny, nx = sv.bricks.shape
     if tuple(sv.shape) != plan.dims[::-1]:
@@ -191,12 +211,13 @@ def seg_shards(mesh: DeviceMesh, plan: CompositingPlan, volume):
                          f"whole, got {(nz, ny, nx)} shards and wrap={plan.wrap!r}")
     Sz, Sy, _ = sv.brick_shape
     u8 = np.empty(sv.bricks.shape, dtype=object)
-    for idx in np.ndindex(*u8.shape):
+    local = [np.unravel_index(i, u8.shape) for i in mesh.local_indices()]
+    for idx in local:
         u8[idx] = quantize_u8(sv.bricks[idx])
-    slabs = extend_halos(u8, axes=(0, 1) if ny > 1 else (0,))
-    return [(slabs[iz, iy, 0], dict(dims=plan.dims, z_lo=iz * Sz, n_z=Sz, y_lo=iy * Sy, n_y=Sy,
-                                    max_samples=plan.max_samples))
-            for iz, iy, _ in np.ndindex(*slabs.shape)]
+    slabs = extend_halos(u8, axes=(0, 1) if ny > 1 else (0,), mesh=mesh)
+    return [(slabs[iz, iy, 0], dict(dims=plan.dims, z_lo=int(iz) * Sz, n_z=Sz,
+                                    y_lo=int(iy) * Sy, n_y=Sy, max_samples=plan.max_samples))
+            for iz, iy, _ in local]
 
 
 def shard_starts(plan: CompositingPlan, kw: dict, device):
@@ -218,8 +239,9 @@ def shard_starts(plan: CompositingPlan, kw: dict, device):
 def _seg_launches(mesh: DeviceMesh, plan: CompositingPlan, volume, tf: torch.Tensor | None):
     """The segment march once per shard (B10, or B11 with the TF scalars
     ``tf``) on :func:`seg_shards`' inputs, each from its entry table
-    (:func:`shard_starts`).  Returns the outputs stacked per field,
-    (n_shards, H, W) each, on the mesh's first device."""
+    (:func:`shard_starts`).  Returns the outputs of every shard, gathered
+    in mesh order and stacked per field, (n_shards, H, W) each, on
+    ``mesh.home`` (the mesh's first device in one process)."""
     outs = []
     for slab, kw in seg_shards(mesh, plan, volume):
         dev = slab.device
@@ -229,8 +251,8 @@ def _seg_launches(mesh: DeviceMesh, plan: CompositingPlan, volume, tf: torch.Ten
             out = seg_march_cuda(slab, *rays, **kw, starts=starts)
         else:
             out = seg_tf_march_cuda(slab, *rays, tf.to(dev), **kw, starts=starts)
-        outs.append([o.to(mesh.first) for o in out])
-    return [torch.stack(field) for field in zip(*outs)]
+        outs.append(out)
+    return [torch.stack(field) for field in zip(*multihost.gather(mesh, outs))]
 
 
 def _seg_composite(C_all, A_all, tf_all):
@@ -243,9 +265,10 @@ def render_zsharded_kernel(mesh: DeviceMesh, plan: CompositingPlan, volume, axis
     """Context-parallel render, the volume z-sharded over the 1-D ``mesh``
     (``parallel/context.py``'s layout), with the segment march (B10) in each
     shard.  ``volume`` is a (Z, Y, X) float32 tensor or a ``ShardedVolume``
-    of this mesh (``bricks.shard_volume``).  Returns (rgb, alpha) on the
-    mesh's first device: the same ownership split and segment maps as
-    ``render_zsharded``, with positions by repeated addition."""
+    of this mesh (``bricks.shard_volume``).  Returns (rgb, alpha) on
+    ``mesh.home``, on every process of the mesh: the same ownership split
+    and segment maps as ``render_zsharded``, with positions by repeated
+    addition."""
     if mesh.devices.ndim != 1 or mesh.axis_names != (axis,):
         raise ValueError(f"expected a 1-D mesh with axis {axis!r}, got {mesh.axis_names}")
     return _seg_composite(*_seg_launches(mesh, plan, volume, None))
@@ -255,7 +278,8 @@ def render_bricksharded_kernel(mesh: DeviceMesh, plan: CompositingPlan, volume):
     """Brick-sharded render (``parallel/bricks.py``'s layout, mesh axes
     ("bz", "by", "bx") with ``bx == 1``) with the segment march (B10) in each
     brick.  x stays whole: one thread marches one ray through all of its
-    row.  Returns (rgb, alpha) on the mesh's first device."""
+    row.  Returns (rgb, alpha) on ``mesh.home``, on every process of the
+    mesh."""
     return _seg_composite(*_seg_launches(mesh, plan, volume, None))
 
 
@@ -267,12 +291,39 @@ def tf_fit_step_bricksharded(mesh: DeviceMesh, plan: CompositingPlan, params: TF
     in per-ray traversal order (``compose_tf_segments``) into the global
     partials of the unsharded TF march without early-out, and the
     gradients follow the single-device formulas.  Returns (new_params,
-    loss) on the mesh's first device."""
+    loss) on ``mesh.home``, on every process of the mesh."""
     check_plan(plan)
-    params = _on(params, mesh.first)
+    params = _on(params, mesh.home)
     C, A, t_first, R, P, QP, SG, SB = _seg_launches(mesh, plan, volume, tf_scalars(params))
     partials = compose_tf_segments(C, A, t_first, R, P, QP, SG, SB)
-    target = target_rgb.to(mesh.first)
+    target = target_rgb.to(mesh.home)
     sq, grads, _ = _mse_grads(params, partials, target, target.numel())
     return TFParams(*(p - lr * g for p, g in zip(params, grads))), sq / target.numel()
 
+
+
+def scaling_probe_kernel(mesh: DeviceMesh, plan: CompositingPlan, volume, frames: int = 4,
+                         axis: str = "rays") -> float:
+    """Per-device throughput ratio of the row-sharded kernel render
+    (:func:`render_planned_sharded`, B1) on the full mesh against a mesh of
+    this process's first device alone: ``(t_one / n) / t_mesh``.  Each
+    timing enqueues ``frames`` renders back to back and forces them once,
+    by one scalar read to the host, after a warm render."""
+
+    def bench(m):
+        def frame():
+            rgb, a = render_planned_sharded(m, plan, volume, axis=axis)
+            return torch.sum(rgb) + torch.sum(a)
+
+        frame().item()
+        t0 = time.perf_counter()
+        s = torch.zeros((), device=m.home)
+        for _ in range(frames):
+            s = s + frame()
+        if not np.isfinite(s.item()):  # the one forced read
+            raise FloatingPointError(f"the probe's renders sum to {s.item()}")
+        return (time.perf_counter() - t0) / frames
+
+    t_mesh = bench(mesh)
+    t_one = bench(DeviceMesh([mesh.home], (axis,)))
+    return (t_one / mesh.size) / t_mesh
