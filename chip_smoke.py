@@ -82,6 +82,15 @@ calls:
   the volume replicated from the z slabs, one ``tf_fit_step_bricksharded``
   step (B11) and ``scaling_probe_kernel``; each output held against this
   process's single-process port on the assembled volume.
+* the port's edge: ``entry.entry()`` (the flagship step, one launch of B1
+  on the 256^3 sphere at 1024^2); ``scripts/torch_rm_smoke.py`` on 8
+  synthetic turbulence bricks of the RM brick size (256x256x128) written in
+  the RM layout (discovery, the size check and assembly of the first 8 of a
+  row with a CRC32, ``codecs.kdtree.build`` at tolerance 1, one 1024^2
+  frame of the 2048x256x128 volume through B1, and its two failure cases);
+  ``scripts/torch_render_demo.py`` at its defaults (five PNGs: B1, B2 and
+  B3, B7 at two cuts, B1 on the error field), each image held against its
+  plain version on the card.
 
 On the way it builds the kernels from ``volumerenderer_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -100,7 +109,7 @@ pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
 then composite_bind (one per field), skip_empty, diff_finetune, midrange,
 config4, device_build, octree, then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
 sharded_timing, seg_starts, sharded_layers, sharded_launch_count, then checkpoint, app (one per
-render mode), config5 and multihost).
+render mode), config5 and multihost, then entry, rm_smoke and render_demo).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
 kernels line's ``max_abs_err`` is over the parity cases, kernel against
@@ -196,6 +205,11 @@ NON_REFERENCE_TF = (0.45, 0.9, 0.05, [-0.8, 0.6, 0.3], [0.9, 0.2, 0.4])
 # the multi-process layouts: two ranks on cuda:0 (gloo), each with two
 # entries of every mesh, config 5's 2x2x2 grid of 128^3 bricks at timestep 273
 MULTIHOST_RANKS, MULTIHOST_TIMESTEP, MULTIHOST_TIMEOUT_S = 2, 273, 300
+# the edge of the port (entry(), the RM smoke test and the render demo): 8
+# RM-sized bricks (256x256x128) at timestep 273, written in the RM layout and
+# loaded as the first 8 of a row; the demo at the JAX script's defaults
+RM_BRICKS, RM_TIMESTEP, RM_GRID_TEXT = 8, 273, "8,1,1"
+DEMO_SIZE, DEMO_DIMS = 512, (128, 128, 128)
 # tests/test_torch_sharded.py's bar for B11 against the single-device fit step
 B11_LOSS_RTOL, B11_PARAM_RTOL, B11_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 
@@ -3282,6 +3296,214 @@ def run_multihost(dev, smi: str) -> None:
           "gpu": smi})
 
 
+def port_script(name: str):
+    """A script of the port's ``scripts/`` directory, imported as a module."""
+    import importlib
+
+    if str(HERE / "scripts") not in sys.path:
+        sys.path.insert(0, str(HERE / "scripts"))
+    return importlib.import_module(name)
+
+
+def run_entry(dev, smi: str) -> None:
+    """``entry()`` on the card: one launch of B1 per call, its rgb bit-equal to
+    the transfer of the plain march of the same plan's tensors."""
+    from volumerenderer_tpu_torch import entry as TE
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
+    from volumerenderer_tpu_torch.ops.sampling import as_normalized_volume
+
+    fn, args = TE.entry()
+    RK.composite_march_f32_cuda.launches = 0
+    rgb = fn(*args)
+    torch.cuda.synchronize()
+    launches = RK.composite_march_f32_cuda.launches
+    vol, entry_uv, dir_step, hit = args
+    vol_plain = as_normalized_volume(RK.quantize_u8(vol))
+
+    def plain():
+        c, a = composite_march_steps(vol_plain, entry_uv, dir_step, hit.bool())
+        return apply_reference_transfer(c, a)
+
+    equal = bool(torch.equal(rgb, plain()))
+    if launches != 1 or not equal or tuple(rgb.shape) != tuple(hit.shape) + (3,) \
+            or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"entry(): {launches} launches of B1 (expected 1), rgb "
+                             f"{tuple(rgb.shape)} bit-equal to the plain march: {equal}")
+    emit({"phase": "entry", "shape": list(rgb.shape), "volume": list(vol.shape),
+          "launches": {"composite_march_f32": launches}, "bit_equal_plain": equal,
+          "ms_per_call": time_ms(lambda: fn(*args)), "plain_ms": time_ms(plain),
+          "sum_rgb": float(rgb.sum()), "gpu": smi})
+
+
+def run_rm_smoke(dev, smi: str, work: Path) -> None:
+    """The RM smoke test (``scripts/torch_rm_smoke.py``) on 8 synthetic
+    turbulence bricks of the RM brick size, written in the RM layout: its
+    steps through the functions its ``main`` calls, then ``main`` itself, a
+    deleted brick (rc 1) and a brick one byte short (``ValueError``)."""
+    from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
+    from volumerenderer_tpu_torch.io.bricks import load_bricks, rm_brick_path, synthetic_brick_source
+    from volumerenderer_tpu_torch.models import plan_compositing
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
+
+    smoke = port_script("torch_rm_smoke")
+    t_phase = time.perf_counter()
+    steps = {}
+    grid, top = smoke.RM_GRID, work / "rm"
+    (top / f"bob{RM_TIMESTEP:03d}").mkdir(parents=True)
+    t0 = time.perf_counter()
+    source = synthetic_brick_source(grid)
+    bricks = [source(b, RM_TIMESTEP) for b in range(RM_BRICKS)]
+    for b, data in enumerate(bricks):
+        data.tofile(rm_brick_path(str(top), b, RM_TIMESTEP))
+    steps["write_bricks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    missing = smoke.discover(str(top), RM_BRICKS, RM_TIMESTEP)
+    steps["discover"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ijk = smoke.parse_grid(RM_GRID_TEXT, RM_BRICKS)
+    vol = smoke.assemble(str(top), RM_BRICKS, ijk, RM_TIMESTEP, grid)
+    crc = smoke.volume_crc32(vol)
+    steps["assemble_crc32"] = time.perf_counter() - t0
+    crc_memory = smoke.volume_crc32(load_bricks(lambda b, t: bricks[b], grid, RM_BRICKS, *ijk,
+                                                RM_TIMESTEP))
+    X, Y, Z = grid.volume_dims(*ijk)
+    if missing or crc != crc_memory or vol.shape != (Z, Y, X):
+        raise AssertionError(f"rm_smoke: missing {missing}, CRC32 {crc:#010x} against the "
+                             f"in-memory assembly's {crc_memory:#010x}, shape {vol.shape}")
+    t0 = time.perf_counter()
+    codec = smoke.codec_round_trip(vol)
+    steps["codec"] = time.perf_counter() - t0
+
+    # the 1024^2 frame through B1, bit-equal to the plain march on the card
+    t0 = time.perf_counter()
+    RK.composite_march_f32_cuda.launches = 0
+    rgb, alpha = smoke.render_frame(vol, dev, smoke.FRAME_SIZE)
+    torch.cuda.synchronize()
+    launches = RK.composite_march_f32_cuda.launches
+    steps["render_frame"] = time.perf_counter() - t0
+    nv = as_normalized_volume(vol, device=dev)
+    rays = generate_rays(Camera(width=smoke.FRAME_SIZE, height=smoke.FRAME_SIZE), device=dev)
+    plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z))
+
+    def plain():
+        c, a = composite_march_steps(nv, plan.entry_uv, plan.dir_step, plan.hit.bool())
+        return apply_reference_transfer(c, a), a
+
+    rgb_p, alpha_p = plain()
+    equal = bool(torch.equal(rgb, rgb_p) and torch.equal(alpha, alpha_p))
+    if launches != 1 or not equal or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"rm_smoke frame: {launches} launches of B1 (expected 1), "
+                             f"bit-equal to the plain march: {equal}")
+    frame_ms, plain_ms = time_ms(lambda: plan.render(nv)), time_ms(plain)
+
+    # main as a user runs it, then its two failure cases
+    out = work / "rm_out"
+    t0 = time.perf_counter()
+    rc = smoke.main(["--rm-dir", str(top), "--no-codec", "--render", "--out", str(out)])
+    steps["main_no_codec"] = time.perf_counter() - t0
+    if rc != 0 or not np.array_equal(np.load(out / "rm_frame.npy"), rgb.cpu().numpy()):
+        raise AssertionError(f"rm_smoke main: rc {rc}, or its rm_frame.npy differs")
+    path = Path(rm_brick_path(str(top), 5, RM_TIMESTEP))
+    with open(path, "r+b") as f:
+        f.truncate(path.stat().st_size - 1)
+    try:
+        smoke.main(["--rm-dir", str(top), "--no-codec"])
+        short = "no error"
+    except ValueError as exc:
+        short = str(exc)
+    path.unlink()
+    rc_missing = smoke.main(["--rm-dir", str(top), "--no-codec"])
+    if "File size does not match" not in short or rc_missing != 1:
+        raise AssertionError(f"rm_smoke failure cases: a short brick gave {short!r}, a "
+                             f"deleted one rc {rc_missing}")
+    emit({"phase": "rm_smoke", "bricks": RM_BRICKS, "brick_dims": list(grid.brick_dims),
+          "grid": list(ijk), "volume_zyx": list(vol.shape), "found": RM_BRICKS - len(missing),
+          "crc32": f"{crc:#010x}", "crc32_in_memory": f"{crc_memory:#010x}",
+          "min": int(vol.min()), "max": int(vol.max()), "mean": float(vol.mean()),
+          "codec": codec, "frame": {"shape": list(rgb.shape),
+                                    "launches": {"composite_march_f32": launches},
+                                    "bit_equal_plain": equal, "ms": frame_ms,
+                                    "plain_ms": plain_ms},
+          "short_brick": short, "rc_missing": rc_missing, "seconds_per_step": steps,
+          "seconds": time.perf_counter() - t_phase, "gpu": smi})
+
+
+def run_render_demo(dev, smi: str, work: Path) -> None:
+    """The render demo (``scripts/torch_render_demo.py``) at its defaults:
+    ``main`` on the card (B1 for the compositing and error images, B2 and B3
+    for the isosurface, B7 for both compressed cuts), each image held against
+    its plain version on the card and its PNG read back."""
+    from volumerenderer_tpu_torch.models import best_isosurface_renderer
+    from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.isosurface import render_isosurface
+
+    demo = port_script("torch_render_demo")
+    wrappers = {"composite_march_f32": RK.composite_march_f32_cuda,
+                "iso_march": IK.iso_march_cuda, "iso_shade": IK.iso_shade_cuda,
+                "composite_march_pooled_pair16": RK.composite_march_pooled_pair16_cuda}
+    expected = {"composite_march_f32": 2, "iso_march": 1, "iso_shade": 1,
+                "composite_march_pooled_pair16": 2}
+    out = work / "demo"
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    images, build_s = demo.main(out_dir=str(out), device="cuda")
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    main_s = time.perf_counter() - t0
+    if launches != expected:
+        raise AssertionError(f"render_demo launched {launches}, expected {expected}")
+
+    vol_u8, vol, rays = demo.demo_inputs(DEMO_SIZE, DEMO_DIMS, dev)
+    tree, _ = demo.build_tree(vol_u8)
+    plain = demo.renders(vol_u8, vol, rays, tree, plain=True)
+    kernel = demo.renders(vol_u8, vol, rays, tree)
+    per_image, failed = {}, []
+    for name in demo.IMAGES:
+        got = images[name]
+        png_equal = bool(np.array_equal(demo.read_png(str(out / f"{name}.png")),
+                                        demo.to_uint8(got)))
+        row = {"ms": time_ms(kernel[name]), "plain_ms": time_ms(plain[name]),
+               "png_read_back_equal": png_equal}
+        if name == "isosurface":
+            # docs/PARITY.md's iso bar: found equal on all but 4 px per
+            # Mpixel, rgb within 1e-4 elsewhere; the uint8 image may differ
+            # by 1 level (a rounding edge) outside those px
+            rgb_k, found_k = best_isosurface_renderer()(vol, rays.entry_uv, rays.direction,
+                                                        rays.hit, demo.ISO_VALUE)
+            rgb_p, found_p = render_isosurface(vol, rays.entry_uv, rays.direction, rays.hit,
+                                               demo.ISO_VALUE)
+            off = (found_k != found_p) | ((rgb_k - rgb_p).abs().amax(dim=-1) > ISO_RGB_TOL)
+            levels = np.abs(demo.to_uint8(got).astype(np.int16)
+                            - demo.to_uint8(rgb_p).astype(np.int16)).max(axis=-1)
+            allowed = KNIFE_PER_MPX * DEMO_SIZE * DEMO_SIZE / 2**20
+            n_off = int(off.sum())
+            within = levels[~off.cpu().numpy()]
+            row.update({"main_equals_renderer": bool(torch.equal(got, rgb_k)),
+                        "hits_kernel": int(found_k.sum()), "hits_plain": int(found_p.sum()),
+                        "px_off_bar": n_off, "px_allowed": allowed,
+                        "rgb_max_abs_err": float((rgb_k - rgb_p).abs().max()),
+                        "u8_max_levels_elsewhere": int(within.max()) if within.size else 0,
+                        "u8_px_differ": int((levels > 0).sum())})
+            ok = row["main_equals_renderer"] and n_off <= allowed \
+                and row["u8_max_levels_elsewhere"] <= 1
+        else:
+            row["bit_equal_plain"] = ok = bool(torch.equal(got, plain[name]()))
+        if not (ok and png_equal):
+            failed.append(name)
+        per_image[name] = row
+    if failed:
+        raise AssertionError(f"render_demo: {failed} off their plain versions or PNGs: "
+                             f"{per_image}")
+    emit({"phase": "render_demo", "size": DEMO_SIZE, "volume": list(DEMO_DIMS),
+          "launches": launches, "tree_build_s": build_s, "tree_depth": int(tree.orig_depth),
+          "main_s": main_s, "images": per_image, "gpu": smi})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an "
@@ -3544,6 +3766,10 @@ def main() -> int:
         run_app(dev, smi, Path(work))
         run_config5(dev, smi, Path(work))
     run_multihost(dev, smi)
+    run_entry(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        run_rm_smoke(dev, smi, Path(work))
+        run_render_demo(dev, smi, Path(work))
 
     emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *bind_kernels,
                       *sharded_kernels]})

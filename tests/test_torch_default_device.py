@@ -15,6 +15,7 @@ from volumerenderer_tpu_torch import (Camera, TFParams, as_normalized_volume, ge
                                       interop)
 from volumerenderer_tpu_torch import app as TA
 from volumerenderer_tpu_torch import config as TCFG
+from volumerenderer_tpu_torch import entry as TE
 from volumerenderer_tpu_torch import native
 from volumerenderer_tpu_torch.codecs import reference_impl as RI
 from volumerenderer_tpu_torch.io.bricks import BrickGrid, synthetic_brick_source
@@ -61,6 +62,7 @@ ENTRY_POINTS = {
     "to_device_pair": (MR.to_device_pair, lambda: MR.to_device_pair(
         MR.build(_tree_volume(), tolerance=2, max_epochs=1))),
     "TimestepStreamer": (TimestepStreamer.__init__, lambda: next(iter(_streamer()))[1]),
+    "entry": (TE.entry, lambda: TE.entry()[1]),
 }
 
 

@@ -41,15 +41,33 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("script", ["torch_rm_smoke", "torch_render_demo"])
+def test_port_scripts_import_without_jax(script):
+    """The RM smoke test's and the render demo's modules (imported by the
+    tests and ``chip_smoke.py``) load neither jax, the JAX package nor PIL."""
+    code = (f"import sys; sys.path.insert(0, 'scripts'); import {script}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'volumerenderer_tpu', 'PIL')); assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "PYTHONPATH")}
+    env["PATH"] = os.path.dirname(sys.executable)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("pattern", [r"\bimport\s+jax\b", r"\bfrom\s+jax\b",
                                      r"\bvolumerenderer_tpu\.",
-                                     r"\b(import|from)\s+volumerenderer_tpu\b(?!_torch)"])
+                                     r"\b(import|from)\s+volumerenderer_tpu\b(?!_torch)",
+                                     r"\b(import|from)\s+PIL\b"])
 def test_port_sources_never_name_jax_modules(pattern):
     """Prose names a JAX counterpart by its path (``volumerenderer_tpu/...``),
-    so any dotted module name or import of jax is an import in the making."""
+    so any dotted module name or import of jax is an import in the making.
+    The port's scripts are scanned too, and nothing imports PIL: the render
+    demo writes its PNGs itself, so the port needs no imaging library."""
     sources = [p for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh")
                and "build" not in p.relative_to(PACKAGE).parts]
-    sources += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_scaling_probe.py"]
+    sources += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_scaling_probe.py",
+                REPO / "scripts" / "torch_rm_smoke.py", REPO / "scripts" / "torch_render_demo.py"]
     assert len(sources) > 10
     offenders = [f"{path.relative_to(REPO)}:{n}: {line.strip()}"
                  for path in sources

@@ -1,10 +1,21 @@
-"""A dry run of every sharded layout at small shapes.
+"""Entry points: the flagship forward step and a dry run of every
+sharded layout at small shapes.
 
-Counterpart of ``__graft_entry__.py::dryrun_multichip`` (its ``entry()``
-counterpart belongs to the port's bench).  JAX's interpret-mode patch has no
-counterpart: on CPU devices each kernel wrapper runs its plain version.
+Counterpart of ``__graft_entry__.py``: ``entry()`` (:15-56) returns the
+1024^2 compositing render of the normalized 256^3 sphere as ``(fn,
+example_args)``; ``dryrun_multichip`` (:59-174) runs each layout once.  On
+the card ``fn`` is one launch of the compositing march B1 over a
+``plan_compositing`` plan's tensors, the transfer in its epilogue (JAX's
+``_launch`` -> ``_untile`` -> ``apply_reference_transfer``); on the CPU,
+asked for with ``device="cpu"``, it is the plain ``render_compositing`` (JAX's
+fallback branch).  JAX's interpret-mode patch has no counterpart: on CPU
+devices each kernel wrapper runs its plain version.
+
+Usage (on a machine with a CUDA card):  python3 -m volumerenderer_tpu_torch.entry
 """
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -13,6 +24,8 @@ from .camera import Camera, generate_rays
 from .diff.transfer import TFParams
 from .io.synthetic import sphere_volume
 from .models import plan_compositing
+from .ops.cuda.raycast_kernel import composite_march_f32_cuda
+from .ops.raycast import render_compositing
 from .ops.sampling import as_normalized_volume
 from .parallel.bricks import make_brick_mesh, render_bricksharded, shard_volume
 from .parallel.context import make_z_mesh, render_zsharded
@@ -21,7 +34,48 @@ from .parallel.kernel_sharded import (plan_shardable, render_planned_sharded,
                                       tf_fit_step_bricksharded, tf_fit_step_kernel)
 from .parallel.sharding import DeviceMesh, default_devices, make_mesh, tf_fit_step
 
-__all__ = ["dryrun_multichip"]
+__all__ = ["entry", "dryrun_multichip"]
+
+
+def _entry(size: tuple[int, int], dims: tuple[int, int, int], device):
+    """``entry()`` at an image of ``size`` = (W, H) pixels and a sphere of
+    ``dims`` = (Z, Y, X) voxels (the tests' small shapes)."""
+    device = torch.device(device)
+    width, height = size
+    vol = as_normalized_volume(sphere_volume(dims), device=device)
+    rays = generate_rays(Camera(width=width, height=height), device=device)
+    if device.type == "cuda":
+        Z, Y, X = vol.shape
+        plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z))
+
+        def fn(volume, entry_uv, dir_step, hit):
+            rgb, _ = composite_march_f32_cuda(volume, entry_uv, dir_step, hit,
+                                              plan.max_samples, plan.wrap, transfer=True)
+            return rgb
+
+        return fn, (vol, plan.entry_uv, plan.dir_step, plan.hit)
+
+    def fn(volume, entry_uv, direction, hit):
+        rgb, _ = render_compositing(volume, entry_uv, direction, hit)
+        return rgb
+
+    return fn, (vol, rays.entry_uv, rays.direction, rays.hit)
+
+
+def entry(device="cuda"):
+    """The flagship forward step: ``(fn, example_args)`` with ``fn(*example_args)``
+    the (1024, 1024, 3) rgb image of ``sphere_volume((256, 256, 256))``,
+    normalized, from the default ``Camera(width=1024, height=1024)``.
+
+    On the card (the default) the arguments are the volume and a
+    ``plan_compositing`` plan's ``entry_uv``, ``dir_step`` and ``hit``, and
+    ``fn`` is one launch of B1 (``composite_march_f32_cuda`` with the
+    transfer in its epilogue), what ``CompositingPlan.render`` launches.  With
+    ``device="cpu"`` the arguments are the volume and the rays, and ``fn`` is
+    the plain ``render_compositing``.  Without a card, and without
+    ``device="cpu"``, it raises torch's own "no CUDA" error, as every entry
+    point of the port does."""
+    return _entry((1024, 1024), (256, 256, 256), device)
 
 
 def _finite(name: str, t: torch.Tensor) -> None:
@@ -102,3 +156,18 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         _, bloss = tf_fit_step_bricksharded(kbmesh, kplan, params, shard_volume(kbmesh, kvol),
                                             ktarget)
         _finite("tf_fit_step_bricksharded's loss", bloss)
+
+
+def main() -> int:
+    fn, args = entry()
+    rgb = fn(*args)
+    torch.cuda.synchronize()
+    if tuple(rgb.shape) != (1024, 1024, 3) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"entry(): rgb {tuple(rgb.shape)}, expected finite (1024, 1024, 3)")
+    print(f"entry() ran OK on {torch.cuda.get_device_name(0)}: rgb {tuple(rgb.shape)}, "
+          f"sum {float(rgb.sum()):.6f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
