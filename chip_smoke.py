@@ -544,8 +544,10 @@ def device_profile(fn, top: int = 6) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name, counts = {}, {}
     for e in prof.key_averages():
-        # host ops (their kernels are listed apart) and the spin kernels
-        if e.device_type != DeviceType.CUDA or "spin_kernel" in e.key:
+        # host ops (their kernels are listed apart), the spin kernels and the
+        # program's spans (``vr.*`` ranges, listed on the card's timeline too)
+        if e.device_type != DeviceType.CUDA or "spin_kernel" in e.key \
+                or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:

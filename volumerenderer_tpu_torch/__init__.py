@@ -22,8 +22,9 @@ multi-timestep ``TimestepStreamer``), the kd-tree and mid-range checkpoint
 files (``codecs.kdtree.save`` / ``open_tree_full``, byte for byte the JAX
 package's), ``codecs.reference_impl`` (the sequential codec for any
 dimensions, natively in ``csrc/kdtree_native.cu``) and ``utils.timer``
-(``DebugTimer``, ``timed`` with a ``torch.profiler`` trace, ``Metrics``).
-It imports neither jax nor ``volumerenderer_tpu``.
+(``DebugTimer``, ``timed`` with a ``torch.profiler`` trace, ``Metrics``,
+and ``span``, the ``vr.*`` ranges a profiler sees where each layer's work
+happens).  It imports neither jax nor ``volumerenderer_tpu``.
 """
 
 from .camera import Camera, RayBundle, generate_rays

@@ -10,7 +10,8 @@ sampler's own texel math) and skips the sample where the cell decides it:
 the isosurface where the block lies wholly on one side of the isovalue, the
 compositing where its largest byte is 0 (a zero sample composites as a
 no-op).  A bound records the data it was made from (:func:`data_source`), so
-a render with other data raises (:func:`check_source`).
+a render with other data raises (:func:`check_source`).  Every grid build
+is one ``vr.grid`` span (``utils/timer.py::span``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import weakref
 
 import torch
 
+from ..utils.timer import span
 from .sampling import WRAP_MODES, texel_coords
 
 __all__ = ["ISO_BLOCK", "data_source", "check_source", "check_made_for", "anchor_cells",
@@ -105,15 +107,16 @@ def iso_block_grid(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
         raise ValueError(f"unknown wrap mode: {wrap}")
     if volume.dim() != 3 or min(volume.shape) < 1:
         raise ValueError(f"expected a non-empty (Z, Y, X) volume, got {tuple(volume.shape)}")
-    s = volume if volume.dtype == torch.uint8 else \
-        torch.round(torch.clamp(volume.to(torch.float32), 0.0, 1.0) * 255.0).to(torch.uint8)
-    out = []
-    for reduce, pair in ((torch.amin, torch.minimum), (torch.amax, torch.maximum)):
-        r = s
-        for axis in range(3):
-            r = _footprint_reduce(r, axis, reduce, pair, wrap)
-        out.append(r)
-    return torch.stack(out, dim=-1).contiguous()
+    with span("vr.grid"):
+        s = volume if volume.dtype == torch.uint8 else \
+            torch.round(torch.clamp(volume.to(torch.float32), 0.0, 1.0) * 255.0).to(torch.uint8)
+        out = []
+        for reduce, pair in ((torch.amin, torch.minimum), (torch.amax, torch.maximum)):
+            r = s
+            for axis in range(3):
+                r = _footprint_reduce(r, axis, reduce, pair, wrap)
+            out.append(r)
+        return torch.stack(out, dim=-1).contiguous()
 
 
 def iso_grid_from_pool(pool: torch.Tensor, slab_map: torch.Tensor, dims) -> torch.Tensor:
@@ -128,21 +131,22 @@ def iso_grid_from_pool(pool: torch.Tensor, slab_map: torch.Tensor, dims) -> torc
     X, Y, Z = (int(d) for d in dims)
     dev = pool.device
     nbz, nbx = Z // ISO_BLOCK, -(-X // ISO_BLOCK)
-    base = ISO_BLOCK * torch.arange(nbz, device=dev)[:, None]
-    rows = (base + torch.arange(ISO_BLOCK + 1, device=dev)).clamp(max=Z - 1) - base
-    w = pool[slab_map.reshape(-1).to(torch.int64)[:, None], rows]  # (nbz, 9, Y, words)
-    if pool.dtype == torch.int32:  # two pairs a word, x even in the low half
-        w = torch.stack([w & 0xFFFF, (w >> 16) & 0xFFFF], dim=-1).reshape(nbz, ISO_BLOCK + 1,
-                                                                        Y, X)
-    else:
-        w = w.to(torch.int32)
-    taps = torch.stack([w >> 8, w & 255], dim=-1).to(torch.uint8)  # s[x], s[x + 1]
-    jx = torch.arange(ISO_BLOCK * nbx, device=dev).clamp(max=X - 1)
-    out = []
-    for reduce, pair in ((torch.amin, torch.minimum), (torch.amax, torch.maximum)):
-        r = _footprint_reduce(reduce(taps, dim=(1, 4)), 1, reduce, pair, "clamp")
-        out.append(reduce(r.index_select(2, jx).reshape(nbz, -1, nbx, ISO_BLOCK), dim=3))
-    return torch.stack(out, dim=-1).contiguous()
+    with span("vr.grid"):
+        base = ISO_BLOCK * torch.arange(nbz, device=dev)[:, None]
+        rows = (base + torch.arange(ISO_BLOCK + 1, device=dev)).clamp(max=Z - 1) - base
+        w = pool[slab_map.reshape(-1).to(torch.int64)[:, None], rows]  # (nbz, 9, Y, words)
+        if pool.dtype == torch.int32:  # two pairs a word, x even in the low half
+            w = torch.stack([w & 0xFFFF, (w >> 16) & 0xFFFF], dim=-1).reshape(
+                nbz, ISO_BLOCK + 1, Y, X)
+        else:
+            w = w.to(torch.int32)
+        taps = torch.stack([w >> 8, w & 255], dim=-1).to(torch.uint8)  # s[x], s[x + 1]
+        jx = torch.arange(ISO_BLOCK * nbx, device=dev).clamp(max=X - 1)
+        out = []
+        for reduce, pair in ((torch.amin, torch.minimum), (torch.amax, torch.maximum)):
+            r = _footprint_reduce(reduce(taps, dim=(1, 4)), 1, reduce, pair, "clamp")
+            out.append(reduce(r.index_select(2, jx).reshape(nbz, -1, nbx, ISO_BLOCK), dim=3))
+        return torch.stack(out, dim=-1).contiguous()
 
 
 def iso_grid_from_mip8(mip8: torch.Tensor, dims, wrap: str = "clamp") -> torch.Tensor:
@@ -157,10 +161,11 @@ def iso_grid_from_mip8(mip8: torch.Tensor, dims, wrap: str = "clamp") -> torch.T
     if tuple(mip8.shape) != (nz, ny, nx):
         raise ValueError(f"mip8 of shape {tuple(mip8.shape)} is not the (Z/8, Y/8, X/8) = "
                          f"{(nz, ny, nx)} block grid of a volume of (X, Y, Z) = {tuple(dims)}")
-    m = torch.clamp(torch.ceil(mip8.to(torch.float32)), 0.0, 255.0)
-    for axis in range(3):
-        n = m.shape[axis]
-        upper = torch.roll(m, -1, axis) if wrap == "repeat" else \
-            torch.cat([m.narrow(axis, 1, n - 1), m.narrow(axis, n - 1, 1)], dim=axis)
-        m = torch.maximum(m, upper)
-    return torch.stack([torch.zeros_like(m), m], dim=-1).to(torch.uint8).contiguous()
+    with span("vr.grid"):
+        m = torch.clamp(torch.ceil(mip8.to(torch.float32)), 0.0, 255.0)
+        for axis in range(3):
+            n = m.shape[axis]
+            upper = torch.roll(m, -1, axis) if wrap == "repeat" else \
+                torch.cat([m.narrow(axis, 1, n - 1), m.narrow(axis, n - 1, 1)], dim=axis)
+            m = torch.maximum(m, upper)
+        return torch.stack([torch.zeros_like(m), m], dim=-1).to(torch.uint8).contiguous()

@@ -39,6 +39,7 @@ import numbers
 
 import torch
 
+from ...utils.timer import span
 from ..blockgrid import check_grid, data_source
 from ..isosurface import (MAX_SAMPLES, IsoBound, iso_block_grid, iso_grid_from_mip8,
                           iso_grid_from_pool, iso_march_steps, shade_hits)
@@ -414,28 +415,30 @@ class IsosurfacePlan:
         cannot be crossed.  The grid depends only on the data and the wrap:
         one bound serves every plan of the same dims and wrap, and a bind
         (plain torch reductions on the data's device) pays only where a
-        (data, isovalue) pair is rendered more than once."""
-        _check_scalars(iso_value, self.wrap)
-        if (volume is None) == (pool is None):
-            raise ValueError("bind takes a volume or a (pool, slab_map) pair, exactly one of "
-                             "the two")
-        if volume is not None:
-            self._check_volume(volume)
-            data = (volume,)
-        else:
-            check_clamp(self.wrap, "pooled binds")
-            data = tuple(pool)
-            if len(data) != 2 or pool_dims(*data) != self.dims:
-                raise ValueError(f"pool must be a (pool, slab_map) pair holding a volume of "
-                                 f"(X, Y, Z) = {self.dims}")
-        if mip8 is not None:
-            grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
-        elif volume is not None:
-            grid = iso_block_grid(volume, self.wrap)
-        else:
-            grid = iso_grid_from_pool(*data, self.dims)
-        return IsoBound(float(iso_value), self.dims, self.wrap, grid.to(self.hit.device),
-                        data_source(*data))
+        (data, isovalue) pair is rendered more than once.  The call is one
+        ``vr.iso.bind`` span, its grid build a ``vr.grid`` span inside it."""
+        with span("vr.iso.bind"):
+            _check_scalars(iso_value, self.wrap)
+            if (volume is None) == (pool is None):
+                raise ValueError("bind takes a volume or a (pool, slab_map) pair, exactly one "
+                                 "of the two")
+            if volume is not None:
+                self._check_volume(volume)
+                data = (volume,)
+            else:
+                check_clamp(self.wrap, "pooled binds")
+                data = tuple(pool)
+                if len(data) != 2 or pool_dims(*data) != self.dims:
+                    raise ValueError(f"pool must be a (pool, slab_map) pair holding a volume "
+                                     f"of (X, Y, Z) = {self.dims}")
+            if mip8 is not None:
+                grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
+            elif volume is not None:
+                grid = iso_block_grid(volume, self.wrap)
+            else:
+                grid = iso_grid_from_pool(*data, self.dims)
+            return IsoBound(float(iso_value), self.dims, self.wrap, grid.to(self.hit.device),
+                            data_source(*data))
 
     def render(self, volume: torch.Tensor, iso_value: float = 40.0 / 255.0,
                bound: IsoBound | None = None):
@@ -447,16 +450,17 @@ class IsosurfacePlan:
         :meth:`bind`'s result from this very volume tensor for
         ``iso_value`` (the march skips exactly; the image is the same).
         Returns (rgb (H, W, 3), found (H, W) bool); pixels without a hit are
-        white."""
-        self._check_volume(volume)
-        _grid(bound, iso_value, self.dims, self.wrap, data=(volume,))
-        vol_u8 = quantize_u8(volume)
-        found, t_hit, near = iso_march_cuda(vol_u8, self.entry_uv, self.dir_step, self.hit,
-                                            iso_value, self.max_samples, self.wrap, bound,
-                                            with_near=True)
-        rgb = iso_shade_cuda(vol_u8, self.entry_uv, self.dir_step, self.direction, found, t_hit,
-                             iso_value, self.wrap, near)
-        return rgb, found
+        white.  The call is one ``vr.iso.render`` span."""
+        with span("vr.iso.render"):
+            self._check_volume(volume)
+            _grid(bound, iso_value, self.dims, self.wrap, data=(volume,))
+            vol_u8 = quantize_u8(volume)
+            found, t_hit, near = iso_march_cuda(vol_u8, self.entry_uv, self.dir_step, self.hit,
+                                                iso_value, self.max_samples, self.wrap, bound,
+                                                with_near=True)
+            rgb = iso_shade_cuda(vol_u8, self.entry_uv, self.dir_step, self.direction, found,
+                                 t_hit, iso_value, self.wrap, near)
+            return rgb, found
 
     def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
                       iso_value: float = 40.0 / 255.0, bound: IsoBound | None = None):

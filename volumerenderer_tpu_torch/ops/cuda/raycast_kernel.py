@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.timer import span
 from ..blockgrid import check_grid, data_source, iso_block_grid, iso_grid_from_mip8, \
     iso_grid_from_pool
 from ..raycast import (MAX_SAMPLES, CompositeBound, apply_reference_transfer,
@@ -309,13 +310,15 @@ class CompositingPlan:
         is copied first, as the kernel reads the volume in place.
         ``bound``: None, or :meth:`bind`'s result from this very volume
         tensor (the march skips exactly; the image is the same).  Returns
-        (rgb (H, W, 3), alpha (H, W))."""
-        self.check_volume(volume)
-        _grid(bound, self.dims, self.wrap, data=(volume,))
-        volume = volume.contiguous()
-        return _dense_march_for(volume)(volume, self.entry_uv, self.dir_step, self.hit,
-                                        self.max_samples, self.wrap, transfer=True,
-                                        bound=_skipping(bound))
+        (rgb (H, W, 3), alpha (H, W)).  The call is one ``vr.composite.render``
+        span."""
+        with span("vr.composite.render"):
+            self.check_volume(volume)
+            _grid(bound, self.dims, self.wrap, data=(volume,))
+            volume = volume.contiguous()
+            return _dense_march_for(volume)(volume, self.entry_uv, self.dir_step, self.hit,
+                                            self.max_samples, self.wrap, transfer=True,
+                                            bound=_skipping(bound))
 
     def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
                       bound: CompositeBound | None = None):

@@ -24,6 +24,7 @@ import torch
 from ...diff.closed_form import (cotangent_images, tf_march_steps, tf_param_grads,
                                  tf_scalars as _tf_scalars)
 from ...diff.transfer import TFParams
+from ...utils.timer import span
 from ..raycast import MAX_SAMPLES
 from ..sampling import as_normalized_volume
 from . import _build, _launch
@@ -145,13 +146,14 @@ def check_plan(plan: CompositingPlan) -> None:
 
 
 def _march(params: TFParams, volume: torch.Tensor, plan: CompositingPlan):
-    # the kernel reads the volume in place: a view (a slice of a larger
-    # volume) is copied, a contiguous volume is not
-    volume = volume.contiguous()
-    partials = _tf_march_for(volume)(volume, plan.entry_uv, plan.dir_step, plan.hit,
-                                     _tf_scalars(params), plan.max_samples, plan.wrap)
-    rgb = params.flip_sign * partials[0][..., None] + params.flip_bias
-    return rgb, partials[1], partials
+    with span("vr.tf.march"):
+        # the kernel reads the volume in place: a view (a slice of a larger
+        # volume) is copied, a contiguous volume is not
+        volume = volume.contiguous()
+        partials = _tf_march_for(volume)(volume, plan.entry_uv, plan.dir_step, plan.hit,
+                                         _tf_scalars(params), plan.max_samples, plan.wrap)
+        rgb = params.flip_sign * partials[0][..., None] + params.flip_bias
+        return rgb, partials[1], partials
 
 
 def render_tf_grads_kernel(params: TFParams, volume: torch.Tensor, plan: CompositingPlan):

@@ -24,6 +24,7 @@ import torch
 
 from ...diff.closed_form import cotangent_images, tf_scalars as _tf_scalars, voxel_grad_steps
 from ...diff.transfer import TFParams
+from ...utils.timer import span
 from ..raycast import MAX_SAMPLES
 from ..sampling import as_normalized_volume
 from . import _build
@@ -135,11 +136,13 @@ def voxel_grad_block_stats(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_ste
 
 def _voxel_grad(params: TFParams, volume: torch.Tensor, plan: CompositingPlan,
                 gc: torch.Tensor, gaT_term: torch.Tensor, P_tot: torch.Tensor):
-    # B5 reads bytes: a float32 volume is quantized here, in the backward
-    vol_u8 = quantize_u8(volume)
-    return voxel_grad_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, _tf_scalars(params),
-                           gc.contiguous(), gaT_term.contiguous(), P_tot.contiguous(),
-                           plan.max_samples, plan.wrap)
+    with span("vr.voxel_grad"):
+        # B5 reads bytes: a float32 volume is quantized here, in the backward
+        with span("vr.voxel_grad.quantize"):
+            vol_u8 = quantize_u8(volume)
+        return voxel_grad_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit,
+                               _tf_scalars(params), gc.contiguous(), gaT_term.contiguous(),
+                               P_tot.contiguous(), plan.max_samples, plan.wrap)
 
 
 def voxel_grad_kernel(params: TFParams, volume: torch.Tensor, plan: CompositingPlan,

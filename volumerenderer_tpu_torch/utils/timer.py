@@ -1,6 +1,8 @@
 """Phase timing: the reference ``DebugTimer`` (``DebugTimer.cpp:6-31``), a
 label -> accumulated wall time map that prints the mean ms and rate every
-n-th ``end``, with an optional ``torch.profiler`` trace of a scope.
+n-th ``end``, with an optional ``torch.profiler`` trace of a scope; and
+:func:`span`, the named ranges of the program's own work that a profiler
+sees beside the card's kernels.
 
 Counterpart of ``volumerenderer_tpu/utils/timer.py``, with the same labels,
 prints and JSON.  PyTorch returns before the card finishes, so ``end`` takes
@@ -18,8 +20,27 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
 
-__all__ = ["DebugTimer", "timed", "Metrics"]
+__all__ = ["DebugTimer", "timed", "Metrics", "span"]
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program's work, to be entered with ``with``.
+    While a profiler is active (``torch.profiler.profile``, or
+    ``torch.autograd.profiler.emit_nvtx`` for NVTX), a
+    ``record_function(name)`` range: a ``user_annotation`` on the
+    profiler's clock, the clock of its CUDA kernel records, and the
+    kernels launched inside it are the range's.  Otherwise one shared no-op
+    context, for the cost of one check of the profiler's state.  It never
+    synchronises, allocates on a device or reads a tensor.  The program's
+    names start with ``vr.``."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _OFF
 
 
 @dataclass
@@ -102,7 +123,7 @@ def timed(label: str, sync_value=None, report_every: int = 1,
     its first kernels (from 1 to 27 of them were lost), so a scope whose
     trace must hold given kernels launches a few hundred small ones before
     them (``scripts/torch_profiler_probe.py``)."""
-    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import ProfilerActivity
 
     DebugTimer.begin(report_every, label)
     result = {}
