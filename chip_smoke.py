@@ -14,7 +14,9 @@ calls:
   isovalue, shared by the 16 plans) -> ``IsosurfacePlan.render(..., bound=)``
   (kernels ``csrc/iso_march.cu``, skipping exactly and handing each hit's
   near bracket on, and ``csrc/iso_shade.cu`` from that bracket), with the
-  bind inside the sweep and outside it, and the same unbound;
+  bind inside the sweep and outside it, and the same unbound; the bind's
+  block grid alone (``csrc/block_grid.cu``) against its plain version, at
+  256^3 and at the RM run's 2048x2048x768 bytes;
 * gradients, on orbit frame 0: the config-4 TF fit, ``plan_compositing`` ->
   ``make_render_tf_kernel`` -> ``tf_fit_step_fast`` x 5, and a voxel-grad
   step, ``make_render_tf_voxel`` -> MSE loss -> ``torch.autograd.grad`` of
@@ -107,7 +109,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Each phase prints one JSON line (device, build, goldens, parity, main_path,
 kernel_timing, layers, launch_count, main_path_profile, b1_warps,
 b1_routes, then iso_goldens, iso_parity,
-iso_main_path, iso_timing, iso_layers, iso_launch_count, then tf_parity,
+iso_main_path, iso_timing, iso_layers, iso_launch_count, grid, then tf_parity,
 vg_parity, grad_reference, grad_main_path, grad_timing, grad_layers,
 vg_tile, grad_launch_count, then codec, decode, pools, pooled_parity,
 pooled_main_path, compressed_main_path, pooled_timing, pooled_launch_count,
@@ -163,6 +165,11 @@ ISO_SOURCES = {"iso_march": "volumerenderer_tpu_torch/csrc/iso_march.cu",
                "iso_shade": "volumerenderer_tpu_torch/csrc/iso_shade.cu"}
 ISO_REPLACES = {"iso_march": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:458",
                 "iso_shade": "volumerenderer_tpu/ops/pallas/isosurface_kernel.py:1501"}
+# the iso bind's block grid kernel, and the upstream RM run's byte volume
+# (384 bricks of 256x256x128, benchmark/configs/rm384_u8_1600x1200.json)
+GRID_SOURCE = "volumerenderer_tpu_torch/csrc/block_grid.cu"
+GRID_REPLACES = "none: the JAX bind builds its tables in jnp"
+RM_VOLUME = (768, 2048, 2048)
 # B4 vs plain: color and alpha at the compositing bars above; the five sums
 # within 1e-6 relative to max(1, |plain|) on all but the same 4 px per Mpixel.
 # B5 vs plain: max |d| within 2e-5 of max |g| (the atomics add in no fixed
@@ -611,10 +618,12 @@ def run_routes(dev, smi: str, turb, plans) -> None:
               "frame0_touched_voxels": int(mask.sum()), "gpu": smi})
 
 
-def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -> list:
-    """The isosurface phases; returns the kernels line's two entries."""
+def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -> tuple:
+    """The isosurface phases; returns the kernels line's two entries and the
+    grid kernel's launches on the main path (one per bind there)."""
     from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
     from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
+    from volumerenderer_tpu_torch.ops.cuda import blockgrid_kernel as GK
     from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
     from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
     from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import quantize_u8
@@ -722,19 +731,22 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
     # warm sweep: bound with the bind outside the sweep (a reused volume and
     # isovalue), with the bind inside it (a new pair each orbit), and
     # unbound; and one frame that pays its own bind (a new pair each frame).
-    # The launch counts cover exactly this run.
+    # The launch counts cover exactly this run: each render one march and
+    # one shade, each bind one grid kernel (the float32 volume on the card).
     plans = [IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
     iso_bound = plans[0].bind(turb, iso_med)
     IK.iso_march_cuda.launches = 0
     IK.iso_shade_cuda.launches = 0
-    renders = 0
+    GK.iso_block_grid_cuda.launches = 0
+    renders = binds = 0
     last = {}
 
     def kernel_sweep(mode: str):
-        nonlocal renders
+        nonlocal renders, binds
         acc = torch.zeros((), device=dev)
         b = {"unbound": None, "bound": iso_bound,
              "bind_in_sweep": plans[0].bind(turb, iso_med) if mode == "bind_in_sweep" else None}
+        binds += int(mode == "bind_in_sweep")
         for plan in plans:
             last["rgb"], last["found"] = plan.render(turb, iso_med, bound=b[mode])
             acc = acc + last["rgb"].sum()
@@ -742,9 +754,10 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
         return float(acc)
 
     def frame_with_own_bind():
-        nonlocal renders
+        nonlocal renders, binds
         rgb, _ = plans[0].render(turb, iso_med, bound=plans[0].bind(turb, iso_med))
         renders += 1
+        binds += 1
         return float(rgb.sum())
 
     def plain_sweep():
@@ -760,6 +773,7 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
     own_bind_s = sweep_seconds(frame_with_own_bind)
     kernel_sweep_s = sweep_seconds(lambda: kernel_sweep("bound"))
     launches = {"iso_march": IK.iso_march_cuda.launches, "iso_shade": IK.iso_shade_cuda.launches}
+    grid_launches = GK.iso_block_grid_cuda.launches
     plain_sweep_s = sweep_seconds(plain_sweep)
     rgb, found = last["rgb"], last["found"]
     if not torch.equal(rgb, rgb_unbound):
@@ -839,11 +853,15 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
         "shade_kernel_chain": time_ms(lambda: shade(plan0, f0, t0, None))},
         "hits_frame0": int(f0.sum()), "gpu": smi})
 
-    # the main path went through both kernels, once per render each
+    # the main path went through both kernels, once per render each, and
+    # every bind through the grid kernel, never the plain reductions
     if renders == 0 or any(n != renders for n in launches.values()):
         raise AssertionError(f"isosurface kernels launched {launches} times for {renders} "
                              f"renders")
-    emit({"phase": "iso_launch_count", **launches, "renders": renders})
+    if binds == 0 or grid_launches != binds:
+        raise AssertionError(f"the grid kernel launched {grid_launches} times for {binds} binds")
+    emit({"phase": "iso_launch_count", **launches, "renders": renders,
+          "block_grid": grid_launches, "binds": binds})
 
     # the bounds, per launch over the orbit: a hit samples at steps 0..t_hit
     # and once before, a miss once per step inside the cube and once before;
@@ -899,7 +917,57 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
              "replaces": ISO_REPLACES[name], "launches": launches[name],
              "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
              **roof[name], **extra[name]}
-            for name in ("iso_march", "iso_shade")]
+            for name in ("iso_march", "iso_shade")], grid_launches
+
+
+def run_grid(dev, smi: str, turb, main_path_launches: int) -> dict:
+    """The iso bind's block grid: ``iso_block_grid_cuda`` (``csrc/block_grid.cu``)
+    against the plain ``iso_block_grid`` on the card, bit for bit in both
+    wraps, on the smoke's 256^3 turbulence (float32, as the iso phases bind
+    it, and its bytes) and on a 2048x2048x768 byte volume (3.22 GB, the
+    upstream RM run's size; a ramp made on the card, since the time depends
+    on the size alone); each timed as a bind runs it, min of REPS after a
+    warm call (the 256^3 volumes lie in L2 from the call before).  The
+    bound: the volume read and the grid written once over the card's memory
+    rate.  Returns the kernels line's entry, at the RM size, with the
+    launches of the iso main path's binds (``main_path_launches``); this
+    phase's own calls are counted apart."""
+    from volumerenderer_tpu_torch.ops.blockgrid import iso_block_grid
+    from volumerenderer_tpu_torch.ops.cuda import blockgrid_kernel as GK
+    from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import quantize_u8
+
+    def axis(n, k):
+        return (torch.arange(n, device=dev) * k % 256).to(torch.uint8)
+
+    rm = axis(RM_VOLUME[0], 5)[:, None, None] + axis(RM_VOLUME[1], 3)[None, :, None] \
+        + axis(RM_VOLUME[2], 2)
+    GK.iso_block_grid_cuda.launches = 0
+    out = {}
+    for name, vol in (("turb_256_f32", turb), ("turb_256_u8", quantize_u8(turb)),
+                      ("rm_2048x2048x768_u8", rm)):
+        for wrap in ("clamp", "repeat"):
+            if not torch.equal(GK.iso_block_grid_cuda(vol, wrap), iso_block_grid(vol, wrap)):
+                raise AssertionError(f"grid {name}, {wrap}: the kernel's grid differs from the "
+                                     f"plain version's")
+        grid_bytes = nbytes(GK.iso_block_grid_cuda(vol))
+        ms = time_ms(lambda: GK.iso_block_grid_cuda(vol))
+        bound_ms = 1e3 * (nbytes(vol) + grid_bytes) / HBM_BYTES_PER_S
+        out[name] = {"shape": list(vol.shape), "dtype": str(vol.dtype)[6:], "ms": ms,
+                     "plain_ms": time_ms(lambda: iso_block_grid(vol)), "bound_ms": bound_ms,
+                     "share_of_bound": bound_ms / ms, "bytes": nbytes(vol) + grid_bytes}
+    launches = GK.iso_block_grid_cuda.launches
+    del rm
+    torch.cuda.empty_cache()
+    emit({"phase": "grid", "ms": out, "grid_phase_launches": launches, "bit_equal": True,
+          "gpu": smi})
+    main = out["rm_2048x2048x768_u8"]
+    return {"name": "block_grid", "route": "cuda", "source": GRID_SOURCE,
+            "replaces": GRID_REPLACES, "launches": main_path_launches,
+            "grid_phase_launches": launches, "max_abs_err": 0.0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "bytes": main["bytes"], "ops": 0.0,
+            "share_of_bound": main["share_of_bound"],
+            "turb_256": {k: out[k] for k in ("turb_256_f32", "turb_256_u8")}}
 
 
 def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
@@ -3640,6 +3708,7 @@ def main() -> int:
     from volumerenderer_tpu_torch.io.synthetic import sphere_volume, turbulence_volume
     from volumerenderer_tpu_torch.models import plan_compositing, reference_renderer
     from volumerenderer_tpu_torch.ops.cuda import _build
+    from volumerenderer_tpu_torch.ops.cuda import blockgrid_kernel as GK
     from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
     from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
     from volumerenderer_tpu_torch.ops.cuda import seg_kernel as SK
@@ -3660,9 +3729,10 @@ def main() -> int:
 
     # 2. build the kernels from the checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
-    _build.load_many(["composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad",
-                      "kdtree_seed", "seg_march", "hashed_build", "kdtree_native"])
+    _build.load_many(["composite_march", "iso_march", "iso_shade", "block_grid", "tf_march",
+                      "voxel_grad", "kdtree_seed", "seg_march", "hashed_build", "kdtree_native"])
     libraries = {"composite_march": RK.load_kernel(), **IK.load_kernels(),
+                 "block_grid": GK.load_kernel(),
                  "tf_march": TK.load_kernel(), "voxel_grad": VK.load_kernel(),
                  "kdtree_seed": _build.load("kdtree_seed"), "seg_march": SK.load_kernel(),
                  "hashed_build": _build.load("hashed_build"),
@@ -3869,7 +3939,9 @@ def main() -> int:
                                              W * H)["bound_ms"]}
     run_routes(dev, smi, turb, plans)
 
-    iso_kernels = run_isosurface(dev, smi, turb, sphere, cameras, bundles, adversarial)
+    iso_kernels, grid_launches = run_isosurface(dev, smi, turb, sphere, cameras, bundles,
+                                                adversarial)
+    iso_kernels.append(run_grid(dev, smi, turb, grid_launches))
     grad_kernels = run_gradients(dev, smi, turb, sphere, cameras, bundles, samples, touched,
                                  adversarial)
     pooled_kernels, tree, source, tree_build_s = run_compressed(

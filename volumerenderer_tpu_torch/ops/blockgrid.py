@@ -102,7 +102,9 @@ def iso_block_grid(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
     """The block grid from a (Z, Y, X) uint8 volume, or a float volume in
     [0, 1] quantized as the marches sample it (``round(clamp(v, 0, 1) *
     255)``): plain reductions on each axis in turn, over the texels [8b, 8b +
-    8] of block b."""
+    8] of block b.  The plain version of
+    ``ops/cuda/blockgrid_kernel.py::iso_block_grid_cuda``, which the plans'
+    binds take for a CUDA volume; this one for a CPU volume."""
     if wrap not in WRAP_MODES:
         raise ValueError(f"unknown wrap mode: {wrap}")
     if volume.dim() != 3 or min(volume.shape) < 1:

@@ -1,0 +1,83 @@
+"""The 8^3 block grid of a CUDA volume in one pass: the launch wrapper of
+``csrc/block_grid.cu``, the grid the bound marches read.
+
+``IsosurfacePlan.bind`` and ``CompositingPlan.bind`` build a volume's grid
+through :func:`volume_block_grid`: this kernel for a CUDA volume,
+``ops/blockgrid.py::iso_block_grid``, its plain version, for a CPU one; the
+two are equal bit for bit.  The JAX package builds its bind tables in jnp,
+so the kernel replaces no Pallas kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ...utils.timer import span
+from ..blockgrid import ISO_BLOCK, iso_block_grid
+from ..sampling import WRAP_MODES
+from . import _build
+from ._launch import bind, check_volume, launch
+
+__all__ = ["iso_block_grid_cuda", "volume_block_grid", "load_kernel"]
+
+
+@functools.cache
+def _launcher(entry: str):
+    # vol, cells; X, Y, Z, repeat; row stride, plane stride, stream
+    return bind("block_grid", 2, 4, [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
+                entry=entry)
+
+
+def load_kernel() -> _build.BuiltLibrary:
+    """Build (at first use) and load the grid kernel's library."""
+    return _launcher("block_grid_u8")[1]
+
+
+def iso_block_grid_cuda(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
+    """``iso_block_grid`` of a CUDA volume, by one kernel launch that reads
+    each texel about once: the (ceil(Z/8), ceil(Y/8), ceil(X/8), 2) uint8
+    grid, per block b the least and the largest byte over the texels [8b,
+    8b + 8] of each axis (clamped, or wrapped for "repeat").  A (Z, Y, X)
+    uint8 volume is read as its bytes, a float32 one quantized as it is read
+    (``round(clamp(v, 0, 1) * 255)``, ties to even); any other dtype is
+    converted to float32 first, as the plain version converts it.  Views
+    whose x stride is 1 are read in place; others are copied contiguous
+    first.  A CPU tensor raises: ``iso_block_grid`` is its version.  The
+    call is one ``vr.grid`` span and adds one to
+    ``iso_block_grid_cuda.launches``."""
+    if wrap not in WRAP_MODES:
+        raise ValueError(f"unknown wrap mode: {wrap}")
+    if volume.dim() != 3 or min(volume.shape) < 1:
+        raise ValueError(f"expected a non-empty (Z, Y, X) volume, got {tuple(volume.shape)}")
+    if volume.device.type != "cuda":
+        raise ValueError(f"iso_block_grid_cuda takes a CUDA volume, got one on {volume.device}; "
+                         f"iso_block_grid is the version for the CPU")
+    with span("vr.grid"):
+        if volume.dtype not in (torch.uint8, torch.float32):
+            volume = volume.to(torch.float32)
+        if volume.stride(2) != 1 and volume.shape[2] > 1:
+            volume = volume.contiguous()
+        check_volume(volume, volume.dtype, "volume")
+        Z, Y, X = volume.shape
+        grid = torch.empty([-(-n // ISO_BLOCK) for n in (Z, Y, X)] + [2], dtype=torch.uint8,
+                           device=volume.device)
+        entry = "block_grid_u8" if volume.dtype == torch.uint8 else "block_grid_f32"
+        launch(lambda: _launcher(entry), "block_grid", volume.device, volume.data_ptr(),
+               grid.data_ptr(), X, Y, Z, int(wrap == "repeat"), volume.stride(1),
+               volume.stride(0))
+        iso_block_grid_cuda.launches += 1
+        return grid
+
+
+iso_block_grid_cuda.launches = 0
+
+
+def volume_block_grid(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
+    """The block grid of ``volume`` where it lies: the plain
+    ``iso_block_grid`` for a CPU tensor, :func:`iso_block_grid_cuda` for any
+    other (which raises unless it is a CUDA tensor)."""
+    if volume.device.type == "cpu":
+        return iso_block_grid(volume, wrap)
+    return iso_block_grid_cuda(volume, wrap)

@@ -41,13 +41,14 @@ import torch
 
 from ...utils.timer import span
 from ..blockgrid import check_grid, data_source
-from ..isosurface import (MAX_SAMPLES, IsoBound, iso_block_grid, iso_grid_from_mip8,
-                          iso_grid_from_pool, iso_march_steps, shade_hits)
+from ..isosurface import (MAX_SAMPLES, IsoBound, iso_grid_from_mip8, iso_grid_from_pool,
+                          iso_march_steps, shade_hits)
 from ..raycast import step_sizes
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
 from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
                       check_tensors, check_volume, launch, ptr)
+from .blockgrid_kernel import volume_block_grid
 from .raycast_kernel import pool_dims, quantize_u8
 
 __all__ = ["iso_march_cuda", "iso_shade_cuda", "iso_march_pooled_narrow_cuda",
@@ -414,8 +415,9 @@ class IsosurfacePlan:
         written in place since), raises ValueError there, so two binds
         cannot be crossed.  The grid depends only on the data and the wrap:
         one bound serves every plan of the same dims and wrap, and a bind
-        (plain torch reductions on the data's device) pays only where a
-        (data, isovalue) pair is rendered more than once.  The call is one
+        (one pass over the data: ``iso_block_grid_cuda`` on the card, the
+        plain ``iso_block_grid`` on the CPU) pays only where a (data,
+        isovalue) pair is rendered more than once.  The call is one
         ``vr.iso.bind`` span, its grid build a ``vr.grid`` span inside it."""
         with span("vr.iso.bind"):
             _check_scalars(iso_value, self.wrap)
@@ -434,7 +436,7 @@ class IsosurfacePlan:
             if mip8 is not None:
                 grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
             elif volume is not None:
-                grid = iso_block_grid(volume, self.wrap)
+                grid = volume_block_grid(volume, self.wrap)
             else:
                 grid = iso_grid_from_pool(*data, self.dims)
             return IsoBound(float(iso_value), self.dims, self.wrap, grid.to(self.hit.device),
@@ -496,10 +498,11 @@ def render_isosurface_kernel(volume, entry_uv, direction, hit, iso_value=40.0 / 
     for this one render (``IsosurfacePlan.bind``) and marches bound, as the
     JAX function does by default; the image is the same either way.  Here
     it is off by default: a bind costs about what one bound frame saves,
-    and on an H100 a one-shot bind plus the bound render took 1.4-1.9x the
-    unbound render (1024^2 rays, the 256^3 turbulence at its median;
-    ``chip_smoke.py``'s skip_empty phase).  Bind once with ``IsosurfacePlan.bind`` where a (volume,
-    isovalue) pair is rendered more than once."""
+    and on an H100 a one-shot bind plus the bound render took 0.93-1.13x
+    the unbound render (1024^2 rays, the 256^3 turbulence at its median;
+    ``chip_smoke.py``'s skip_empty phase; 1.4-1.9x while the grid was
+    built by torch reductions).  Bind once with ``IsosurfacePlan.bind``
+    where a (volume, isovalue) pair is rendered more than once."""
     Z, Y, X = volume.shape
     plan = IsosurfacePlan(entry_uv, direction, hit, (X, Y, Z), max_samples, wrap)
     bound = plan.bind(volume, iso_value) if skip_empty else None

@@ -40,14 +40,14 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.timer import span
-from ..blockgrid import check_grid, data_source, iso_block_grid, iso_grid_from_mip8, \
-    iso_grid_from_pool
+from ..blockgrid import check_grid, data_source, iso_grid_from_mip8, iso_grid_from_pool
 from ..raycast import (MAX_SAMPLES, CompositeBound, apply_reference_transfer,
                        composite_march_steps, step_sizes)
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
 from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
                       check_tensors, check_volume, launch, ptr)
+from .blockgrid_kernel import volume_block_grid
 
 __all__ = ["composite_march_cuda", "composite_march_f32_cuda",
            "composite_march_pooled_narrow_cuda", "composite_march_pooled_pair16_cuda",
@@ -293,7 +293,7 @@ class CompositingPlan:
         if mip8 is not None:
             grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
         elif volume is not None:
-            grid = iso_block_grid(volume, self.wrap)
+            grid = volume_block_grid(volume, self.wrap)
         else:
             grid = iso_grid_from_pool(*data, self.dims)
         grid = grid.to(self.hit.device)
