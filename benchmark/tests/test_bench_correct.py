@@ -3,18 +3,13 @@ program's plain path agrees with the benchmark's reference for every mix,
 and the comparison refuses the control (the reference in bfloat16 in the
 program's place) and each fault a cell can have, planted underneath the
 timed path: an answer altered where it is produced, a step that returns
-its state unchanged, half of the batch left out with the mean over the rest.
-One cell, one card: there is no exchange between chips to leave out."""
-import types
-
+its state unchanged, half of the batch left out with the mean over the rest,
+a step gone wrong after set-up.  Each cell's session class plants its own
+faults (``planted_faults``); cells are told apart by class.  One cell, one
+card: there is no exchange between chips to leave out."""
 import pytest
-import torch
 
 import tiny
-from vrbench import traffic
-
-RENDER_CELLS = [c for c in tiny.CELLS if not c.endswith("fit_views8")]
-FIT_CELLS = [c for c in tiny.CELLS if c.endswith("fit_views8")]
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["window", "traced"])
@@ -34,100 +29,67 @@ def test_control_in_bfloat16_is_refused(cell):
     assert any(v > limits[k] for k, v in stand["bfloat16"].items()), stand
 
 
-def _altering(program):
-    """The program with each render's answer altered where it is produced:
-    an 8x8 tile of the image 0.05 darker."""
-
-    def wrap(plan):
-        render = plan.render
-
-        def altered(*a, **k):
-            rgb, aux = render(*a, **k)
-            rgb = rgb.clone()
-            rgb[:8, :8] -= 0.05
-            return rgb, aux
-
-        plan.render = altered
-        return plan
-
-    return types.SimpleNamespace(**{**vars(program),
-                                    "plan_compositing": lambda *a, **k: wrap(
-                                        program.plan_compositing(*a, **k)),
-                                    "IsosurfacePlan": lambda *a, **k: wrap(
-                                        program.IsosurfacePlan(*a, **k))})
+def cells_planting(fault):
+    """The cells whose session class plants ``fault``."""
+    return [c for c in tiny.CELLS if fault in tiny.session_class(c).planted_faults()]
 
 
-@pytest.mark.parametrize("cell", RENDER_CELLS)
-def test_altered_answer_is_refused(cell):
-    result, checks, _ = tiny.run(cell, program=_altering(traffic.load_program()))
+def planted(cell, fault, patch):
+    """The cell's program with its session class's ``fault`` planted."""
+    cls = tiny.session_class(cell)
+    return cls.planted_faults()[fault](cls.load_program(), patch)
+
+
+@pytest.mark.parametrize("cell", cells_planting("altered_answer"))
+def test_altered_answer_is_refused(cell, monkeypatch):
+    result, checks, _ = tiny.run(cell, program=planted(cell, "altered_answer",
+                                                       monkeypatch.setattr))
     assert not result["correct"], checks
 
 
-def _unchanged(program):
-    """The program whose render passes no gradient: every step returns its
-    state unchanged."""
-
-    def make(plan):
-        f = program.make_render_tf_voxel(plan)
-
-        def g(params, vol):
-            rgb, alpha = f(params, vol)
-            return rgb - rgb + rgb.detach(), alpha
-
-        return g
-
-    return types.SimpleNamespace(**{**vars(program), "make_render_tf_voxel": make})
-
-
-@pytest.mark.parametrize("cell", FIT_CELLS)
-def test_step_that_leaves_its_state_is_refused(cell):
-    result, checks, _ = tiny.run(cell, program=_unchanged(traffic.load_program()))
+@pytest.mark.parametrize("cell", cells_planting("unchanged_state"))
+def test_step_that_leaves_its_state_is_refused(cell, monkeypatch):
+    result, checks, _ = tiny.run(cell, program=planted(cell, "unchanged_state",
+                                                       monkeypatch.setattr))
     assert not result["correct"], checks
     assert checks["change_gap"]["value"] == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("cell", FIT_CELLS)
+@pytest.mark.parametrize("cell", cells_planting("half_batch"))
 def test_half_the_batch_is_refused(cell, monkeypatch):
-    def half_frame(self, keep=None):
-        h = self.target.shape[0] // 2
-        rgb, _ = self.render(self.P.TFParams(*self.leaves), self.vol)
-        loss = torch.mean((rgb[:h] - self.target[:h]) ** 2)
-        grads = torch.autograd.grad(loss, [*self.leaves, self.vol])
-        with torch.no_grad():
-            for leaf, g in zip(self.leaves, grads[:-1]):
-                leaf.sub_(self.lr["params"] * g)
-            self.vol.sub_(self.lr["volume"] * grads[-1])
-        self.loss = loss.detach()
-        self.t += 1
-
-    monkeypatch.setattr(traffic.FitSession, "frame", half_frame)
-    result, checks, stand = tiny.run(cell, stand_ins=("half_batch",))
+    result, checks, stand = tiny.run(cell, program=planted(cell, "half_batch",
+                                                           monkeypatch.setattr),
+                                     stand_ins=("half_batch",))
     assert not result["correct"], checks
     limits = {k: c["limit"] for k, c in checks.items()}
     assert any(v > limits[k] for k, v in stand["half_batch"].items()), stand
 
 
-@pytest.mark.parametrize("cell", FIT_CELLS)
+@pytest.mark.parametrize("cell", cells_planting("wrong_after_set_up"))
 def test_a_step_gone_wrong_after_set_up_is_refused(cell, monkeypatch):
-    """A fault that appears only once the fit has run a while: from the
-    window on, each step moves the volume twice as far.  The first steps
-    agree with the reference; the steps from the state the window ended in
-    do not."""
-    frame = traffic.FitSession.frame
-
-    def late_double(self, keep=None):
-        before = self.vol.detach().clone()
-        frame(self, keep)
-        if self.t > self.steps:
-            with torch.no_grad():
-                self.vol.add_(self.vol - before)
-
-    monkeypatch.setattr(traffic.FitSession, "frame", late_double)
-    result, checks, _ = tiny.run(cell)
+    """The first steps agree with the reference; the steps from the state
+    the window ended in do not."""
+    result, checks, _ = tiny.run(cell, program=planted(cell, "wrong_after_set_up",
+                                                       monkeypatch.setattr))
     assert not result["correct"], checks
     first = ("loss_gap", "grad_gap", "change_gap")
     assert all(checks[k]["value"] <= checks[k]["limit"] for k in first), checks
     assert checks["change_gap.end"]["value"] > checks["change_gap.end"]["limit"], checks
+
+
+NAMED = {"altered_answer", "unchanged_state", "half_batch", "wrong_after_set_up"}
+
+
+@pytest.mark.parametrize("cell", tiny.CELLS)
+def test_every_planted_fault_is_refused(cell, monkeypatch):
+    """Every cell plants a fault, and each one that no test above names is
+    refused too: a session of its own brings its faults by name."""
+    faults = tiny.session_class(cell).planted_faults()
+    assert faults
+    for fault in sorted(set(faults) - NAMED):
+        with monkeypatch.context() as mp:
+            result, checks, _ = tiny.run(cell, program=planted(cell, fault, mp.setattr))
+        assert not result["correct"], (fault, checks)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """BENCHMARK.json against the contract's shape, and every name in it found
-as a file: configurations, traffic mixes, metric readers, work counts."""
+as a file: configurations, traffic mixes, metric readers, work counts, and
+each session and volume generator that is not built in."""
 import json
 import re
 
@@ -28,17 +29,21 @@ def test_configuration_file_is_found_and_names_itself(conf):
     assert cfg["name"] == conf["name"] and cfg["source"] == conf["source"]
     assert conf["file"].startswith("benchmark/configs/")
     assert any(w["config"] == conf["name"] for w in BENCH["workloads"])
+    kind = cfg["volume"]["kind"]
+    assert kind == "turbulence" or (ROOT / "benchmark" / "generators" / f"{kind}.py").is_file()
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
 def test_cell_finds_its_mix_and_reports_enough(cell):
-    from vrbench import harness
+    from vrbench import harness, traffic
 
     assert set(cell) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(cell["name"]) and NAME.match(cell["traffic"]) and cell["chips"] == 1
     assert len(cell["why"]) <= 200
     mix = json.loads((ROOT / "benchmark" / "traffic" / f"{cell['traffic']}.json").read_text())
-    assert mix["render"] in ("composite", "iso", "fit")
+    render = mix["render"]
+    assert render in traffic.SESSIONS or (ROOT / "benchmark" / "sessions"
+                                          / f"{render}.py").is_file()
     e2e = harness.cell_metrics(BENCH, cell, trace=False)
     names = {m["name"] for m in e2e}
     assert "setup_s" in names and len(names) >= 2

@@ -4,14 +4,15 @@
 Everything that belongs to one configuration, traffic mix or metric is found
 by name: ``configs/<config>.json`` (the file ``BENCHMARK.json`` names),
 ``traffic/<mix>.json``, ``metrics/<metric>.py`` (a ``read(run)`` that
-returns the metric's value or None) and ``work/<layer>.py`` (the work
-counts the rooflines divide).
+returns the metric's value or None), ``work/<layer>.py`` (the work counts
+the rooflines divide), and, beside the built-in ones, a mix's session
+``sessions/<render>.py`` (:func:`traffic.session_class`) and a volume's
+generator ``generators/<kind>.py`` (:func:`volumes.make`).
 """
 from __future__ import annotations
 
 import contextlib
 import gc
-import importlib.util
 import json
 import os
 import statistics
@@ -25,8 +26,8 @@ import torch
 
 from . import host, tracing
 from . import traffic as traffic_mod
+from .named import BENCH_DIR, load_module
 
-BENCH_DIR = Path(__file__).resolve().parent.parent
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "volumerenderer_tpu", "bench", "__graft_entry__"})
 
 
@@ -36,14 +37,6 @@ def forbidden_modules(modules=None) -> list:
     with the JAX package's)."""
     names = sys.modules if modules is None else modules
     return sorted({m.split(".")[0] for m in names} & FORBIDDEN)
-
-
-def load_module(path: Path, prefix: str):
-    name = f"_vrbench_{prefix}_" + "".join(c if c.isalnum() else "_" for c in path.stem)
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def find_cell(bench: dict, name: str) -> dict:
@@ -163,7 +156,8 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
     checks dict of name -> {"value", "limit"}, the numbers of each of
     ``stand_ins`` put in the program's place: the control and planted
     faults, which ``control.py`` reads).  ``program`` stands in for the
-    program's entry points and ``edit(cfg, mix)`` changes the cell's sizes:
+    entry points the cell's session class loads (``load_program``) and
+    ``edit(cfg, mix)`` changes the cell's sizes:
     both for the tests, which run tiny cells on the CPU.  ``detail``, a
     dict, receives what the check saw beyond its numbers (a fit's per-leaf
     norms)."""
@@ -175,10 +169,9 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
     if device.type == "cuda":
         pinned = host.pin(device.index or 0)
         say({"host": pinned})
-    program = program or traffic_mod.load_program()
     spans = Spans(trace)
     session = traffic_mod.make_session(cfg, mix, seed, device, program, spans,
-                                       work_modules(bench_dir))
+                                       work_modules(bench_dir), bench_dir)
     _sync(device)
     t_session = time.perf_counter()
     warm_frames = host.warm(session.frame, device, min_frames=max(session.cycle, 3))

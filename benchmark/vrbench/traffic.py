@@ -5,8 +5,9 @@ this module turns it, a configuration and a seed into a session.
 A mix's keys:
 
 * ``render``: ``composite`` (a compositing render a frame), ``iso`` (a bind
-  and an isosurface render a frame) or ``fit`` (a step of the multi-view
-  inverse render);
+  and an isosurface render a frame), ``fit`` (a step of the multi-view
+  inverse render), or the name of a session of its own,
+  ``sessions/<render>.py`` (:func:`session_class`);
 * ``camera``: the camera path (``cameras.Path``): ``fixed`` or ``orbit``
   (``count``, ``step_deg``, ``take_every``); each camera's rays and plan
   are made in set-up;
@@ -25,12 +26,13 @@ A mix's keys:
 * ``trace``: ``warm`` and ``frames`` of the traced window.
 
 A session makes its inputs on the device from the seed, calls the program
-only through its public entry points (:func:`load_program`), and keeps
-what the check needs.  ``frame(keep)`` is one unit of the user's loop;
-``after_window()`` takes what the check needs from the state the window
-ended in; ``check()`` compares the kept outputs with the plain reference
-once the program's state is released; ``work()`` counts the traced
-frames' work.
+only through the public entry points its class loads (``load_program``),
+and keeps what the check needs.  ``frame(keep)`` is one unit of the user's
+loop; ``after_window()`` takes what the check needs from the state the
+window ended in; ``check()`` compares the kept outputs with the plain
+reference once the program's state is released; ``work()`` counts the
+traced frames' work.  Its class also gives the cell's sizes in the CPU
+tests (``shrink``) and the faults those tests plant (``planted_faults``).
 """
 from __future__ import annotations
 
@@ -42,21 +44,8 @@ import torch
 from . import reference as R
 from . import volumes
 from .cameras import Path
+from .named import BENCH_DIR, load_named
 from .peaks import least_time
-
-
-def load_program():
-    """The program's public entry points, imported now (never at module
-    import)."""
-    import volumerenderer_tpu_torch as port
-    from volumerenderer_tpu_torch.models import plan_compositing
-    from volumerenderer_tpu_torch.ops.cuda.isosurface_kernel import IsosurfacePlan
-    from volumerenderer_tpu_torch.ops.cuda.voxel_grad_kernel import make_render_tf_voxel
-
-    return types.SimpleNamespace(Camera=port.Camera, generate_rays=port.generate_rays,
-                                 TFParams=port.TFParams, plan_compositing=plan_compositing,
-                                 IsosurfacePlan=IsosurfacePlan,
-                                 make_render_tf_voxel=make_render_tf_voxel)
 
 
 def _sync(device):
@@ -67,10 +56,10 @@ def _sync(device):
 class Session:
     """What every mix shares: the volume, the camera path, the spans."""
 
-    def __init__(self, cfg, mix, seed, device, program, span, work):
+    def __init__(self, cfg, mix, seed, device, program, span, work, bench_dir=BENCH_DIR):
         self.cfg, self.mix, self.seed, self.device = cfg, mix, int(seed), device
         self.P, self.span, self.W = program, span, work
-        self.vol_u8 = volumes.make(cfg["volume"], seed, device)
+        self.vol_u8 = volumes.make(cfg["volume"], seed, device, bench_dir)
         Z, Y, X = self.vol_u8.shape
         self.dims = (X, Y, Z)
         self.max_samples = int(cfg["max_samples"])
@@ -78,6 +67,36 @@ class Session:
         self.t = 0
         self.log = None  # frame numbers of the traced window
         self.kept = {}
+
+    @classmethod
+    def load_program(cls):
+        """The program's public entry points the session calls, imported
+        now (never at module import); a session of its own adds its own."""
+        import volumerenderer_tpu_torch as port
+        from volumerenderer_tpu_torch.models import plan_compositing
+        from volumerenderer_tpu_torch.ops.cuda.isosurface_kernel import IsosurfacePlan
+        from volumerenderer_tpu_torch.ops.cuda.voxel_grad_kernel import make_render_tf_voxel
+
+        return types.SimpleNamespace(Camera=port.Camera, generate_rays=port.generate_rays,
+                                     TFParams=port.TFParams, plan_compositing=plan_compositing,
+                                     IsosurfacePlan=IsosurfacePlan,
+                                     make_render_tf_voxel=make_render_tf_voxel)
+
+    @staticmethod
+    def shrink(cfg, mix):
+        """The cell at the size of the CPU tests: a volume of a few tens of
+        voxels a side, a few hundred rays, a short trace."""
+        cfg["volume"]["shape"] = [24, 28, 32]
+        cfg["image"] = [20, 16]
+        mix["trace"] = {"warm": 2, "frames": 4}
+
+    @classmethod
+    def planted_faults(cls) -> dict:
+        """name -> ``plant(program, patch)``: the program with a fault that
+        the check has to refuse planted under the timed path; ``patch(obj,
+        attr, value)`` replaces an attribute for one run (pytest's
+        ``monkeypatch.setattr``).  The CPU tests plant each in turn."""
+        return {}
 
     def program_camera(self, cam: R.Camera):
         return self.P.Camera(position=cam.position, front=cam.front, up=cam.up,
@@ -237,6 +256,34 @@ class RenderSession(Session):
                 for b, o in works:
                     out[k] = [out[k][0] + b, out[k][1] + o, out[k][2] + least_time(b, o)]
         return out
+
+    @classmethod
+    def planted_faults(cls) -> dict:
+        """Each render's answer altered where it is produced."""
+        return {"altered_answer": _altered_answer}
+
+
+def _altered_answer(program, patch):
+    """The program whose plans' ``render`` gives each image with an 8x8
+    tile 0.05 darker."""
+
+    def wrap(plan):
+        render = plan.render
+
+        def altered(*a, **k):
+            rgb, aux = render(*a, **k)
+            rgb = rgb.clone()
+            rgb[:8, :8] -= 0.05
+            return rgb, aux
+
+        plan.render = altered
+        return plan
+
+    return types.SimpleNamespace(**{**vars(program),
+                                    "plan_compositing": lambda *a, **k: wrap(
+                                        program.plan_compositing(*a, **k)),
+                                    "IsosurfacePlan": lambda *a, **k: wrap(
+                                        program.IsosurfacePlan(*a, **k))})
 
 
 STAND_INS = {"bfloat16": torch.bfloat16}
@@ -404,6 +451,65 @@ class FitSession(Session):
         return {"fit_kernels": kernels,
                 "step": [frames * step[0], frames * step[1], frames * least_time(*step)]}
 
+    @classmethod
+    def planted_faults(cls) -> dict:
+        """A step that returns its state unchanged; half of the batch left
+        out, the loss's mean taken over the rest; and a step gone wrong
+        only after set-up: from the window on, each step moves the volume
+        twice as far, so the first steps agree with the reference and the
+        steps from the state the window ended in do not."""
+
+        def half_batch(program, patch):
+            patch(cls, "frame", _half_batch_frame)
+            return program
+
+        def wrong_after_set_up(program, patch):
+            frame = cls.frame
+
+            def late_double(self, keep=None):
+                before = self.vol.detach().clone()
+                frame(self, keep)
+                if self.t > self.steps:
+                    with torch.no_grad():
+                        self.vol.add_(self.vol - before)
+
+            patch(cls, "frame", late_double)
+            return program
+
+        return {"unchanged_state": _unchanged_state, "half_batch": half_batch,
+                "wrong_after_set_up": wrong_after_set_up}
+
+
+def _unchanged_state(program, patch):
+    """The program whose render passes no gradient: every step returns its
+    state unchanged."""
+
+    def make(plan):
+        f = program.make_render_tf_voxel(plan)
+
+        def g(params, vol):
+            rgb, alpha = f(params, vol)
+            return rgb - rgb + rgb.detach(), alpha
+
+        return g
+
+    return types.SimpleNamespace(**{**vars(program), "make_render_tf_voxel": make})
+
+
+def _half_batch_frame(self, keep=None):
+    """:meth:`FitSession.frame` with the loss's mean over the first half of
+    the rays alone."""
+    h = self.target.shape[0] // 2
+    rgb, _ = self.render(self.P.TFParams(*self.leaves), self.vol)
+    loss = torch.mean((rgb[:h] - self.target[:h]) ** 2)
+    grads = torch.autograd.grad(loss, [*self.leaves, self.vol])
+    with torch.no_grad():
+        for leaf, g in zip(self.leaves, grads[:-1]):
+            leaf.sub_(self.lr["params"] * g)
+        self.vol.sub_(self.lr["volume"] * grads[-1])
+    self.loss = loss.detach()
+    self.t += 1
+
 
 def check_fit(s: FitSession, stand_in=None) -> dict:
     """The program's steps against the reference's, from the start the
@@ -457,5 +563,23 @@ def check_fit(s: FitSession, stand_in=None) -> dict:
 SESSIONS = {"composite": RenderSession, "iso": RenderSession, "fit": FitSession}
 
 
-def make_session(cfg, mix, seed, device, program, span, work) -> Session:
-    return SESSIONS[mix["render"]](cfg, mix, seed, device, program, span, work)
+def session_class(render: str, bench_dir=BENCH_DIR) -> type:
+    """The session class of a mix's ``render``: its entry in
+    :data:`SESSIONS`, else the ``Session`` class of ``sessions/<render>.py``
+    under ``bench_dir``, a subclass of :class:`Session` (as a rule of
+    :class:`RenderSession` or :class:`FitSession`)."""
+    if render in SESSIONS:
+        return SESSIONS[render]
+    module = load_named(bench_dir, "sessions", render)
+    cls = getattr(module, "Session", None)
+    if not (isinstance(cls, type) and issubclass(cls, Session)):
+        raise TypeError(f"{module.__file__} has no class Session that subclasses "
+                        f"vrbench.traffic.Session")
+    return cls
+
+
+def make_session(cfg, mix, seed, device, program, span, work, bench_dir=BENCH_DIR) -> Session:
+    """The session of the mix; ``program`` None: the entry points its class
+    loads."""
+    cls = session_class(mix["render"], bench_dir)
+    return cls(cfg, mix, seed, device, program or cls.load_program(), span, work, bench_dir)

@@ -14,7 +14,11 @@ needs a few GB beside it.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
+
+from .named import BENCH_DIR, load_named
 
 CHUNK_BYTES = 1 << 30
 
@@ -84,10 +88,14 @@ def turbulence(shape, seed: int, device, octaves: int = 4, noise: int = 0) -> to
     return out
 
 
-def make(spec: dict, seed: int, device) -> torch.Tensor:
-    """The (Z, Y, X) uint8 volume a configuration's ``volume`` entry names:
-    ``kind`` turbulence (``octaves``, ``noise``) of ``dtype`` uint8,
-    ``shape`` (Z, Y, X)."""
-    if spec["kind"] != "turbulence" or spec["dtype"] != "uint8":
+def make(spec: dict, seed: int, device, bench_dir: Path = BENCH_DIR) -> torch.Tensor:
+    """The (Z, Y, X) volume a configuration's ``volume`` entry names: for
+    ``kind`` turbulence (``octaves``, ``noise``) of ``dtype`` uint8 and
+    ``shape`` (Z, Y, X) the field above; for any other ``kind``, what
+    ``make(spec, seed, device)`` of ``generators/<kind>.py`` under
+    ``bench_dir`` makes on the device from the seed."""
+    if spec["kind"] != "turbulence":
+        return load_named(bench_dir, "generators", spec["kind"]).make(spec, seed, device)
+    if spec["dtype"] != "uint8":
         raise ValueError(f"no generator for a {spec['dtype']} volume of kind {spec['kind']!r}")
     return turbulence(spec["shape"], seed, device, spec["octaves"], spec["noise"])
