@@ -2254,6 +2254,7 @@ def run_device_build(dev, smi: str, source: np.ndarray, tree, host_build_s: floa
     .make_plan(pooled=True)`` (B7) equal to the host tree's; in parallel
     mode held by quality."""
     from volumerenderer_tpu_torch.codecs import kdtree as KT
+    from volumerenderer_tpu_torch.codecs import device_build as DB
     from volumerenderer_tpu_torch.codecs.device_build import build_device
     from volumerenderer_tpu_torch.models import CompressedRenderer
     from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
@@ -2267,13 +2268,16 @@ def run_device_build(dev, smi: str, source: np.ndarray, tree, host_build_s: floa
                                    seed_mode=mode, device=dev)
         seconds[mode] = time.perf_counter() - t0
     got = trees["exact"]
-    pairs = [(got.distance_map, tree.distance_map), (got.chain_codes, tree.chain_codes),
-             (got.leaf_recon, tree.leaf_recon), *zip(got.level_codes, tree.level_codes)]
+    host = {m: DB.to_host(t) for m, t in trees.items()}
+    pairs = [(host["exact"].distance_map, tree.distance_map),
+             (host["exact"].chain_codes, tree.chain_codes),
+             (host["exact"].leaf_recon, tree.leaf_recon),
+             *zip(host["exact"].level_codes, tree.level_codes)]
     if got.num_active_nodes != tree.num_active_nodes or len(got.level_codes) != \
             len(tree.level_codes) or not all(np.array_equal(a, b) for a, b in pairs):
         raise AssertionError("build_device (exact seed) differs from kdtree.build")
     err = {m: KT.measure_mean_error(KT.level_cut(t), source)
-           for m, t in (("host", tree), ("parallel", trees["parallel"]))}
+           for m, t in (("host", tree), ("parallel", host["parallel"]))}
     if not err["parallel"] <= err["host"] * 1.25 + 0.5:
         raise AssertionError(f"build_device (parallel seed): mean error {err['parallel']} "
                              f"against the host build's {err['host']}")

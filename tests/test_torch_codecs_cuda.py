@@ -76,6 +76,8 @@ def test_build_device_on_cuda(cuda_device, seed_mode):
     host = TK.build(vol, tolerance=4, max_epochs=2)
     got = TDB.build_device(vol, tolerance=4, max_epochs=2, seed_mode=seed_mode,
                            device=cuda_device)
+    assert got.chain_codes.is_cuda and all(c.is_cuda for c in got.level_codes)
+    got = TDB.to_host(got)
     if seed_mode == "exact":
         np.testing.assert_array_equal(got.distance_map, host.distance_map)
         for a, b in zip(got.level_codes, host.level_codes):

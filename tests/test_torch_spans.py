@@ -4,7 +4,9 @@ exactly its ``vr.`` spans, once each, nested as its work is: the iso bind
 (``vr.iso.bind``, its grid build ``vr.grid`` inside), the iso render, the
 compositing bind and render, and a fit step through ``make_render_tf_voxel``
 (``vr.tf.march``; ``vr.voxel_grad`` with ``vr.voxel_grad.quantize``
-inside).  With no profiler active, ``span`` is one shared no-op and never
+inside), the slab pool's build (``vr.pool.build``), the pooled compositing
+render (``vr.composite.render_pooled``) and a kd-tree's cut decode
+(``vr.kd.decode``).  With no profiler active, ``span`` is one shared no-op and never
 reaches ``record_function``.  Images, grids, losses and gradients are bit
 for bit the same with the profiler on and off.  The benchmark's four
 readers of the spans (``benchmark/metrics/``) read a traced window of iso
@@ -17,6 +19,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
+from volumerenderer_tpu_torch.codecs import device as TD
+from volumerenderer_tpu_torch.codecs import kdtree as TK
 from volumerenderer_tpu_torch.diff.transfer import TFParams
 from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
@@ -37,8 +41,12 @@ def scene():
     Z, Y, X = SHAPE
     args = (rays.entry_uv, rays.direction, rays.hit, (X, Y, Z))
     iso, comp = IsosurfacePlan(*args, max_samples=64), RK.CompositingPlan(*args, max_samples=64)
+    dtree, spec = TD.to_device(TK.build(turbulence_volume((8, 8, 16), seed=4), tolerance=2,
+                                        max_epochs=2), "cpu")
     return types.SimpleNamespace(vol=vol, iso=iso, comp=comp, bound=iso.bind(vol, ISO),
-                                 target=torch.full((20, 24, 3), 0.5))
+                                 target=torch.full((20, 24, 3), 0.5),
+                                 pool=RK.build_slab_pool(RK.quantize_u8(vol)), dtree=dtree,
+                                 spec=spec)
 
 
 def _fit_step(s):
@@ -58,11 +66,17 @@ CALLS = {
                       {"vr.iso.bind": None, "vr.grid": "vr.iso.bind"}),
     "iso_bind_pool": (lambda s: s.iso.bind(pool=RK.build_slab_pool(RK.quantize_u8(s.vol)),
                                            iso_value=ISO).grid,
-                      {"vr.iso.bind": None, "vr.grid": "vr.iso.bind"}),
+                      {"vr.pool.build": None, "vr.iso.bind": None,
+                       "vr.grid": "vr.iso.bind"}),
     "iso_render": (lambda s: s.iso.render(s.vol, ISO, bound=s.bound),
                    {"vr.iso.render": None}),
     "composite_bind": (lambda s: s.comp.bind(s.vol).grid, {"vr.grid": None}),
     "composite_render": (lambda s: s.comp.render(s.vol), {"vr.composite.render": None}),
+    "pool_build": (lambda s: RK.build_slab_pool(RK.quantize_u8(s.vol)),
+                   {"vr.pool.build": None}),
+    "composite_render_pooled": (lambda s: s.comp.render_pooled(*s.pool),
+                                {"vr.composite.render_pooled": None}),
+    "kd_decode": (lambda s: TD.level_cut_device(s.dtree, s.spec), {"vr.kd.decode": None}),
     "fit_step": (_fit_step, {"vr.tf.march": None, "vr.voxel_grad": None,
                              "vr.voxel_grad.quantize": "vr.voxel_grad"}),
 }

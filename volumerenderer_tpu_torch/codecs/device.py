@@ -11,8 +11,14 @@ at depth 24) decode per depth-K subtree chunk of 2^CHUNK_LEAF_BITS leaves,
 as the JAX package does.  The JAX package maps over the chunks one at a
 time (``lax.map``); here the chunks go in groups of consecutive ones, each
 group's codes one contiguous run of every deeper level, so a 256³ decode
-takes 16 passes instead of 256 while no intermediate exceeds
-2^CHUNK_GROUP_LEAF_BITS leaves.
+takes one pass and a 2048×2048×512 one 128 passes, while no intermediate
+exceeds 2^CHUNK_GROUP_LEAF_BITS leaves.  Each decode is one ``vr.kd.decode``
+span.
+
+:func:`volume_leaf_order` is the inverse placement, the volume in
+breadth-first leaf order chunk by chunk, which the device build starts
+from; :func:`to_device` packs a tree's code arrays where they lie (the
+device build's on the card), one row chunk of the chains at a time.
 """
 from __future__ import annotations
 
@@ -21,15 +27,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.bitarray import pack2_np, unpack2
+from ..utils.bitarray import pack2, unpack2
+from ..utils.timer import span
 from .kdtree import NO_NODE, KdTree, _leaf_axes_perm
 
 __all__ = ["DeviceKdTree", "to_device", "level_cut_device", "tree_occupancy_mip8",
-           "CHUNKED_DECODE_MIN_DEPTH", "CHUNK_LEAF_BITS"]
+           "volume_leaf_order", "CHUNKED_DECODE_MIN_DEPTH", "CHUNK_LEAF_BITS",
+           "LEAF_ORDER_CHUNK_BITS"]
 
 CHUNKED_DECODE_MIN_DEPTH = 21   # use the flat decode below this depth
 CHUNK_LEAF_BITS = 16            # per-chunk leaf-array size (2^bits)
-CHUNK_GROUP_LEAF_BITS = 20      # leaves decoded together by a group of chunks
+CHUNK_GROUP_LEAF_BITS = 24      # leaves decoded together by a group of chunks
+LEAF_ORDER_CHUNK_BITS = 24      # leaves put in order by one copy (a CUDA copy takes 25 dims)
+PACK_ROWS = 1 << 24             # chain rows packed at a time on a device
 
 
 class DeviceKdTree(NamedTuple):
@@ -40,35 +50,49 @@ class DeviceKdTree(NamedTuple):
     distance_map: torch.Tensor   # int32 (max_depth + 1,)
 
 
-def _pack_rows(rows: np.ndarray) -> np.ndarray:
-    """Row-wise 2-bit pack of an (n, 4k) code array -> (n, k) bytes."""
-    n, m = rows.shape
-    quads = (rows & 3).reshape(n, m // 4, 4)
-    return (quads[..., 0] | (quads[..., 1] << 2) | (quads[..., 2] << 4)
-            | (quads[..., 3] << 6)).astype(np.uint8)
-
-
 def to_device(tree: KdTree, device: torch.device | str = "cuda") -> tuple[DeviceKdTree, dict]:
-    """Put a host tree on ``device``; returns (tensors, static spec for the
-    decoder: dims, orig_depth, max_depth, schedule, chain_len)."""
-    packed_levels = tuple(torch.from_numpy(pack2_np(codes)).to(device)
-                          for codes in tree.level_codes)
-    chains = tree.chain_codes
-    if chains is None:
-        chains = np.full((tree.num_leaves, 8), NO_NODE, dtype=np.uint8)
+    """Put a tree on ``device``; returns (tensors, static spec for the
+    decoder: dims, orig_depth, max_depth, schedule, chain_len).  The code
+    arrays are packed where they lie, a host tree's on the host and a tree
+    built on the card (``device_build.build_device``) there, so it never
+    visits the host, and the packed bytes moved to ``device``."""
+    chains = (torch.full((tree.num_leaves, 8), NO_NODE, dtype=torch.uint8)
+              if tree.chain_codes is None else torch.as_tensor(tree.chain_codes))
     # NO_NODE packs to code 3, which the decode treats as terminal, so chains
     # pad with 3 and pack 4 codes per byte like the levels
-    chains_p = np.where(chains == NO_NODE, 3, chains).astype(np.uint8)
-    pad = (-chains_p.shape[1]) % 4
-    if pad:
-        chains_p = np.pad(chains_p, ((0, 0), (0, pad)), constant_values=3)
+    chain_len = -(-chains.shape[1] // 4) * 4
     dtree = DeviceKdTree(
-        packed_levels=packed_levels,
-        packed_chains=torch.from_numpy(_pack_rows(chains_p)).to(device),
-        distance_map=torch.from_numpy(tree.distance_map.astype(np.int32)).to(device))
+        packed_levels=tuple(_pack_level(torch.as_tensor(c).to(torch.uint8)).to(device)
+                            for c in tree.level_codes),
+        packed_chains=_pack_chains(chains, chain_len).to(device),
+        distance_map=torch.from_numpy(np.asarray(tree.distance_map).astype(np.int32)).to(device))
     spec = dict(dims=tuple(tree.dims), orig_depth=tree.orig_depth, max_depth=tree.max_depth,
-                schedule=tuple(tree.schedule), chain_len=chains_p.shape[1])
+                schedule=tuple(tree.schedule), chain_len=chain_len)
     return dtree, spec
+
+
+def _pack_level(codes: torch.Tensor) -> torch.Tensor:
+    """A level's codes packed 4 to a byte on their device: zero codes pad to
+    a multiple of 4."""
+    pad = (-codes.shape[0]) % 4
+    if pad:
+        codes = torch.cat([codes, codes.new_zeros(pad)])
+    return pack2(codes)
+
+
+def _pack_chains(chains: torch.Tensor, chain_len: int) -> torch.Tensor:
+    """The chains packed on their device, ``PACK_ROWS`` rows at a time:
+    NO_NODE -> 3, padded with 3 to ``chain_len`` codes a row, packed 4
+    codes a byte."""
+    n, m = chains.shape
+    out = torch.empty((n, chain_len // 4), dtype=torch.uint8, device=chains.device)
+    for r0 in range(0, n, PACK_ROWS):
+        rows = chains[r0:r0 + PACK_ROWS]
+        rows = torch.where(rows == NO_NODE, 3, rows).to(torch.uint8)
+        if chain_len > m:
+            rows = torch.cat([rows, rows.new_full((rows.shape[0], chain_len - m), 3)], dim=1)
+        out[r0:r0 + PACK_ROWS] = pack2(rows)
+    return out
 
 
 def _step(scalars, frozen, codes, delta):
@@ -138,6 +162,34 @@ def _leaves_to_volume(scalars: torch.Tensor, dims, schedule) -> torch.Tensor:
     return scalars.to(torch.uint8).reshape((2,) * (nz + ny + nx)).permute(inv).reshape(Z, Y, X)
 
 
+def volume_leaf_order(vol: torch.Tensor, schedule, chunk_bits: int | None = None
+                      ) -> torch.Tensor:
+    """A (Z, Y, X) volume as a flat tensor in breadth-first leaf order
+    (``kdtree.volume_to_leaves``), on its device: the first K = D −
+    ``chunk_bits`` splits fix the top bits of each coordinate, so chunk c is
+    a (bZ, bY, bX) box of the volume and a contiguous run of the leaves,
+    ordered by the last D − K splits; each box goes in order by one copy of
+    at most ``chunk_bits`` dims (default ``LEAF_ORDER_CHUNK_BITS``)."""
+    Z, Y, X = vol.shape
+    sched = list(schedule)
+    D = len(sched)
+    K = max(0, D - (LEAF_ORDER_CHUNK_BITS if chunk_bits is None else chunk_bits))
+    pfx = sched[:K]
+    gX, gY, gZ = 1 << pfx.count(0), 1 << pfx.count(1), 1 << pfx.count(2)
+    bX, bY, bZ = X // gX, Y // gY, Z // gZ
+    perm_T, (tz, ty, tx) = _leaf_axes_perm(bX, bY, bZ, sched[K:])
+    n = 1 << (D - K)
+    out = torch.empty(1 << D, dtype=vol.dtype, device=vol.device)
+    grid = vol.reshape(gZ, bZ, gY, bY, gX, bX)
+    for c in range(1 << K):
+        g = [0, 0, 0]  # chunk c's (x, y, z) grid index: c's bits, MSB first, by pfx's axes
+        for i, axis in enumerate(pfx):
+            g[axis] = (g[axis] << 1) | ((c >> (K - 1 - i)) & 1)
+        box = grid[g[2], :, g[1], :, g[0], :].reshape((2,) * (tz + ty + tx))
+        out[c * n:(c + 1) * n] = box.permute(perm_T).reshape(-1)
+    return out
+
+
 def _level_cut_impl(dtree: DeviceKdTree, spec_key, cut_depth: int) -> torch.Tensor:
     dims, _, _, schedule, _ = spec_key
     return _leaves_to_volume(_decode_leaf_scalars(dtree, spec_key, cut_depth), dims, schedule)
@@ -157,12 +209,15 @@ def _level_cut_chunked_impl(dtree: DeviceKdTree, spec_key, cut_depth: int, K: in
 
 
 def _place_chunks(dims, schedule, K: int, decode_group, device,
-                  group_leaf_bits: int = CHUNK_GROUP_LEAF_BITS) -> torch.Tensor:
+                  group_leaf_bits: int | None = None) -> torch.Tensor:
     """The (Z, Y, X) uint8 volume from its depth-K chunks: ``decode_group(c0,
     g)`` gives the leaf scalars of chunks c0 .. c0 + g − 1 in breadth-first
-    leaf order, g chunks holding up to 2^group_leaf_bits leaves; each chunk
-    is a (bZ, bY, bX) box, put in place by tensors of at most D − K + 1
-    dims.  Shared with the hashed codec's decode."""
+    leaf order, g chunks holding up to 2^group_leaf_bits leaves (default
+    ``CHUNK_GROUP_LEAF_BITS``); each chunk is a (bZ, bY, bX) box, put in
+    place by tensors of at most D − K + 1 dims.  Shared with the hashed
+    codec's decode."""
+    if group_leaf_bits is None:
+        group_leaf_bits = CHUNK_GROUP_LEAF_BITS
     X, Y, Z = dims
     sched = list(schedule)
     orig_depth = len(sched)
@@ -204,9 +259,10 @@ def level_cut_device(dtree: DeviceKdTree, spec: dict, cut_depth: int | None = No
     D = spec["orig_depth"]
     bits = chunk_bits if chunk_bits is not None else (
         CHUNK_LEAF_BITS if D >= CHUNKED_DECODE_MIN_DEPTH else None)
-    if bits is not None and D - 1 > bits:
-        return _level_cut_chunked_impl(dtree, _spec_key(spec), int(cut_depth), D - bits)
-    return _level_cut_impl(dtree, _spec_key(spec), int(cut_depth))
+    with span("vr.kd.decode"):
+        if bits is not None and D - 1 > bits:
+            return _level_cut_chunked_impl(dtree, _spec_key(spec), int(cut_depth), D - bits)
+        return _level_cut_impl(dtree, _spec_key(spec), int(cut_depth))
 
 
 def _tree_mip8_impl(dtree: DeviceKdTree, spec_key, cut_depth: int) -> torch.Tensor:
@@ -217,7 +273,8 @@ def _tree_mip8_impl(dtree: DeviceKdTree, spec_key, cut_depth: int) -> torch.Tens
     dims, orig_depth, max_depth, schedule, chain_len = spec_key
     X, Y, Z = dims
     sched = list(schedule)
-    scalars = _decode_leaf_scalars(dtree, spec_key, cut_depth)
+    with span("vr.kd.decode"):
+        scalars = _decode_leaf_scalars(dtree, spec_key, cut_depth)
     need = {0: min(3, int(np.log2(X))), 1: min(3, int(np.log2(Y))), 2: min(3, int(np.log2(Z)))}
     chosen: list[int] = []
     for a in (0, 1, 2):

@@ -136,18 +136,20 @@ def encode_level(truth: np.ndarray, parent: np.ndarray, distance: int):
     return codes, recon, min_err
 
 
-def seed_level(truth: np.ndarray, parent: np.ndarray) -> float:
+def seed_level(truth: np.ndarray, parent: np.ndarray, shift: int = 0) -> float:
     """Level-order running-mean Δ seeding (``encodeNodeEstimate`` sweep,
     ``VolumeKdTree_recover.cpp:254-267,415-455``): round(sum / count), or 0.
+    Node i's parent estimate is ``parent[i >> shift]``: shift 1 seeds a
+    level from its parent level's recon.
 
     On a machine with a CUDA device the sweep runs in the compiled host
     helper (``csrc/kdtree_seed.cu``, built with ``nvcc`` at first use; a
     failed build raises), elsewhere in :func:`_seed_level_py`.  Both give the
     same (sum, count) bit for bit."""
     if torch.cuda.is_available():
-        s, c = _seed_level_native(truth, parent)
+        s, c = _seed_level_native(truth, parent, shift)
     else:
-        s, c = _seed_level_py(truth, parent)
+        s, c = _seed_level_py(truth, np.repeat(parent, 1 << shift)[:len(truth)])
     if c > 0:
         return float(np.floor(s / c + 0.5))  # C++ round(): half away from zero
     return 0.0
@@ -179,21 +181,30 @@ def _seed_helper():
     from ..ops.cuda import _build
 
     built = _build.load("kdtree_seed")
-    fn = built.lib.kdtree_seed_level_f64
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = None
-    return fn, built
+    fns = {}
+    for name, ptype in (("u8", np.uint8), ("i32", np.int32)):
+        fn = getattr(built.lib, f"kdtree_seed_level_{name}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = None
+        fns[np.dtype(ptype)] = fn
+    return fns, built
 
 
-def _seed_level_native(truth: np.ndarray, parent: np.ndarray):
-    """:func:`_seed_level_py` in the compiled helper: (sum, count)."""
-    t = np.ascontiguousarray(truth, dtype=np.float64).ravel()
-    p = np.ascontiguousarray(parent, dtype=np.float64).ravel()
-    if t.shape != p.shape:
-        raise ValueError(f"truth and parent differ in length: {t.shape} vs {p.shape}")
+def _seed_level_native(truth: np.ndarray, parent: np.ndarray, shift: int = 0):
+    """:func:`_seed_level_py` in the compiled helper: (sum, count).  It reads
+    the truth bytes and the parent estimates (bytes, else int32) in place;
+    node i's estimate is ``parent[i >> shift]``."""
+    t = np.ascontiguousarray(truth, dtype=np.uint8).ravel()
+    p = np.ascontiguousarray(parent).ravel()
+    if p.dtype != np.uint8:
+        p = np.ascontiguousarray(p, dtype=np.int32)
+    n = t.shape[0]
+    if n and p.shape[0] <= (n - 1) >> shift:
+        raise ValueError(f"{p.shape[0]} parent estimates for {n} nodes at shift {shift}")
     out = np.zeros(2, dtype=np.float64)
-    fn, _ = _seed_helper()
-    fn(t.ctypes.data, p.ctypes.data, t.shape[0], out.ctypes.data)
+    fns, _ = _seed_helper()
+    fns[p.dtype](t.ctypes.data, p.ctypes.data, n, shift, out.ctypes.data)
     return float(out[0]), float(out[1])
 
 

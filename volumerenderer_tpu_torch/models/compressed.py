@@ -25,6 +25,16 @@ Departures from the JAX class, on purpose:
   was made from, so the plan's callable renders only that data.
 * The isosurface plan shades from the slab pool it marched, so there is no
   ``shade_pool_at``.
+* A cut decodes once for everything drawn from it: a slab pool takes the
+  cut's block maxima from the decode it packs (``block_max8``, the same
+  grid as ``tree_occupancy_mip8`` by definition) and keeps them for
+  ``mip8_at``, and ``mip8_at`` takes them from a cached dense cut.  The JAX
+  class decodes a deep tree's cut for its block maxima and again for its
+  pool.
+* ``self.tree`` keeps the tree's header but not its code arrays, which
+  ``self.dtree`` holds packed: a tree built on the device
+  (``device_build.build_device``) is packed there, and at 2^31 leaves its
+  arrays are 20 GB beside the 5.4 GB packed.
 
 A tree's file I/O is the codec's (``codecs.kdtree.save``,
 ``open_tree_full``): a tree opened from a checkpoint renders here as the
@@ -32,13 +42,15 @@ tree that was saved.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..codecs.device import level_cut_device, to_device, tree_occupancy_mip8
 from ..codecs.kdtree import KdTree
 from ..codecs.midrange import MidRangeTree
 from ..ops.cuda.isosurface_kernel import IsosurfacePlan, render_isosurface_kernel
-from ..ops.cuda.raycast_kernel import (CompositingPlan, build_slab_pool,
+from ..ops.cuda.raycast_kernel import (CompositingPlan, block_max8, build_slab_pool,
                                        build_slab_pool_narrow, render_compositing_kernel)
 from ..ops.isosurface import render_isosurface
 from ..ops.raycast import MAX_SAMPLES, render_compositing
@@ -90,9 +102,10 @@ class CompressedRenderer:
             tree = tree.mid
         if not isinstance(tree, KdTree):
             raise TypeError(f"expected a KdTree or a MidRangeTree, got {type(tree).__name__}")
-        self.tree = tree
         self.device = torch.device(device)
         self.dtree, self.spec = to_device(tree, self.device)
+        self.tree = dataclasses.replace(tree, level_codes=None, chain_codes=None,
+                                        leaf_recon=None, leaf_truth=None)
         self._cache: dict[int, torch.Tensor] = {}
         self._pool_cache: dict[tuple, tuple] = {}
         self._mip_cache: dict[int, torch.Tensor] = {}
@@ -113,16 +126,20 @@ class CompressedRenderer:
         return self._cache[cut]
 
     def mip8_at(self, cut_depth: int | None = None) -> torch.Tensor:
-        """Per-8³-block maxima of the cut (``tree_occupancy_mip8``), cached."""
+        """Per-8³-block maxima of the cut (``tree_occupancy_mip8``), cached;
+        from the cached dense cut where there is one."""
         cut = self._cut(cut_depth)
         if cut not in self._mip_cache:
-            self._mip_cache[cut] = tree_occupancy_mip8(self.dtree, self.spec, cut)
+            self._mip_cache[cut] = (block_max8(self._cache[cut]) if cut in self._cache
+                                    else tree_occupancy_mip8(self.dtree, self.spec, cut))
         return self._mip_cache[cut]
 
     def slab_pool_at(self, cut_depth: int | None = None, fmt: str = "pair16"):
         """(pool, slab_map) of the cut: only the z-slabs the tree's block
         maxima call occupied stay resident, deduplicated by content.  The
-        dense decode is transient and is not kept.  ``fmt``: "pair16"
+        dense decode (the cached dense cut, if any) is transient and is not
+        kept; the cut's block maxima come from it when ``mip8_at`` has none
+        yet, and are kept.  ``fmt``: "pair16"
         (``build_slab_pool``, 2 B per pooled voxel) or "narrowf32"
         (``build_slab_pool_narrow``, 4 B per pooled voxel)."""
         if fmt not in _POOL_BUILDERS:
@@ -131,8 +148,10 @@ class CompressedRenderer:
         cut = self._cut(cut_depth)
         key = (cut, fmt)
         if key not in self._pool_cache:
-            self._pool_cache[key] = _POOL_BUILDERS[fmt](self._decoded(cut),
-                                                        mip8=self.mip8_at(cut))
+            vol = self._cache[cut] if cut in self._cache else self._decoded(cut)
+            if cut not in self._mip_cache:
+                self._mip_cache[cut] = block_max8(vol)
+            self._pool_cache[key] = _POOL_BUILDERS[fmt](vol, mip8=self._mip_cache[cut])
         return self._pool_cache[key]
 
     def render(self, rays, cut_depth: int | None = None, mode: str = "compositing",

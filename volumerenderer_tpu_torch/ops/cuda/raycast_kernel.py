@@ -330,16 +330,18 @@ class CompositingPlan:
         ``wrap="repeat"`` raises.  ``bound``: None, or :meth:`bind`'s result
         from this very pool and slab map (``bind(pool=(pool, slab_map))``).
         The kernel writes the displayed image, as for :meth:`render`.
-        Returns (rgb (H, W, 3), alpha (H, W))."""
-        dims = pool_dims(pool, slab_map)
-        if dims != self.dims:
-            raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's is "
-                             f"{self.dims}")
-        _grid(bound, dims, self.wrap, data=(pool, slab_map))
-        march = (composite_march_pooled_pair16_cuda if pool.dtype == torch.int32
-                 else composite_march_pooled_narrow_cuda)
-        return march(pool, slab_map, self.entry_uv, self.dir_step, self.hit, self.max_samples,
-                     self.wrap, transfer=True, bound=_skipping(bound))
+        Returns (rgb (H, W, 3), alpha (H, W)).  The call is one
+        ``vr.composite.render_pooled`` span."""
+        with span("vr.composite.render_pooled"):
+            dims = pool_dims(pool, slab_map)
+            if dims != self.dims:
+                raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's "
+                                 f"is {self.dims}")
+            _grid(bound, dims, self.wrap, data=(pool, slab_map))
+            march = (composite_march_pooled_pair16_cuda if pool.dtype == torch.int32
+                     else composite_march_pooled_narrow_cuda)
+            return march(pool, slab_map, self.entry_uv, self.dir_step, self.hit,
+                         self.max_samples, self.wrap, transfer=True, bound=_skipping(bound))
 
 
 def _byte_values(volume: torch.Tensor) -> torch.Tensor:
@@ -359,11 +361,13 @@ def block_max8(volume: torch.Tensor) -> torch.Tensor:
     ``volumerenderer_tpu/ops/pallas/raycast_kernel.py::block_max8``).
     ``codecs/device.py::tree_occupancy_mip8`` gives the same grid from the
     tree."""
-    s = _byte_values(volume)
+    # a byte volume's maxima are taken on its bytes (a float32 copy would be
+    # four times its size), the same numbers
+    s = volume if volume.dtype == torch.uint8 and volume.dim() == 3 else _byte_values(volume)
     Z, Y, X = s.shape
     s = F.pad(s, (0, (-X) % 8, 0, (-Y) % 8, 0, (-Z) % 8))
     Zp, Yp, Xp = s.shape
-    return s.reshape(Zp // 8, 8, Yp // 8, 8, Xp // 8, 8).amax(dim=(1, 3, 5))
+    return s.reshape(Zp // 8, 8, Yp // 8, 8, Xp // 8, 8).amax(dim=(1, 3, 5)).to(torch.float32)
 
 
 def expand_mip(m8: torch.Tensor, reach_x: int = 3, reach_z: int = 2) -> torch.Tensor:
@@ -408,6 +412,9 @@ def pack_pairs(volume: torch.Tensor) -> torch.Tensor:
     return s * 256.0 + torch.cat([s[:, :, 1:], s[:, :, -1:]], dim=2)
 
 
+PACK_VOXELS = 1 << 26  # voxels pack_pairs16 packs at a time
+
+
 def pack_pairs16(volume: torch.Tensor) -> torch.Tensor:
     """(Z, Y, X) uint8 or float volume -> (Z, Y, X // 2) int32 holding two
     16-bit pairs per word, ``word[k] = pair16[2k] | pair16[2k+1] << 16`` with
@@ -415,10 +422,15 @@ def pack_pairs16(volume: torch.Tensor) -> torch.Tensor:
     if volume.dim() != 3 or volume.shape[2] % 2:
         raise ValueError(f"pair16 packing needs a (Z, Y, X) volume with X even, got "
                          f"{tuple(volume.shape)}")
-    p16 = pack_pairs(volume).to(torch.int32)
-    lo, hi = p16[:, :, 0::2], p16[:, :, 1::2]
-    # hi << 16 as a signed word, without overflowing int32
-    return torch.where(hi >= 32768, hi - 65536, hi) * 65536 | lo
+    Z, Y, X = volume.shape
+    out = torch.empty((Z, Y, X // 2), dtype=torch.int32, device=volume.device)
+    rows = max(1, PACK_VOXELS // max(1, Y * X))  # z rows a pass packs
+    for z0 in range(0, Z, rows):
+        p16 = pack_pairs(volume[z0:z0 + rows]).to(torch.int32)
+        lo, hi = p16[:, :, 0::2], p16[:, :, 1::2]
+        # hi << 16 as a signed word, without overflowing int32
+        out[z0:z0 + rows] = torch.where(hi >= 32768, hi - 65536, hi) * 65536 | lo
+    return out
 
 
 SLAB_H = 16  # pool slab height: the slot of z-block b holds z rows [8b, 8b + 16)
@@ -441,27 +453,36 @@ def _occupied_slabs(volume: torch.Tensor, mip8) -> np.ndarray:
 def _slab_pool(packed: torch.Tensor, occ: np.ndarray):
     """Pool and slab map from a packed (Z, Y, W) volume: slot 0 all zero,
     then the distinct occupied slabs in first-seen order (deduplicated by
-    their bytes), each 16 rows from z = 8b (zero rows past Z)."""
+    their words: a slab whose word sum equals a kept slab's is compared with
+    it whole, on the device), each 16 rows from z = 8b (zero rows past
+    Z)."""
     Z, Y, W = packed.shape
     dev = packed.device
-    padded = torch.cat([packed, packed.new_zeros((8, Y, W))])
-    occ_idx = np.nonzero(occ)[0]
-    rows = 8 * occ_idx[:, None] + np.arange(SLAB_H)[None]
-    slabs = padded[torch.as_tensor(rows, dtype=torch.int64, device=dev)]
-    host = slabs.cpu().numpy()
+    occ_idx = [int(b) for b in np.nonzero(occ)[0]]
+
+    def slab(b: int) -> torch.Tensor:
+        rows = packed[8 * b:8 * b + SLAB_H]
+        if rows.shape[0] < SLAB_H:
+            rows = torch.cat([rows, packed.new_zeros((SLAB_H - rows.shape[0], Y, W))])
+        return rows
+
+    sums = (torch.stack([torch.sum(slab(b), dtype=torch.int64) for b in occ_idx]).tolist()
+            if occ_idx else [])
     slots = np.zeros(Z // 8, np.int32)
-    unique: dict[bytes, int] = {}
+    by_sum: dict[int, list] = {}
     keep: list[int] = []
-    for i, b in enumerate(occ_idx):
-        key = host[i].tobytes()
-        slot = unique.get(key)
+    for b, total in zip(occ_idx, sums):
+        slot = next((k for k in by_sum.get(total, ())
+                     if torch.equal(slab(b), slab(keep[k - 1]))), None)
         if slot is None:
-            slot = 1 + len(keep)
-            unique[key] = slot
-            keep.append(i)
+            keep.append(b)
+            slot = len(keep)
+            by_sum.setdefault(total, []).append(slot)
         slots[b] = slot
-    pool = torch.cat([packed.new_zeros((1, SLAB_H, Y, W)),
-                      slabs[torch.as_tensor(keep, dtype=torch.int64, device=dev)]])
+    pool = packed.new_empty((1 + len(keep), SLAB_H, Y, W))
+    pool[0].zero_()
+    for k, b in enumerate(keep):
+        pool[1 + k] = slab(b)
     return pool, torch.from_numpy(slots[None, :]).to(dev)
 
 
@@ -482,7 +503,8 @@ def build_slab_pool(volume: torch.Tensor, mip8=None):
     if volume.dim() != 3 or volume.shape[0] % 8 or volume.shape[2] % 2:
         raise ValueError(f"build_slab_pool needs a (Z, Y, X) volume with Z % 8 == 0 and X "
                          f"even, got {tuple(volume.shape)}")
-    return _slab_pool(pack_pairs16(volume), _occupied_slabs(volume, mip8))
+    with span("vr.pool.build"):
+        return _slab_pool(pack_pairs16(volume), _occupied_slabs(volume, mip8))
 
 
 def build_slab_pool_narrow(volume: torch.Tensor, mip8=None):
@@ -497,7 +519,8 @@ def build_slab_pool_narrow(volume: torch.Tensor, mip8=None):
     if volume.dim() != 3 or volume.shape[0] % 8:
         raise ValueError(f"build_slab_pool_narrow needs a (Z, Y, X) volume with Z % 8 == 0, "
                          f"got {tuple(volume.shape)}")
-    return _slab_pool(pack_pairs(volume), _occupied_slabs(volume, mip8))
+    with span("vr.pool.build"):
+        return _slab_pool(pack_pairs(volume), _occupied_slabs(volume, mip8))
 
 
 POOL_DTYPES = {"pair16": torch.int32, "narrow": torch.float32}
