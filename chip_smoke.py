@@ -241,7 +241,8 @@ BENCH_ISO, BENCH_TIMEOUT_S, BENCH_AGREEMENT = 0.5411764979362488, 600, 0.15
 # a trilinear sample 41 (texel coordinates 6, floors 3, fractions 3, byte
 # scales 8, seven lerps 21); a position step 3; compositing 6; the TF sums
 # 16 more; B1 and B4 on the float32 volume quantize each of the 8 taps
-# (max, min, product, round: 4 each) and B1 writes 1 - c once per ray; the
+# (max, min, product, round: 4 each), B5 there those of both of its passes'
+# samples, and B1 writes 1 - c once per ray; the
 # iso crossing test and lookahead step 5; the segment anchor
 # test 6 (a segment step before the sample: a position step and the anchor
 # test, 9); the voxel gradient's replayed step, cotangent, tap weights and 8
@@ -258,6 +259,7 @@ OPS_PER_STEP = {"composite": 50, "tf": 66, "voxel_grad": 94, "iso": 49, "seg_wal
                 "seg_owned": 47, "seg_tf_owned": 63}
 OPS_PER_STEP["composite_f32"] = OPS_PER_STEP["composite"] + 8 * QUANTIZE_OPS_PER_TAP
 OPS_PER_STEP["tf_f32"] = OPS_PER_STEP["tf"] + 8 * QUANTIZE_OPS_PER_TAP
+OPS_PER_STEP["voxel_grad_f32"] = OPS_PER_STEP["voxel_grad"] + 2 * 8 * QUANTIZE_OPS_PER_TAP
 # bytes per ray: the rays read (entry_uv, dir_step, hit) and B1's displayed
 # image written (rgb and alpha)
 RAY_BYTES, RGBA_BYTES = 25, 16
@@ -1043,12 +1045,15 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
                                          f"differ from B1's")
             emit(line)
             if not name.startswith("adversarial"):  # B5 is held on the earlier cases
-                vg_inputs.append((name, pname, params, plan, vol_u8, plain_vol, k))
+                vg_inputs.append((name, pname, params, plan, v, vol_u8, plain_vol, k))
 
     # B5 vs its plain version on the same cases, seeded cotangents, fed B4's
-    # alpha_T and P_total; and the conservation check: the 8 trilinear
-    # weights sum to 1, so sum(g_vol) = sum of every alive step's g_s
-    for i, (name, pname, params, plan, vol_u8, plain_vol, k) in enumerate(vg_inputs):
+    # alpha_T and P_total, on both of its routes: the float32 volume (the
+    # main path's, each tap quantized as read) and quantize_u8 of it; and
+    # the conservation check: the 8 trilinear weights sum to 1, so
+    # sum(g_vol) = sum of every alive step's g_s.  The routes' taps are
+    # bit-equal, so their blocks' counters are too
+    for i, (name, pname, params, plan, v, vol_u8, plain_vol, k) in enumerate(vg_inputs):
         gen = torch.Generator(device=dev)
         gen.manual_seed(i)
         g_rgb = torch.randn((H, W, 3), generator=gen, device=dev)
@@ -1056,7 +1061,15 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
         tf = CF.tf_scalars(params)
         gc, gaT_term = CF.cotangent_images(params, g_rgb, g_alpha, k[1])
         args = (plan.entry_uv, plan.dir_step)
-        g_k = VK.voxel_grad_cuda(vol_u8, *args, plan.hit, tf, gc, gaT_term, k[3])
+        g_k = {"f32": VK.voxel_grad_cuda(v, *args, plan.hit, tf, gc, gaT_term, k[3]),
+               "byte": VK.voxel_grad_cuda(vol_u8, *args, plan.hit, tf, gc, gaT_term, k[3])}
+        blocks = {route: VK.voxel_grad_block_stats(vol, *args, plan.hit, tf, gc, gaT_term,
+                                                   k[3])[1]
+                  for route, vol in (("f32", v), ("byte", vol_u8))}
+        if blocks["f32"] != blocks["byte"]:
+            raise AssertionError(f"voxel_grad {name} {pname}: the float32 route's blocks "
+                                 f"{blocks['f32']} differ from the byte route's "
+                                 f"{blocks['byte']}")
         g_p = CF.voxel_grad_steps(plain_vol, *args, plan.hit.bool(), tf, gc, gaT_term, k[3])
         gs_sum = gs_abs = 0.0
         for _, g_s in CF.step_cotangents(plain_vol, *args, plan.hit.bool(), tf, gc, gaT_term,
@@ -1065,18 +1078,23 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
             gs_abs += float(g_s.double().abs().sum())
         torch.cuda.synchronize()
         scale = float(g_p.abs().max())
-        max_abs = float((g_k - g_p).abs().max())
-        rel = max_abs / scale
-        conservation = abs(float(g_k.double().sum()) - gs_sum) / gs_abs
-        if not rel <= VG_REL or not conservation <= VG_CONSERVATION:
-            raise AssertionError(f"voxel_grad {name} {pname}: max |d| / max |g| {rel} (bar "
-                                 f"{VG_REL}), conservation {conservation} (bar "
-                                 f"{VG_CONSERVATION})")
-        err["voxel_grad"] = max(err["voxel_grad"], max_abs)
-        emit({"phase": "vg_parity", "case": name, "params": pname, "max_abs_err": max_abs,
-              "max_abs_g_plain": scale, "rel_err": rel, "bar": VG_REL,
-              "sum_g_vol_kernel": float(g_k.double().sum()), "sum_alive_g_s": gs_sum,
-              "sum_abs_alive_g_s": gs_abs, "conservation_rel": conservation})
+        max_abs = {r: float((g - g_p).abs().max()) for r, g in g_k.items()}
+        rel = {r: m / scale for r, m in max_abs.items()}
+        conservation = {r: abs(float(g.double().sum()) - gs_sum) / gs_abs
+                        for r, g in g_k.items()}
+        for r in g_k:
+            if not rel[r] <= VG_REL or not conservation[r] <= VG_CONSERVATION:
+                raise AssertionError(f"voxel_grad {name} {pname} ({r} route): max |d| / "
+                                     f"max |g| {rel[r]} (bar {VG_REL}), conservation "
+                                     f"{conservation[r]} (bar {VG_CONSERVATION})")
+        err["voxel_grad"] = max(err["voxel_grad"], max_abs["f32"])
+        emit({"phase": "vg_parity", "case": name, "params": pname, "max_abs_err": max_abs["f32"],
+              "max_abs_g_plain": scale, "rel_err": rel["f32"], "bar": VG_REL,
+              "sum_g_vol_kernel": float(g_k["f32"].double().sum()), "sum_alive_g_s": gs_sum,
+              "sum_abs_alive_g_s": gs_abs, "conservation_rel": conservation["f32"],
+              "byte_route": {"max_abs_err": max_abs["byte"], "rel_err": rel["byte"],
+                             "conservation_rel": conservation["byte"]},
+              "blocks_equal_byte_route": True, "blocks": blocks["f32"]})
     del vg_inputs
 
     # the whole kernel path on a small input vs the plain O(1) reverse march,
@@ -1120,6 +1138,7 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
     TK.tf_march_f32_cuda.launches = 0
     TK.tf_march_cuda.launches = 0
     VK.voxel_grad_cuda.launches = 0
+    VK.voxel_grad_cuda.f32_launches = 0
     forwards = backwards = 0
     rays0 = bundles[0]
     plan0 = plan_compositing(rays0.entry_uv, rays0.direction, rays0.hit, VOLUME[::-1])
@@ -1162,6 +1181,7 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
     launches = {"tf_march": TK.tf_march_f32_cuda.launches,
                 "voxel_grad": VK.voxel_grad_cuda.launches}
     tf_byte_launches = TK.tf_march_cuda.launches
+    vg_f32_launches = VK.voxel_grad_cuda.f32_launches
     runs = {"forwards": forwards, "backwards": backwards}
     gp, gv = last["gp"], last["gv"]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -1215,9 +1235,12 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
         "tf_march_byte_route": time_ms(lambda: [
             TK.tf_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, tf)
             for p in plans]) / N_FRAMES,
-        "voxel_grad": time_ms(lambda: [VK.voxel_grad_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit,
+        "voxel_grad": time_ms(lambda: [VK.voxel_grad_cuda(turb, p.entry_uv, p.dir_step, p.hit,
                                                           tf, *c)
-                                       for p, c in zip(plans, cots)]) / N_FRAMES}
+                                       for p, c in zip(plans, cots)]) / N_FRAMES,
+        "voxel_grad_byte_route": time_ms(lambda: [
+            VK.voxel_grad_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, tf, *c)
+            for p, c in zip(plans, cots)]) / N_FRAMES}
     plain_ms = {
         "tf_march": time_ms(lambda: [CF.tf_march_steps(turb_plain, p.entry_uv, p.dir_step,
                                                        p.hit.bool(), tf)
@@ -1230,7 +1253,9 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
           "voxel_grad_includes_zero_fill": True, "gpu": smi})
 
     # one voxel-grad step of orbit frame 0 split into its layers; the B5
-    # kernel alone runs into a buffer filled once, outside the timing
+    # kernel alone runs into a buffer filled once, outside the timing, on the
+    # float32 volume as the step runs it (its byte route and the quantize
+    # pass that route would need beside, outside the sum)
     k0 = TK.tf_march_cuda(turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit, tf)
     rgb0 = (reference.flip_sign * k0[0][..., None] + reference.flip_bias).requires_grad_(True)
     (g_rgb0,) = torch.autograd.grad(torch.mean((rgb0 - target) ** 2), [rgb0])
@@ -1238,11 +1263,12 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
     g_buf = torch.zeros(turb.shape, dtype=torch.float32, device=dev)
     Z, Y, X = turb.shape
 
-    def b5_alone():
-        _launch.launch(VK._launcher, "voxel_grad", dev, plan0.entry_uv.data_ptr(),
-                       plan0.dir_step.data_ptr(), plan0.hit.data_ptr(), turb_u8.data_ptr(),
-                       tf.data_ptr(), gc0.data_ptr(), gaT0.data_ptr(), k0[3].data_ptr(),
-                       H, W, X, Y, Z, plan0.max_samples, g_buf.data_ptr(), None)
+    def b5_alone(volume):
+        _launch.launch(lambda: VK._launcher(VK._ENTRIES[volume.dtype]), "voxel_grad", dev,
+                       plan0.entry_uv.data_ptr(), plan0.dir_step.data_ptr(),
+                       plan0.hit.data_ptr(), volume.data_ptr(), tf.data_ptr(), gc0.data_ptr(),
+                       gaT0.data_ptr(), k0[3].data_ptr(), H, W, X, Y, Z, plan0.max_samples,
+                       g_buf.data_ptr(), None)
 
     def loss_and_cotangent():
         rgb = (reference.flip_sign * k0[0][..., None] + reference.flip_bias).requires_grad_(True)
@@ -1262,14 +1288,16 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
         "param_grad_reductions": time_ms(lambda: CF.tf_param_grads(reference, k0, g_rgb0, gc0,
                                                                    gaT0)),
         "zero_fill": time_ms(lambda: torch.zeros(turb.shape, dtype=torch.float32, device=dev)),
-        "voxel_grad_kernel": time_ms(b5_alone),
+        "voxel_grad_kernel": time_ms(lambda: b5_alone(turb)),
+        "voxel_grad_kernel_byte_route": time_ms(lambda: b5_alone(turb_u8)),
         "sgd_update": time_ms(sgd_update),
         "whole_step_events": time_ms(grad_step)}
     tf_fit_step_ms = time_ms(lambda: TK.tf_fit_step_fast(f_tf, reference, turb, target,
                                                          lr=FIT_LR))
     emit({"phase": "grad_layers", "ms": layers,
           "sum_of_layers": sum(v for n, v in layers.items()
-                               if n not in ("whole_step_events", "tf_march_kernel_byte_route")),
+                               if n not in ("whole_step_events", "tf_march_kernel_byte_route",
+                                            "voxel_grad_kernel_byte_route", "quantize_u8")),
           "tf_fit_step_events_ms": tf_fit_step_ms, "gpu": smi})
 
     # B5's blocks: how many accumulated in their shared tile and how many
@@ -1277,22 +1305,32 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
     # alive step a launch without the tile would make) and the blocks'
     # boxes, on orbit frames 0 and 15 (the main path's cotangents), and on
     # frame 0 of a volume dimmed to 25 % and to 2 %, whose deeper rays
-    # overflow the tile
-    for name, vol_u8, plan, c in (("orbit_frame0", turb_u8, plans[0], cots[0]),
-                                  ("orbit_frame15", turb_u8, plans[-1], cots[-1]),
-                                  ("dim25_frame0", RK.quantize_u8(turb * 0.25), plans[0], None),
-                                  ("dim2_frame0", RK.quantize_u8(turb * 0.02), plans[0], None)):
+    # overflow the tile; on the float32 volume as the main path runs it,
+    # its counters held equal to the byte route's on quantize_u8 of it
+    for name, vol, vol_u8, plan, c in (
+            ("orbit_frame0", turb, turb_u8, plans[0], cots[0]),
+            ("orbit_frame15", turb, turb_u8, plans[-1], cots[-1]),
+            ("dim25_frame0", turb * 0.25, None, plans[0], None),
+            ("dim2_frame0", turb * 0.02, None, plans[0], None)):
+        if vol_u8 is None:
+            vol_u8 = RK.quantize_u8(vol)
         if c is None:  # the dimmed volume's own forward and cotangents
             kd = TK.tf_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf)
             rgb_d = reference.flip_sign * kd[0][..., None] + reference.flip_bias
             c = (*CF.cotangent_images(reference, (rgb_d - target) * (2.0 / rgb_d.numel()), None,
                                       kd[1]), kd[3])
-        args = (vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf, *c)
-        g_k, stats = VK.voxel_grad_block_stats(*args)
-        # the kernel alone (no zero fill)
-        tensors = dict(zip(("vol_u8", "entry_uv", "dir_step", "hit", "tf_scalars", "gc",
-                            "gaT_term", "P_tot"), args))
+        rest = (plan.entry_uv, plan.dir_step, plan.hit, tf, *c)
+        g_k, stats = VK.voxel_grad_block_stats(vol, *rest)
+        byte_stats = VK.voxel_grad_block_stats(vol_u8, *rest)[1]
+        if stats != byte_stats:
+            raise AssertionError(f"voxel_grad {name}: the float32 route's blocks {stats} differ "
+                                 f"from the byte route's {byte_stats}")
+        # the kernel alone (no zero fill), on each route
+        names = ("entry_uv", "dir_step", "hit", "tf_scalars", "gc", "gaT_term", "P_tot")
+        tensors = {"volume": vol, **dict(zip(names, rest))}
         ms_case = time_ms(lambda: VK._launch_vg(tensors, plan.max_samples, g_buf, None))
+        byte_tensors = {**tensors, "volume": vol_u8}
+        ms_byte = time_ms(lambda: VK._launch_vg(byte_tensors, plan.max_samples, g_buf, None))
         g_p = CF.voxel_grad_steps(as_normalized_volume(vol_u8), plan.entry_uv, plan.dir_step,
                                   plan.hit.bool(), tf, *c)
         torch.cuda.synchronize()
@@ -1300,22 +1338,29 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
         if not rel <= VG_REL:
             raise AssertionError(f"voxel_grad {name} with its block counters: max |d| / max |g| "
                                  f"{rel} (bar {VG_REL})")
-        emit({"phase": "vg_tile", "case": name, **stats, "kernel_ms": ms_case, "rel_err": rel,
+        emit({"phase": "vg_tile", "case": name, **stats, "kernel_ms": ms_case,
+              "byte_route_kernel_ms": ms_byte, "blocks_equal_byte_route": True, "rel_err": rel,
               "gpu": smi})
 
     # the main path went through both kernels: B4 once per forward, B5 once
-    # per backward
+    # per backward, both on the float32 volume
     if launches["tf_march"] != runs["forwards"] or launches["voxel_grad"] != runs["backwards"] \
-            or not runs["forwards"] or not runs["backwards"] or tf_byte_launches:
+            or not runs["forwards"] or not runs["backwards"] or tf_byte_launches \
+            or vg_f32_launches != runs["backwards"]:
         raise AssertionError(f"gradient kernels launched {launches} times for {runs}, B4's "
-                             f"byte route {tf_byte_launches} times")
+                             f"byte route {tf_byte_launches} times, B5's float32 route "
+                             f"{vg_f32_launches} times")
     emit({"phase": "grad_launch_count", **launches, **runs,
-          "tf_march_byte_route": tf_byte_launches})
+          "tf_march_byte_route": tf_byte_launches, "voxel_grad_f32_route": vg_f32_launches})
     # B4's bound as B1's: the float32 voxels its taps read (B1's at
     # reference params), the rays, the TF scalars and the seven planes
     rays_io = sum(nbytes(p.entry_uv, p.dir_step, p.hit) for p in plans) / N_FRAMES
     tf_io = nbytes(tf) + rays_io + 7 * 4 * W * H
     tf_ops = OPS_PER_STEP["tf_f32"] * samples
+    # B5's the same way, with the cotangent planes read and the gradient
+    # written whole (its zero fill, in the wrapper's time)
+    vg_io = nbytes(tf, *cots[0]) + rays_io + 4 * turb.numel()
+    vg_ops = OPS_PER_STEP["voxel_grad_f32"] * samples
     bounds = {"tf_march": {**bound(4 * touched + tf_io, tf_ops, samples, W * H),
                            "volume_route": "float32, each tap quantized as read",
                            "bound_ms_whole_volume": bound(nbytes(turb) + tf_io, tf_ops, samples,
@@ -1324,8 +1369,14 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
                            "byte_route_bound_ms": bound(touched + tf_io,
                                                         OPS_PER_STEP["tf"] * samples, samples,
                                                         W * H)["bound_ms"]},
-              "voxel_grad": bound(nbytes(turb_u8, tf, *cots[0]) + rays_io + 4 * turb.numel(),
-                                  OPS_PER_STEP["voxel_grad"] * samples, samples, W * H)}
+              "voxel_grad": {**bound(4 * touched + vg_io, vg_ops, samples, W * H),
+                             "volume_route": "float32, each tap quantized as read",
+                             "bound_ms_whole_volume": bound(nbytes(turb) + vg_io, vg_ops,
+                                                            samples, W * H)["bound_ms"],
+                             "byte_route_ms": ms["voxel_grad_byte_route"],
+                             "byte_route_bound_ms": bound(touched + vg_io,
+                                                          OPS_PER_STEP["voxel_grad"] * samples,
+                                                          samples, W * H)["bound_ms"]}}
     return [{"name": name, "route": "cuda", "source": GRAD_SOURCES[name],
              "replaces": GRAD_REPLACES[name], "launches": launches[name],
              "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],

@@ -33,11 +33,16 @@ turbulence, made once).  Where the package has the float32 route,
 ``B1_fused`` is B1 as the main path launches it (the float32 volume, each
 tap quantized as read, the transfer in the epilogue), ``B4_fused`` B4 on the
 float32 volume and ``B6_rgb`` / ``B7_rgb`` the pooled marches with the
-transfer in their epilogue.  ``frame`` is ``CompositingPlan.render`` of the
-float32 volume, per frame (whatever the package runs for it: a quantize
-pass, B1 and the transfer, or one launch); ``pooled_frame_*``
-``render_pooled`` per frame; ``tf_fit_step`` one ``tf_fit_step_fast`` of the
-config-4 fit at orbit frame 0.
+transfer in their epilogue.  ``B5`` is the voxel-gradient march on the byte
+volume (its zero fill included); ``B5_quantize_u8`` the same after a
+``quantize_u8`` of the float32 volume on every launch (the fit's backward
+where B5 reads bytes) and, where the package has B5's float32 route,
+``B5f32`` B5 on the float32 volume itself, each tap quantized as read.
+``frame`` is ``CompositingPlan.render`` of the float32 volume, per frame
+(whatever the package runs for it: a quantize pass, B1 and the transfer, or
+one launch); ``pooled_frame_*`` ``render_pooled`` per frame;
+``tf_fit_step`` one ``tf_fit_step_fast`` of the config-4 fit at orbit frame
+0.
 
 B10 and B11 are timed three ways: one launch per shard (``*_launch``, ms per
 launch, from each shard's cached entry table where the package has one),
@@ -193,6 +198,12 @@ digests = {"B3": digest(*(b3(p, h) for p, h in zip(iplans, hits))),
 if near:
     ms["B3_chain"] = time_ms(lambda: [b3(p, h, chain=True) for p, h in zip(iplans, hits)]) / 16
     digests["B3_chain"] = digest(*(b3(p, h, chain=True) for p, h in zip(iplans, hits)))
+ms["B5_quantize_u8"] = time_ms(lambda: [VK.voxel_grad_cuda(RK.quantize_u8(turb), p.entry_uv,
+                                                          p.dir_step, p.hit, tf, *c)
+                                       for p, c in zip(plans, cots)]) / 16
+if hasattr(VK.voxel_grad_cuda, "f32_launches"):
+    ms["B5f32"] = time_ms(lambda: [VK.voxel_grad_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf, *c)
+                                   for p, c in zip(plans, cots)]) / 16
 if fused:
     ms["B1_fused"] = time_ms(lambda: [RK.composite_march_f32_cuda(
         turb, p.entry_uv, p.dir_step, p.hit, transfer=True) for p in plans]) / 16

@@ -28,7 +28,7 @@ from volumerenderer_tpu_torch.interop import rays_from_numpy, tf_params_from_num
 from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
 from volumerenderer_tpu_torch.ops.cuda import voxel_grad_kernel as VK
-from volumerenderer_tpu_torch.ops.raycast import step_sizes
+from volumerenderer_tpu_torch.ops.raycast import MAX_SAMPLES, step_sizes
 
 VOL_SHAPE = (8, 16, 128)  # (Z, Y, X), the interpret-mode tests' volume
 NON_REFERENCE = dict(alpha_scale=0.45, color_gain=0.9, color_bias=0.05,
@@ -158,7 +158,7 @@ def _wrapper_inputs():
                               rays.hit, tf, 32)
     g_rgb, g_a = (torch.tensor(x) for x in _cotangents(9, (8, 16)))
     gc, gaT_term = cotangent_images(_params(), g_rgb, g_a, partials[1])
-    return dict(vol_u8=vol_u8, entry_uv=rays.entry_uv, dir_step=dir_step, hit=hit,
+    return dict(volume=vol_u8, entry_uv=rays.entry_uv, dir_step=dir_step, hit=hit,
                 tf_scalars=tf, gc=gc, gaT_term=gaT_term, P_tot=partials[3])
 
 
@@ -169,7 +169,7 @@ def test_wrapper_cpu_runs_plain_version_and_conserves_cotangent():
     before = VK.voxel_grad_cuda.launches
     kw = _wrapper_inputs()
     got = VK.voxel_grad_cuda(**kw, max_samples=32)
-    args = (as_normalized_volume(kw["vol_u8"]), kw["entry_uv"], kw["dir_step"],
+    args = (as_normalized_volume(kw["volume"]), kw["entry_uv"], kw["dir_step"],
             kw["hit"].bool(), kw["tf_scalars"], kw["gc"], kw["gaT_term"], kw["P_tot"], 32)
     assert torch.equal(got, voxel_grad_steps(*args))
     assert VK.voxel_grad_cuda.launches == before  # no kernel launched on CPU
@@ -201,7 +201,7 @@ def test_voxel_grad_kernel_counts_none_cotangents_as_zero():
     ("P_tot", lambda kw: kw["P_tot"].t(), "contiguous"),
     ("tf_scalars", lambda kw: kw["tf_scalars"][:2], "float32"),
     ("hit", lambda kw: kw["hit"].bool(), "uint8"),
-    ("vol_u8", lambda kw: kw["vol_u8"][0], "uint8"),
+    pytest.param("volume", lambda kw: kw["volume"][0], "uint8", id="vol_u8-<lambda>-uint8"),
 ])
 def test_wrapper_rejects_bad_inputs(field, value, match):
     kw = _wrapper_inputs()
@@ -296,6 +296,99 @@ def test_block_stats_need_the_card():
         VK.voxel_grad_block_stats(**_wrapper_inputs())
 
 
+def _port_plan(width, height, device="cpu"):
+    """The port's own rays (no JAX) over VOL_SHAPE, 24 steps."""
+    rays = generate_rays(Camera(width=width, height=height), device=device)
+    Z, Y, X = VOL_SHAPE
+    return RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z),
+                              max_samples=24)
+
+
+def _leaving_volume(vol_u8: torch.Tensor, dim: float = 1.0) -> torch.Tensor:
+    """A float32 volume that leaves [0, 1] on both sides, built from a byte
+    volume: (v * 1.25 - 0.1) * dim, with exact halves (k + 0.5) / 255, -0.0,
+    +inf and -inf planted at fixed voxels."""
+    v = (as_normalized_volume(vol_u8) * 1.25 - 0.1) * dim
+    flat = v.view(-1)
+    n = flat.numel()
+    k = torch.arange(0, 255, 7, device=v.device, dtype=torch.float32)
+    flat[(torch.arange(k.numel(), device=v.device) * 37) % n] = (k + 0.5) / 255.0
+    flat[[n // 3, n // 3 + 1, n // 2, 2 * n // 3]] = torch.tensor(
+        [-0.0, float("inf"), float("-inf"), 1.5], device=v.device)
+    return v
+
+
+def test_float32_volume_on_cpu_equals_the_byte_route_on_its_quantize():
+    """``voxel_grad_cuda`` and ``voxel_grad_kernel`` given a CPU float32
+    volume that leaves [0, 1] (halves, -0.0, +-inf) give, bit for bit, the
+    byte route on ``quantize_u8`` of it; no kernel is launched."""
+    kw = _wrapper_inputs()
+    vol_f = _leaving_volume(kw["volume"])
+    vol_u8 = RK.quantize_u8(vol_f)
+    assert vol_u8.min() == 0 and vol_u8.max() == 255
+    before = (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches)
+    got = VK.voxel_grad_cuda(**{**kw, "volume": vol_f}, max_samples=32)
+    want = VK.voxel_grad_cuda(**{**kw, "volume": vol_u8}, max_samples=32)
+    assert float(want.abs().max()) > 0 and torch.equal(got, want)
+
+    plan = _port_plan(32, 16)
+    params = _params()
+    from volumerenderer_tpu_torch.ops.cuda.tf_kernel import render_tf_grads_kernel
+
+    vol_f = _leaving_volume(torch.from_numpy(_volume_u8()))
+    vol_u8 = RK.quantize_u8(vol_f)
+    _, alpha, partials = render_tf_grads_kernel(params, vol_u8, plan)
+    g_rgb = torch.tensor(_cotangents(4, (16, 32))[0])
+    got = VK.voxel_grad_kernel(params, vol_f, plan, g_rgb, None, alpha, partials[3])
+    want = VK.voxel_grad_kernel(params, vol_u8, plan, g_rgb, None, alpha, partials[3])
+    assert float(want.abs().max()) > 0 and torch.equal(got, want)
+    assert (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int16])
+@pytest.mark.parametrize("entry", ["voxel_grad_cuda", "voxel_grad_block_stats",
+                                   "voxel_grad_kernel"])
+def test_other_volume_dtypes_raise(entry, dtype):
+    kw = _wrapper_inputs()
+    kw["volume"] = kw["volume"].to(dtype)
+    with pytest.raises(ValueError, match="float32"):
+        if entry == "voxel_grad_kernel":
+            plan = _port_plan(16, 8)
+            g_rgb = torch.zeros((8, 16, 3))
+            alpha = torch.zeros((8, 16))
+            VK.voxel_grad_kernel(_params(), kw["volume"], plan, g_rgb, None, alpha, alpha)
+        else:
+            getattr(VK, entry)(**kw)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.uint8, "voxel_grad"),
+                                         (torch.float32, "voxel_grad_f32")])
+def test_launch_takes_the_entry_of_the_volume_dtype(monkeypatch, dtype, entry):
+    """``_launch_vg`` launches the C entry point of the volume's dtype, with
+    the volume's own pointer, and counts the launch in the total and, for a
+    float32 volume, in ``f32_launches`` (the launch itself stubbed: no card
+    here)."""
+    calls = []
+
+    def fake_launcher(name="voxel_grad"):
+        return (lambda *args: calls.append((name, args)) or 0), None
+
+    def fake_launch(launcher, name, device, *args):
+        fn, _ = launcher()
+        assert fn(*args, None) == 0
+
+    monkeypatch.setattr(VK, "_launcher", fake_launcher)
+    monkeypatch.setattr(VK, "launch", fake_launch)
+    kw = _wrapper_inputs()
+    kw["volume"] = kw["volume"].to(dtype)
+    before = (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches)
+    VK._launch_vg(kw, 32, torch.zeros(kw["volume"].shape), None)
+    assert [c[0] for c in calls] == [entry]
+    assert calls[0][1][3] == kw["volume"].data_ptr()
+    assert (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float32))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -378,7 +471,7 @@ def _deep_scene(device, dim):
     partials = tf_march_steps(vol, rays.entry_uv, dir_step, rays.hit, tf)
     rgb = params.flip_sign * partials[0][..., None] + params.flip_bias
     gc, gaT_term = cotangent_images(params, (rgb - 0.5) * (2.0 / rgb.numel()), None, partials[1])
-    kw = dict(vol_u8=vol_u8, entry_uv=rays.entry_uv, dir_step=dir_step,
+    kw = dict(volume=vol_u8, entry_uv=rays.entry_uv, dir_step=dir_step,
               hit=rays.hit.to(torch.uint8), tf_scalars=tf, gc=gc, gaT_term=gaT_term,
               P_tot=partials[3])
     ref = voxel_grad_steps(vol, rays.entry_uv, dir_step, rays.hit, tf, gc, gaT_term, partials[3])
@@ -401,3 +494,100 @@ def test_kernel_paths_match_plain_on_cuda(cuda_device, dim, path):
     assert scale > 0
     for out in (g, got):
         assert float((out - ref).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,path", [(1.0, "tiled"), (0.02, "global")])
+def test_f32_route_matches_byte_route_on_cuda(cuda_device, dim, path):
+    """B5 on a float32 volume that leaves [0, 1] against B5 on
+    ``quantize_u8`` of it, on both of the kernel's paths: the taps are
+    bit-equal, so every block's box voxels, global adds and alive steps are
+    the same, and both gradients lie within 2e-5 of max |g| of the plain
+    version (the atomics add in no fixed order)."""
+    kw, _ = _deep_scene(cuda_device, 1.0)
+    vol_f = _leaving_volume(kw["volume"], dim)
+    vol_u8 = RK.quantize_u8(vol_f)
+    assert vol_u8.min() == 0 and (dim < 1 or vol_u8.max() == 255)
+    plain = as_normalized_volume(vol_u8)
+    partials = tf_march_steps(plain, kw["entry_uv"], kw["dir_step"], kw["hit"].bool(),
+                              kw["tf_scalars"])
+    params = TFParams.reference(cuda_device)
+    rgb = params.flip_sign * partials[0][..., None] + params.flip_bias
+    gc, gaT_term = cotangent_images(params, (rgb - 0.5) * (2.0 / rgb.numel()), None, partials[1])
+    kw.update(gc=gc, gaT_term=gaT_term, P_tot=partials[3])
+    ref = voxel_grad_steps(plain, kw["entry_uv"], kw["dir_step"], kw["hit"].bool(),
+                           kw["tf_scalars"], gc, gaT_term, partials[3])
+    lib = VK.load_kernel().lib
+    H, W = kw["hit"].shape
+    n_blocks = -(-H // lib.voxel_grad_block_y()) * -(-W // lib.voxel_grad_block_x())
+    out = {}
+    for name, vol in (("u8", vol_u8), ("f32", vol_f)):
+        before = (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches)
+        tensors = VK._checked_inputs(**{**kw, "volume": vol}, max_samples=MAX_SAMPLES,
+                                     wrap="clamp")
+        stats = torch.zeros((n_blocks, 3), dtype=torch.int32, device=cuda_device)
+        g = torch.zeros(vol.shape, dtype=torch.float32, device=cuda_device)
+        VK._launch_vg(tensors, MAX_SAMPLES, g, stats)
+        g_summary, summary = VK.voxel_grad_block_stats(**{**kw, "volume": vol})
+        g_wrapper = VK.voxel_grad_cuda(**{**kw, "volume": vol})
+        torch.cuda.synchronize()
+        assert (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches) == (
+            before[0] + 3, before[1] + 3 * (name == "f32"))
+        out[name] = (stats, summary, (g, g_summary, g_wrapper))
+    assert torch.equal(out["f32"][0], out["u8"][0])
+    assert out["f32"][1] == out["u8"][1]
+    summary = out["f32"][1]
+    assert summary[path] >= 0.9 * (summary["blocks"] - summary["empty"]) > 0, summary
+    scale = float(ref.abs().max())
+    assert scale > 0
+    for g in (*out["u8"][2], *out["f32"][2]):
+        assert float((g - ref).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+def test_card_fit_step_on_float32_makes_no_byte_copy(cuda_device, monkeypatch):
+    """A fit step through ``make_render_tf_voxel`` on a float32 volume that
+    leaves [0, 1], on the card: one launch of B5's float32 route and none of
+    its byte route, no ``quantize_u8`` called, no ``vr.voxel_grad.quantize``
+    span inside ``vr.voxel_grad``; its voxel gradient within 2e-5 of max |g|
+    of the byte route's (``voxel_grad_kernel`` on ``quantize_u8`` of the
+    volume, fed the same step's cotangents)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vol_u8 = torch.from_numpy(turbulence_volume((64, 48, 96), seed=1)).to(cuda_device)
+    vol_f = _leaving_volume(vol_u8)
+    rays = generate_rays(Camera(width=96, height=64, position=(0.3, 0.1, -0.7),
+                                front=(-0.3, -0.1, 0.7)), device=cuda_device)
+    Z, Y, X = vol_f.shape
+    plan = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z))
+    f = VK.make_render_tf_voxel(plan)
+    target = torch.full((64, 96, 3), 0.5, device=cuda_device)
+
+    def step(vol):
+        leaves = [t.clone().requires_grad_(True) for t in _params(cuda_device)]
+        v = vol.clone().requires_grad_(True)
+        rgb, _ = f(TFParams(*leaves), v)
+        return torch.autograd.grad(torch.mean((rgb - target) ** 2), [*leaves, v])[-1]
+
+    # the byte route on the same step's cotangents, made before the count
+    from volumerenderer_tpu_torch.ops.cuda.tf_kernel import render_tf_grads_kernel
+
+    params, vol_u8 = _params(cuda_device), RK.quantize_u8(vol_f)
+    rgb, _, partials = render_tf_grads_kernel(params, vol_u8, plan)
+    g_rgb = (rgb - target) * (2.0 / rgb.numel())
+    want = VK.voxel_grad_kernel(params, vol_u8, plan, g_rgb, None, partials[1], partials[3])
+    quantized = []
+    for mod in (RK, VK):
+        monkeypatch.setattr(mod, "quantize_u8", lambda v: quantized.append(v) or v)
+    before = (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = step(vol_f)
+        torch.cuda.synchronize()
+    spans = {e.name for e in prof.events() if e.name.startswith("vr.")}
+    assert "vr.voxel_grad" in spans and "vr.voxel_grad.quantize" not in spans, spans
+    assert quantized == []
+    assert (VK.voxel_grad_cuda.launches, VK.voxel_grad_cuda.f32_launches) == (
+        before[0] + 1, before[1] + 1)
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 2e-5 * scale

@@ -16,6 +16,14 @@
 // must be zero on entry.  The gradient is the float volume's, straight
 // through the 8-bit quantization.
 //
+// What it reads: the kernel body is a template on its sampler, as
+// tf_march.cu's.  voxel_grad_launch reads the 8-bit volume;
+// voxel_grad_f32_launch reads the float32 volume the fit updates and
+// quantizes each tap as it reads it (trilinear.cuh, VolumeSampler<float>),
+// so a fit step's backward makes no byte copy of the volume.  Those taps are
+// bit for bit the byte taps of quantize_u8(volume), so every step's s, g_s
+// and tap weights, and every block's box, are the byte route's on that copy.
+//
 // What bounds it on this card: the adds.  A ray makes 8 per alive step, and
 // the rays of a block cross the same few voxels (at 1024^2 rays over 256^3,
 // about 4 rays per voxel side).  Float atomicAdds into the 67 MB gradient
@@ -64,8 +72,10 @@ namespace {
 constexpr int kBlockX = 8;
 constexpr int kBlockY = 8;
 constexpr int kThreads = kBlockX * kBlockY;
-// blocks per SM the registers must allow (42 registers a thread); a tile of
-// 2048 floats (8 KB) lets shared memory hold as many
+// blocks per SM the registers must allow (40 registers a thread; ptxas
+// spills 52-92 bytes a thread at this bound, on both routes, as it did
+// before the sampler template); a tile of 2048 floats (8 KB) lets shared
+// memory hold as many
 constexpr int kMinBlocks = 24;
 constexpr int kTileBudget = 2048;
 
@@ -84,13 +94,13 @@ __device__ __forceinline__ float pick8(const float v[8], int k) {
   return (k & 4) ? cd : ab;
 }
 
+template <class Sampler>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 voxel_grad_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
-                  const uint8_t* __restrict__ hit, const uint8_t* __restrict__ vol,
-                  const float* __restrict__ tf, const float* __restrict__ gc_img,
-                  const float* __restrict__ gaT_img, const float* __restrict__ P_tot_img,
-                  int H, int W, int X, int Y, int Z, int max_samples,
-                  float* __restrict__ g_vol, int* __restrict__ stats) {
+                  const uint8_t* __restrict__ hit, Sampler sample, const float* __restrict__ tf,
+                  const float* __restrict__ gc_img, const float* __restrict__ gaT_img,
+                  const float* __restrict__ P_tot_img, int H, int W, int X, int Y, int Z,
+                  int max_samples, float* __restrict__ g_vol, int* __restrict__ stats) {
   __shared__ float tile[kTileBudget];
   __shared__ int box[6];  // the block's lowest x, y, z tap index, then its highest
   __shared__ int n_global, n_steps;
@@ -134,7 +144,7 @@ voxel_grad_kernel(const float* __restrict__ entry_uv, const float* __restrict__ 
         q1 = r1;
         q2 = r2;
         ++steps;
-        const float s = vrt::sample_trilinear(vol, q0, q1, q2, X, Y, Z, false);
+        const float s = sample(q0, q1, q2);
         a = a + (s - s * a) * K;
         if (!(a <= 0.99f)) break;
       }
@@ -197,7 +207,7 @@ voxel_grad_kernel(const float* __restrict__ entry_uv, const float* __restrict__ 
       if (!inside(p0, p1, p2)) break;
       ++steps;
 
-      const float s = vrt::sample_trilinear(vol, p0, p1, p2, X, Y, Z, false);
+      const float s = sample(p0, p1, p2);
       const float sc = s * G + B;
       const float pa = s - s * a;
       P = P + s * sc * (1.0f - a);
@@ -256,30 +266,65 @@ voxel_grad_kernel(const float* __restrict__ entry_uv, const float* __restrict__ 
   }
 }
 
+template <class Sampler>
+int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
+           const void* tf, const void* gc, const void* gaT_term, const void* P_tot, int H, int W,
+           int X, int Y, int Z, int max_samples, void* g_vol, void* stats, void* stream) {
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+  voxel_grad_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
+      static_cast<const uint8_t*>(hit), sample, static_cast<const float*>(tf),
+      static_cast<const float*>(gc), static_cast<const float*>(gaT_term),
+      static_cast<const float*>(P_tot), H, W, X, Y, Z, max_samples, static_cast<float*>(g_vol),
+      static_cast<int*>(stats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B5 on a dense volume of T (uint8_t: bytes; float: taps quantized as read),
+// clamp-only, with B4's sampler.
+template <class T>
+int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, const void* vol,
+                 const void* tf, const void* gc, const void* gaT_term, const void* P_tot, int H,
+                 int W, int X, int Y, int Z, int max_samples, void* g_vol, void* stats,
+                 void* stream) {
+  return vrt::with_volume_sampler<T>(vol, X, Y, Z, false, [&](auto sample) {
+    return launch(entry_uv, dir_step, hit, sample, tf, gc, gaT_term, P_tot, H, W, X, Y, Z,
+                  max_samples, g_vol, stats, stream);
+  });
+}
+
 }  // namespace
 
-// Launches the gradient march on `stream` for an H x W ray image and returns
-// cudaGetLastError() (0 on success).  Pointers are device pointers:
-// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), vol (Z*Y*X u8, x fastest),
-// tf (3 f32: K, G, B), gc, gaT_term and P_tot (H*W f32), g_vol (Z*Y*X f32,
-// zero on entry; the gradient is added into it).  stats is null, or 3 i32
-// per block of the grid (blocks_x = ceil(W / block_x) fastest): the block's
-// box voxels (0 for a block without an alive step), the global atomicAdds it
-// made and its rays' alive steps.
+// Each launch runs the gradient march on `stream` for an H x W ray image and
+// returns cudaGetLastError() (0 on success).  Pointers are device pointers:
+// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), tf (3 f32: K, G, B), gc,
+// gaT_term and P_tot (H*W f32), g_vol (Z*Y*X f32, zero on entry; the
+// gradient is added into it).  stats is null, or 3 i32 per block of the grid
+// (blocks_x = ceil(W / block_x) fastest): the block's box voxels (0 for a
+// block without an alive step), the global atomicAdds it made and its rays'
+// alive steps.
+
+// vol: Z*Y*X u8, x fastest.
 extern "C" int voxel_grad_launch(const void* entry_uv, const void* dir_step, const void* hit,
                                  const void* vol, const void* tf, const void* gc,
                                  const void* gaT_term, const void* P_tot, int H, int W, int X,
                                  int Y, int Z, int max_samples, void* g_vol, void* stats,
                                  void* stream) {
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
-  voxel_grad_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
-      static_cast<const uint8_t*>(hit), static_cast<const uint8_t*>(vol),
-      static_cast<const float*>(tf), static_cast<const float*>(gc),
-      static_cast<const float*>(gaT_term), static_cast<const float*>(P_tot), H, W, X, Y, Z,
-      max_samples, static_cast<float*>(g_vol), static_cast<int*>(stats));
-  return static_cast<int>(cudaGetLastError());
+  return launch_dense<uint8_t>(entry_uv, dir_step, hit, vol, tf, gc, gaT_term, P_tot, H, W, X, Y,
+                               Z, max_samples, g_vol, stats, stream);
+}
+
+// vol: Z*Y*X f32, x fastest, each tap quantized to 8 bits as it is read: the
+// same gradient and block counters as voxel_grad_launch on quantize_u8 of the
+// volume, with no quantize pass before it.
+extern "C" int voxel_grad_f32_launch(const void* entry_uv, const void* dir_step, const void* hit,
+                                     const void* vol, const void* tf, const void* gc,
+                                     const void* gaT_term, const void* P_tot, int H, int W,
+                                     int X, int Y, int Z, int max_samples, void* g_vol,
+                                     void* stats, void* stream) {
+  return launch_dense<float>(entry_uv, dir_step, hit, vol, tf, gc, gaT_term, P_tot, H, W, X, Y, Z,
+                             max_samples, g_vol, stats, stream);
 }
 
 // The block shape, so that the caller can size `stats`, and the tile's size

@@ -125,7 +125,7 @@ def _on(params: TFParams, device) -> TFParams:
 
 def _row_sharded_step(mesh, plan, params, volume, target_rgb, axis, voxel: bool):
     # quantized once, here: the byte volume each device receives is a
-    # quarter of the float32 bytes, and B5 reads bytes anyway
+    # quarter of the float32 bytes; B4 and B5 read the bytes directly
     check_plan(plan)
     plan.check_volume(volume)
     vol_u8 = quantize_u8(volume)
