@@ -374,7 +374,7 @@ def composite_samples(plan, vol_plain, K: float = 0.6, touched: torch.Tensor | N
     a sample's taps read is set in it; for each (mask, pool, slab_map) of
     ``pools`` every pool word the pooled march (B6, B7) fetches for those
     samples is set in the mask, a flat bool tensor of the pool's words.
-    With a CompositeBound ``cbound`` the samples of empty blocks are not
+    With a compositing BlockBound ``cbound`` the samples of empty blocks are not
     gathered: they set nothing in the masks, and each is counted in
     ``skipped`` (H, W), if given."""
     from volumerenderer_tpu_torch.ops.raycast import empty_blocks
@@ -497,7 +497,7 @@ def march_steps(plan, boxes=None):
 def iso_samples(plan, found, t_hit, iso_bound=None) -> torch.Tensor:
     """Per-ray samples of the isosurface march: sample k (1-based) is taken
     at entry + k additions of dir_step, for k up to t_hit + 2 for a hit and
-    the steps inside the cube + 1 for a miss.  With an IsoBound, only those
+    the steps inside the cube + 1 for a miss.  With an iso BlockBound, only those
     whose block is mixed (the samples the bound march gathers)."""
     from volumerenderer_tpu_torch.ops.isosurface import classify_blocks
 
@@ -602,8 +602,7 @@ def run_routes(dev, smi: str, turb, plans) -> None:
         u8 = RK.quantize_u8(vol)
 
         def byte_frame(p):
-            c, a = RK.composite_march_cuda(RK.quantize_u8(vol), p.entry_uv, p.dir_step, p.hit)
-            return RK.apply_reference_transfer(c, a), a
+            return RK.composite_march_cuda(RK.quantize_u8(vol), p.entry_uv, p.dir_step, p.hit)
 
         ms = {"fused_frame": time_ms(lambda: [p.render(vol) for p in plans]) / N_FRAMES,
               "byte_route_frame": time_ms(lambda: [byte_frame(p) for p in plans]) / N_FRAMES,
@@ -1013,7 +1012,7 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
         plain_vol = as_normalized_volume(vol_u8)
         for pname, params in param_sets.items():
             tf = CF.tf_scalars(params)
-            k = TK.tf_march_f32_cuda(v, plan.entry_uv, plan.dir_step, plan.hit, tf)
+            k = TK.tf_march_cuda(v, plan.entry_uv, plan.dir_step, plan.hit, tf)
             kb = TK.tf_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, tf)
             p = CF.tf_march_steps(plain_vol, plan.entry_uv, plan.dir_step, plan.hit.bool(), tf)
             torch.cuda.synchronize()
@@ -1038,8 +1037,10 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
                     "bit_equal": bit_equal,
                     "px_differ_plain": int(sum((a != b) for a, b in zip(k, p)).gt(0).sum())}
             if pname == "reference":
-                c1, a1 = RK.composite_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit)
-                line["color_alpha_equal_b1"] = bool(torch.equal(c1, k[0]) and torch.equal(a1, k[1]))
+                rgb1, a1 = RK.composite_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit)
+                line["color_alpha_equal_b1"] = bool(
+                    torch.equal(rgb1, RK.apply_reference_transfer(k[0], k[1]))
+                    and torch.equal(a1, k[1]))
                 if not line["color_alpha_equal_b1"]:
                     raise AssertionError(f"tf {name}: at reference params B4's color/alpha "
                                          f"differ from B1's")
@@ -1135,10 +1136,8 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
     # grad step against one forward frame (bench.py's protocol).  The launch
     # counts cover exactly this run: every forward is one launch of the
     # fused B4 and none of its byte route.
-    TK.tf_march_f32_cuda.launches = 0
-    TK.tf_march_cuda.launches = 0
-    VK.voxel_grad_cuda.launches = 0
-    VK.voxel_grad_cuda.f32_launches = 0
+    TK.tf_march_cuda.launches = TK.tf_march_cuda.f32_launches = 0
+    VK.voxel_grad_cuda.launches = VK.voxel_grad_cuda.f32_launches = 0
     forwards = backwards = 0
     rays0 = bundles[0]
     plan0 = plan_compositing(rays0.entry_uv, rays0.direction, rays0.hit, VOLUME[::-1])
@@ -1178,9 +1177,9 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
 
     frame_s = sweep_seconds(fwd_frame)
     step_s = sweep_seconds(grad_step)
-    launches = {"tf_march": TK.tf_march_f32_cuda.launches,
+    launches = {"tf_march": TK.tf_march_cuda.f32_launches,
                 "voxel_grad": VK.voxel_grad_cuda.launches}
-    tf_byte_launches = TK.tf_march_cuda.launches
+    tf_byte_launches = TK.tf_march_cuda.launches - TK.tf_march_cuda.f32_launches
     vg_f32_launches = VK.voxel_grad_cuda.f32_launches
     runs = {"forwards": forwards, "backwards": backwards}
     gp, gv = last["gp"], last["gv"]
@@ -1230,7 +1229,7 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
         g_rgb = (rgb - target) * (2.0 / rgb.numel())
         cots.append((*CF.cotangent_images(reference, g_rgb, None, k[1]), k[3]))
     ms = {
-        "tf_march": time_ms(lambda: [TK.tf_march_f32_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf)
+        "tf_march": time_ms(lambda: [TK.tf_march_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf)
                                      for p in plans]) / N_FRAMES,
         "tf_march_byte_route": time_ms(lambda: [
             TK.tf_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit, tf)
@@ -1264,7 +1263,8 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
     Z, Y, X = turb.shape
 
     def b5_alone(volume):
-        _launch.launch(lambda: VK._launcher(VK._ENTRIES[volume.dtype]), "voxel_grad", dev,
+        entry = _launch.dense_entry("voxel_grad", volume)
+        _launch.launch(lambda: VK._launcher(entry), "voxel_grad", dev,
                        plan0.entry_uv.data_ptr(), plan0.dir_step.data_ptr(),
                        plan0.hit.data_ptr(), volume.data_ptr(), tf.data_ptr(), gc0.data_ptr(),
                        gaT0.data_ptr(), k0[3].data_ptr(), H, W, X, Y, Z, plan0.max_samples,
@@ -1279,8 +1279,8 @@ def run_gradients(dev, smi: str, turb, sphere, cameras, bundles, samples: float,
 
     layers = {
         "quantize_u8": time_ms(lambda: RK.quantize_u8(turb)),
-        "tf_march_kernel": time_ms(lambda: TK.tf_march_f32_cuda(turb, plan0.entry_uv,
-                                                                plan0.dir_step, plan0.hit, tf)),
+        "tf_march_kernel": time_ms(lambda: TK.tf_march_cuda(turb, plan0.entry_uv,
+                                                            plan0.dir_step, plan0.hit, tf)),
         "tf_march_kernel_byte_route": time_ms(lambda: TK.tf_march_cuda(
             turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit, tf)),
         "transfer_loss_and_cotangent": time_ms(loss_and_cotangent),
@@ -1485,16 +1485,15 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
         plan = IK.IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit, VOLUME[::-1])
         vol_u8 = dense_u8[vname]
         args = (plan.entry_uv, plan.dir_step)
-        c_d, a_d = RK.composite_march_cuda(vol_u8, *args, plan.hit)
-        rgb_f, a_f = RK.composite_march_f32_cuda({"turbulence": turb, "sphere": sphere}[vname],
-                                                 *args, plan.hit, transfer=True)
+        rgb_b1, a_b1 = RK.composite_march_cuda(vol_u8, *args, plan.hit)
+        rgb_f, a_f = RK.composite_march_cuda({"turbulence": turb, "sphere": sphere}[vname],
+                                             *args, plan.hit)
         f_d, t_d, n_d = IK.iso_march_cuda(vol_u8, *args, plan.hit, iso, with_near=True)
         dense_grid = plan.bind(vol_u8, iso).grid
         for fmt, (comp, isom) in marches.items():
             pool, smap = pools[vname, fmt]
             sampler = slab_pool_sampler(pool, smap, VOLUME[::-1])
-            c_k, a_k = comp(pool, smap, *args, plan.hit)
-            rgb_e, a_e = comp(pool, smap, *args, plan.hit, transfer=True)
+            rgb_e, a_e = comp(pool, smap, *args, plan.hit)
             f_k, t_k, n_k = isom(pool, smap, *args, plan.hit, iso, with_near=True)
             # bound from the pool's own bytes (the grid of the volume it was
             # built from) and from the volume's mip8
@@ -1514,32 +1513,31 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
             rgb_d = IK.iso_shade_cuda(vol_u8, *args, plan.direction, f_k, None, iso, near=n_k)
             rgb_dc = IK.iso_shade_cuda(vol_u8, *args, plan.direction, f_k, t_k, iso)
             c_p, a_p = composite_march_steps(sampler, *args, plan.hit.bool())
+            rgb_p = apply_reference_transfer(c_p, a_p)
             f_p, t_p, n_p = iso_march_steps(sampler, *args, plan.hit.bool(), iso, with_near=True)
-            rgb_p = shade_hits(sampler, *args, plan.direction, f_k, t_k, iso)
+            shade_p = shade_hits(sampler, *args, plan.direction, f_k, t_k, iso)
             torch.cuda.synchronize()
-            dense_equal = bool(torch.equal(c_k, c_d) and torch.equal(a_k, a_d)
+            dense_equal = bool(torch.equal(rgb_e, rgb_b1) and torch.equal(a_e, a_b1)
                                and torch.equal(f_k, f_d) and torch.equal(t_k, t_d)
                                and bits_equal(n_k, n_d, f_k) and torch.equal(rgb_k, rgb_d)
                                and torch.equal(rgb_k, rgb_dc) and torch.equal(rgb_k, rgb_kc)
                                and torch.equal(f_n, f_k) and torch.equal(t_n, t_k))
-            epilogue_equal = bool(torch.equal(rgb_e, apply_reference_transfer(c_k, a_k))
-                                  and torch.equal(a_e, a_k) and torch.equal(rgb_e, rgb_f)
-                                  and torch.equal(a_e, a_f))
+            epilogue_equal = bool(torch.equal(rgb_e, rgb_f) and torch.equal(a_e, a_f))
             plain_equal = {name: bool(torch.equal(k, q)) for name, k, q in (
-                ("color", c_k, c_p), ("alpha", a_k, a_p), ("found", f_k, f_p),
-                ("t_hit", t_k, t_p), ("shade", rgb_k, rgb_p))}
+                ("rgb", rgb_e, rgb_p), ("alpha", a_e, a_p), ("found", f_k, f_p),
+                ("t_hit", t_k, t_p), ("shade", rgb_k, shade_p))}
             plain_equal["near"] = bits_equal(n_k, n_p, f_k & f_p & (t_k == t_p))
-            res = compare((c_k, a_k), (c_p, a_p), W * H)
+            res = compare((rgb_e, a_e), (rgb_p, a_p), W * H)
             px_differ = int(((f_k != f_p) | (t_k != t_p)).sum())
             t_err = float((t_k - t_p).abs().max())
-            rgb_err = float((rgb_k - rgb_p).abs().max())
+            rgb_err = float((rgb_k - shade_p).abs().max())
             if not dense_equal or not epilogue_equal or not all(bound_equal.values()) \
                     or not all(plain_equal.values()) \
                     or px_differ > res["px_allowed"] or rgb_err > ISO_RGB_TOL:
                 raise AssertionError(f"pooled {case} {fmt}: equal to the dense kernels "
                                      f"{dense_equal}; bit-equal to the plain versions "
                                      f"{plain_equal}; the epilogue's image equal to the "
-                                     f"transfer's and the fused dense B1's {epilogue_equal}; "
+                                     f"fused dense B1's {epilogue_equal}; "
                                      f"bound equal to unbound {bound_equal}; "
                                      f"vs plain {px_differ} px differ in found/t_hit (allowed "
                                      f"{res['px_allowed']:g}), rgb max |d| {rgb_err} (bar "
@@ -1550,10 +1548,10 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
             err["iso_shade_pooled"] = max(err["iso_shade_pooled"], rgb_err)
             emit({"phase": "pooled_parity", "case": case, "pool": fmt, "iso": iso,
                   "equal_to_dense_kernels": dense_equal, "bit_equal_to_plain": plain_equal,
-                  "epilogue_equal_to_transfer_and_fused_b1": epilogue_equal, **res,
+                  "epilogue_equal_to_fused_b1": epilogue_equal, **res,
                   "iso_px_differ_found_t_hit": px_differ, "t_hit_max_abs_err": t_err,
                   "rgb_max_abs_err": rgb_err, "hits_kernel": int(f_k.sum()),
-                  "alpha_sum_kernel": float(a_k.sum()), "bound_bit_equal": bound_equal})
+                  "alpha_sum_kernel": float(a_e.sum()), "bound_bit_equal": bound_equal})
             if case != "entry_sphere":
                 plain_inputs.append((fmt, sampler, plan, f_k, n_k))
 
@@ -1679,24 +1677,14 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
     def per_frame(fn, plans):
         return time_ms(lambda: [fn(p) for p in plans]) / len(plans)
 
-    # B6 and B7 as render_pooled launches them (the transfer in the
-    # epilogue), the color alone beside them
-    color_ms = {
+    # B6 and B7 as render_pooled launches them (the transfer in the epilogue)
+    ms = {
         "composite_march_pooled_narrow": per_frame(
             lambda p: RK.composite_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv,
                                                             p.dir_step, p.hit), cplans),
         "composite_march_pooled_pair16": per_frame(
             lambda p: RK.composite_march_pooled_pair16_cuda(pool_16, smap_16, p.entry_uv,
-                                                            p.dir_step, p.hit), cplans)}
-    ms = {
-        "composite_march_pooled_narrow": per_frame(
-            lambda p: RK.composite_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv,
-                                                            p.dir_step, p.hit, transfer=True),
-            cplans),
-        "composite_march_pooled_pair16": per_frame(
-            lambda p: RK.composite_march_pooled_pair16_cuda(pool_16, smap_16, p.entry_uv,
-                                                            p.dir_step, p.hit, transfer=True),
-            cplans),
+                                                            p.dir_step, p.hit), cplans),
         "iso_march_pooled_narrow": per_frame(
             lambda p: IK.iso_march_pooled_narrow_cuda(pool_n, smap_n, p.entry_uv, p.dir_step,
                                                       p.hit, iso_med, with_near=True), iplans),
@@ -1736,9 +1724,8 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                                    near=n_k), reps=1) / 2
     emit({"phase": "pooled_timing", "shape": [H, W], "volume": list(VOLUME), "iso": iso_med,
           "frames": N_FRAMES, "plain_frames": [0, N_FRAMES - 1],
-          "kernel_ms_per_launch": ms, "color_only_ms_per_launch": color_ms,
-          "bound_kernel_ms_per_launch": bound_ms, "shade_ms_per_launch": shade_ms,
-          "plain_ms_per_launch": plain_ms,
+          "kernel_ms_per_launch": ms, "bound_kernel_ms_per_launch": bound_ms,
+          "shade_ms_per_launch": shade_ms, "plain_ms_per_launch": plain_ms,
           "dense_kernel_ms_per_launch": {n: e["ms"] for n, e in dense.items()},
           "dense_iso_march_ms_unbound": dense["iso_march"]["ms_unbound"], "gpu": smi})
 
@@ -1780,8 +1767,7 @@ def run_compressed(dev, smi: str, turb, sphere, cameras, bundles, dense: dict,
                              samples, W * H),
                      "touched_pool_words_per_launch": words[fmt],
                      "bound_ms_whole_pool": bound(pool_io[fmt] + out_io, comp_ops, samples,
-                                                  W * H)["bound_ms"],
-                     "color_only_ms": color_ms[n]}
+                                                  W * H)["bound_ms"]}
     bounds.update({f"iso_march_pooled_{fmt}": bound(pool_io[fmt] + rays_io + hit_io,
                                                     iso["ops_unskipped_formula"],
                                                     iso["samples_per_ray"] * W * H, W * H)
@@ -1838,7 +1824,7 @@ def run_composite_bind(dev, smi: str, turb, sphere, bundles) -> list:
 
     plans = [RK.CompositingPlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
     p0 = plans[0]
-    wrappers = {"composite_march": RK.composite_march_f32_cuda,
+    wrappers = {"composite_march": RK.composite_march_cuda,
                 "composite_march_pooled_narrow": RK.composite_march_pooled_narrow_cuda,
                 "composite_march_pooled_pair16": RK.composite_march_pooled_pair16_cuda}
     fields = {"turbulence": turb, "sphere": sphere, "dim2": turb * 0.02}
@@ -1856,7 +1842,7 @@ def run_composite_bind(dev, smi: str, turb, sphere, bundles) -> list:
         # the kernel as render and render_pooled launch it; with a bound, the
         # bound instantiation whether or not its grid holds an empty block
         return wrappers[name](*data[fname][name], p.entry_uv, p.dir_step, p.hit, p.max_samples,
-                              p.wrap, transfer=True, bound=bound)
+                              p.wrap, bound=bound)
 
     # the bound path, as a user drives it, on the sphere (whose grid holds
     # empty blocks, so render marches bound): one bind per data, shared by
@@ -2092,11 +2078,11 @@ def run_diff_finetune(dev, smi: str, tree, turb, bundles) -> None:
         return (loss, *torch.autograd.grad(loss, (dm, adj)))
 
     step()
-    TK.tf_march_f32_cuda.launches = 0
+    TK.tf_march_cuda.f32_launches = 0
     VK.voxel_grad_cuda.launches = 0
     loss, g_dm, g_adj = step()
     torch.cuda.synchronize()
-    launches = {"tf_march_f32": TK.tf_march_f32_cuda.launches,
+    launches = {"tf_march_f32": TK.tf_march_cuda.f32_launches,
                 "voxel_grad": VK.voxel_grad_cuda.launches}
     if launches != {"tf_march_f32": 1, "voxel_grad": 1}:
         raise AssertionError(f"a fine-tune step launched {launches}; expected B4 and B5 once")
@@ -2251,7 +2237,7 @@ def run_config4(dev, smi: str) -> None:
     reference = TFParams.reference(dev)
     # B4 on the decoded volume against its plain version
     tf = CF.tf_scalars(reference)
-    k = TK.tf_march_f32_cuda(vol, plan.entry_uv, plan.dir_step, plan.hit, tf)
+    k = TK.tf_march_cuda(vol, plan.entry_uv, plan.dir_step, plan.hit, tf)
     p = CF.tf_march_steps(as_normalized_volume(quantize_u8(vol)), plan.entry_uv, plan.dir_step,
                           plan.hit.bool(), tf)
     torch.cuda.synchronize()
@@ -2265,8 +2251,7 @@ def run_config4(dev, smi: str) -> None:
     # the fit, as a user drives it; the counts cover exactly these steps
     target = torch.full((H, W, 3), 0.5, device=dev)
     f_tf = TK.make_render_tf_kernel(plan)
-    TK.tf_march_f32_cuda.launches = 0
-    TK.tf_march_cuda.launches = 0
+    TK.tf_march_cuda.launches = TK.tf_march_cuda.f32_launches = 0
     params, losses, step_ms = reference, [], []
     for _ in range(FIT_STEPS):
         torch.cuda.synchronize()
@@ -2275,8 +2260,8 @@ def run_config4(dev, smi: str) -> None:
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(loss))
-    launches = {"tf_march_f32": TK.tf_march_f32_cuda.launches,
-                "tf_march": TK.tf_march_cuda.launches}
+    launches = {"tf_march_f32": TK.tf_march_cuda.f32_launches,
+                "tf_march": TK.tf_march_cuda.launches - TK.tf_march_cuda.f32_launches}
     if launches != {"tf_march_f32": FIT_STEPS, "tf_march": 0}:
         raise AssertionError(f"config4: {FIT_STEPS} fit steps launched {launches}")
     if not all(math.isfinite(x) for x in losses) or \
@@ -2376,10 +2361,10 @@ def run_octree(dev, smi: str, source: np.ndarray, bundles) -> None:
     vol = as_normalized_volume(cuts[OCTREE_RENDER_CUT], device=dev)
     r0 = bundles[0]
     plan = plan_compositing(r0.entry_uv, r0.direction, r0.hit, VOLUME[::-1])
-    RK.composite_march_f32_cuda.launches = 0
+    RK.composite_march_cuda.f32_launches = 0
     rgb, alpha = plan.render(vol)
     torch.cuda.synchronize()
-    b1 = RK.composite_march_f32_cuda.launches
+    b1 = RK.composite_march_cuda.f32_launches
     c_p, a_p = composite_march_steps(as_normalized_volume(RK.quantize_u8(vol)), plan.entry_uv,
                                      plan.dir_step, plan.hit.bool(), plan.max_samples)
     if b1 != 1 or not (torch.equal(rgb, apply_reference_transfer(c_p, a_p))
@@ -2508,7 +2493,6 @@ def run_app(dev, smi: str, work: Path) -> None:
 
     counted = {"composite_march_pooled_pair16": RK.composite_march_pooled_pair16_cuda,
                "composite_march_pooled_narrow": RK.composite_march_pooled_narrow_cuda,
-               "composite_march_f32": RK.composite_march_f32_cuda,
                "composite_march": RK.composite_march_cuda,
                "iso_march_pooled_narrow": IK.iso_march_pooled_narrow_cuda,
                "iso_march_pooled_pair16": IK.iso_march_pooled_pair16_cuda,
@@ -3424,10 +3408,10 @@ def run_entry(dev, smi: str) -> None:
     from volumerenderer_tpu_torch.ops.sampling import as_normalized_volume
 
     fn, args = TE.entry()
-    RK.composite_march_f32_cuda.launches = 0
+    RK.composite_march_cuda.f32_launches = 0
     rgb = fn(*args)
     torch.cuda.synchronize()
-    launches = RK.composite_march_f32_cuda.launches
+    launches = RK.composite_march_cuda.f32_launches
     vol, entry_uv, dir_step, hit = args
     vol_plain = as_normalized_volume(RK.quantize_u8(vol))
 
@@ -3489,10 +3473,10 @@ def run_rm_smoke(dev, smi: str, work: Path) -> None:
 
     # the 1024^2 frame through B1, bit-equal to the plain march on the card
     t0 = time.perf_counter()
-    RK.composite_march_f32_cuda.launches = 0
+    RK.composite_march_cuda.f32_launches = 0
     rgb, alpha = smoke.render_frame(vol, dev, smoke.FRAME_SIZE)
     torch.cuda.synchronize()
-    launches = RK.composite_march_f32_cuda.launches
+    launches = RK.composite_march_cuda.f32_launches
     steps["render_frame"] = time.perf_counter() - t0
     nv = as_normalized_volume(vol, device=dev)
     rays = generate_rays(Camera(width=smoke.FRAME_SIZE, height=smoke.FRAME_SIZE), device=dev)
@@ -3552,10 +3536,10 @@ def run_render_demo(dev, smi: str, work: Path) -> None:
     from volumerenderer_tpu_torch.ops.isosurface import render_isosurface
 
     demo = port_script("torch_render_demo")
-    wrappers = {"composite_march_f32": RK.composite_march_f32_cuda,
+    wrappers = {"composite_march": RK.composite_march_cuda,
                 "iso_march": IK.iso_march_cuda, "iso_shade": IK.iso_shade_cuda,
                 "composite_march_pooled_pair16": RK.composite_march_pooled_pair16_cuda}
-    expected = {"composite_march_f32": 2, "iso_march": 1, "iso_shade": 1,
+    expected = {"composite_march": 2, "iso_march": 1, "iso_shade": 1,
                 "composite_march_pooled_pair16": 2}
     out = work / "demo"
     t0 = time.perf_counter()
@@ -3835,16 +3819,14 @@ def main() -> int:
         plan = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z), wrap=wrap)
         vol_u8 = RK.quantize_u8(v)
         args = (plan.entry_uv, plan.dir_step, plan.hit, plan.max_samples, wrap)
-        rgb_k, a_k = RK.composite_march_f32_cuda(v, *args, transfer=True)
-        rgb_b, a_b = RK.composite_march_cuda(vol_u8, *args, transfer=True)
-        c_b, a_b0 = RK.composite_march_cuda(vol_u8, *args)
+        rgb_k, a_k = RK.composite_march_cuda(v, *args)
+        rgb_b, a_b = RK.composite_march_cuda(vol_u8, *args)
         c_p, a_p = composite_march_steps(as_normalized_volume(vol_u8), plan.entry_uv,
                                          plan.dir_step, plan.hit.bool(), plan.max_samples, wrap)
         rgb_p = apply_reference_transfer(c_p, a_p)
         torch.cuda.synchronize()
         equal = {"fused_vs_plain": torch.equal(rgb_k, rgb_p) and torch.equal(a_k, a_p),
                  "byte_route_vs_plain": torch.equal(rgb_b, rgb_p) and torch.equal(a_b, a_p),
-                 "byte_color_vs_plain": torch.equal(c_b, c_p) and torch.equal(a_b0, a_p),
                  "plan_render_is_fused": all(torch.equal(x, y) for x, y in
                                              zip(plan.render(v), (rgb_k, a_k)))}
         res = compare((rgb_k, a_k), (rgb_p, a_p), cam.width * cam.height)
@@ -3859,8 +3841,7 @@ def main() -> int:
     # camera) -> render, over the 16-frame orbit; min of REPS sweeps after a
     # warm sweep.  The launch counts cover exactly this run: every render is
     # one launch of the fused B1 and none of the byte route.
-    RK.composite_march_f32_cuda.launches = 0
-    RK.composite_march_cuda.launches = 0
+    RK.composite_march_cuda.launches = RK.composite_march_cuda.f32_launches = 0
     renders = 0
     cameras = [orbit_camera(2.0 * i, W, H) for i in range(N_FRAMES)]
     bundles = [generate_rays(cam, device=dev) for cam in cameras]
@@ -3885,8 +3866,8 @@ def main() -> int:
         return float(acc)
 
     kernel_sweep_s = sweep_seconds(kernel_sweep)
-    launches = RK.composite_march_f32_cuda.launches
-    byte_launches = RK.composite_march_cuda.launches
+    launches = RK.composite_march_cuda.f32_launches
+    byte_launches = RK.composite_march_cuda.launches - launches
     plain_sweep_s = sweep_seconds(plain_sweep)
     rgb, alpha = last["rgb"], last["alpha"]
     if rgb.shape != (H, W, 3) or alpha.shape != (H, W) or not bool(torch.isfinite(rgb).all()) \
@@ -3909,7 +3890,7 @@ def main() -> int:
     turb_plain = as_normalized_volume(turb_u8)
 
     def fused(v, p):
-        return RK.composite_march_f32_cuda(v, p.entry_uv, p.dir_step, p.hit, transfer=True)
+        return RK.composite_march_cuda(v, p.entry_uv, p.dir_step, p.hit)
 
     kernel_ms = time_ms(lambda: [fused(turb, p) for p in plans]) / N_FRAMES
     byte_ms = time_ms(lambda: [RK.composite_march_cuda(turb_u8, p.entry_uv, p.dir_step, p.hit)
@@ -3921,12 +3902,10 @@ def main() -> int:
           "byte_route_march_ms_per_launch": byte_ms, "plain_ms_per_launch": plain_ms,
           "gpu": smi})
     cam0, rays0, plan0 = cameras[0], bundles[0], plans[0]
-    c0, a0 = RK.composite_march_cuda(turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit)
 
     def byte_route_frame():
-        c, a = RK.composite_march_cuda(RK.quantize_u8(turb), plan0.entry_uv, plan0.dir_step,
+        return RK.composite_march_cuda(RK.quantize_u8(turb), plan0.entry_uv, plan0.dir_step,
                                        plan0.hit)
-        return RK.apply_reference_transfer(c, a), a
 
     emit({"phase": "layers", "ms": {
         "generate_rays": time_ms(lambda: generate_rays(cam0, device=dev)),
@@ -3936,8 +3915,7 @@ def main() -> int:
         "byte_route_frame": time_ms(byte_route_frame),
         "byte_route_quantize_u8": time_ms(lambda: RK.quantize_u8(turb)),
         "byte_route_march": time_ms(lambda: RK.composite_march_cuda(
-            turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit)),
-        "byte_route_transfer": time_ms(lambda: RK.apply_reference_transfer(c0, a0))},
+            turb_u8, plan0.entry_uv, plan0.dir_step, plan0.hit))},
         "gpu": smi})
 
     # 6. the main path went through the fused kernel, once per render and
@@ -3989,7 +3967,7 @@ def main() -> int:
           "bound_ms_whole_volume": bound(nbytes(turb) + rays_io + RGBA_BYTES * W * H, f32_ops,
                                          samples, W * H)["bound_ms"],
           "byte_route_march_ms": byte_ms,
-          "byte_route_march_bound_ms": bound(touched + rays_io + 8 * W * H,
+          "byte_route_march_bound_ms": bound(touched + rays_io + RGBA_BYTES * W * H,
                                              OPS_PER_STEP["composite"] * samples, samples,
                                              W * H)["bound_ms"]}
     run_routes(dev, smi, turb, plans)

@@ -22,7 +22,8 @@ rays of each block compacted into a shared list before they are shaded,
 the bisection's loop unrolled, or another block shape.  With ``--parent
 DIR`` the ``csrc`` of another tree (for example the parent commit, unpacked
 by ``git archive`` under the git-ignored ``build/``) is built and timed
-beside them as ``parent`` (``b1`` and ``pool``: the shade's entry points
+beside them as ``parent`` (``b1`` and ``pool``, a tree whose compositing
+entry points take the arguments this one's take: the shade's entry points
 differ).
 
 All are built with the package's nvcc flags, one nvcc each, all at once,
@@ -122,8 +123,8 @@ CM, TRI, SHADE = "composite_march.cu", "trilinear.cuh", "iso_shade.cu"
 # 64-bit voxel offsets (the size test made false at run time) and the wrap a
 # run-time test (a comparison the compiler cannot fold); and the tap's clamp
 # as one __saturatef (NaN and -0 aside, which both read as 0, the same)
-OFFSETS64 = (TRI, "(size_t{1} << 32);\n  if (small && repeat)",
-             "(size_t{1} << 32) && X < 0;\n  if (small && repeat)")
+OFFSETS64 = (TRI, "(size_t{1} << 32);\n  if (small)",
+             "(size_t{1} << 32) && X < 0;\n  if (small)")
 SATURATE = (TRI, "rintf(fminf(fmaxf(__ldg(vol + offset), 0.0f), 1.0f) * 255.0f)",
             "rintf(__saturatef(__ldg(vol + offset)) * 255.0f)")
 RUNTIME_WRAP = (TRI, "return sample_trilinear<Offset>(vol, u, v, w, X, Y, Z, kRepeat);",
@@ -373,15 +374,16 @@ def sass_counts(lib, keep):
 
 def b1_sass(lib):
     """The composite_march_kernel instantiations that read the float32
-    volume and write rgb."""
-    return sass_counts(lib, lambda n: "VolumeSamplerIfL" in n and "ELb1EE" in n)
+    volume."""
+    return sass_counts(lib, lambda n: "composite_march_kernel" in n and "VolumeSamplerIfL" in n)
 
 
 def pool_sass(lib):
-    """The pooled composite_march_kernel instantiations that write rgb,
-    keyed by pool format and offset type."""
+    """The pooled composite_march_kernel instantiations, keyed by pool
+    format and offset type."""
     out = {}
-    for n, c in sass_counts(lib, lambda n: "PoolSampler" in n and "Lb1E" in n).items():
+    for n, c in sass_counts(lib, lambda n: "composite_march_kernel" in n
+                            and "PoolSampler" in n).items():
         m = re.search(r"PoolFormatE(\d)E(j|m)?E", n)
         fmt = "pair16" if m.group(1) == "0" else "narrow"
         out[f"{fmt}_{ {'j': 'u32', 'm': 'u64'}.get(m.group(2), 'size_t')}"] = c
@@ -427,18 +429,18 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def b1_cases(dev, turb, u8, rays):
-    """B1 as the main path launches it (the float32 volume, rgb) and on the
-    byte route (color)."""
+    """B1 as the main path launches it (the float32 volume) and on the byte
+    route, unbound, each writing rgb."""
     plans = [RK.CompositingPlan(r.entry_uv, r.direction, r.hit, (256, 256, 256)) for r in rays]
     cases = {}
-    for case, entry, vol, rgb in (("fused_f32_rgb", "composite_march_f32_launch", turb, 1),
-                                  ("byte_route_color", "composite_march_launch", u8, 0)):
+    for case, entry, vol in (("fused_f32_rgb", "composite_march_f32_launch", turb),
+                             ("byte_route_rgb", "composite_march_launch", u8)):
         outs = [(torch.empty((H, W, 3), device=dev), torch.empty((H, W), device=dev))
                 for _ in plans]
-        # entry_uv, dir_step, hit, vol; H, W, X, Y, Z, max_samples, repeat, rgb; out, alpha
-        cases[case] = Case(entry, [P] * 4 + [I] * 8 + [P] * 3,
-                           [_ptrs(p.entry_uv, p.dir_step, p.hit, vol) +
-                            [H, W, 256, 256, 256, p.max_samples, 0, rgb] + _ptrs(o, a)
+        # entry_uv, dir_step, hit, vol, grid; H, W, X, Y, Z, max_samples, repeat; out, alpha
+        cases[case] = Case(entry, [P] * 5 + [I] * 7 + [P] * 3,
+                           [_ptrs(p.entry_uv, p.dir_step, p.hit, vol, None) +
+                            [H, W, 256, 256, 256, p.max_samples, 0] + _ptrs(o, a)
                             for p, (o, a) in zip(plans, outs)],
                            [x for pair in outs for x in pair], [plans, vol])
     return cases
@@ -452,11 +454,11 @@ def pool_cases(dev, turb, u8, rays):
                               ("pair16", RK.build_slab_pool(u8))):
         outs = [(torch.empty((H, W, 3), device=dev), torch.empty((H, W), device=dev))
                 for _ in plans]
-        # entry_uv, dir_step, hit, pool, slab_map; H, W, X, Y, Z, n_slots, max_samples,
-        # rgb; out, alpha
-        cases[fmt] = Case(f"composite_march_pooled_{fmt}_launch", [P] * 5 + [I] * 8 + [P] * 3,
-                          [_ptrs(p.entry_uv, p.dir_step, p.hit, pool, smap) +
-                           [H, W, 256, 256, 256, int(pool.shape[0]), p.max_samples, 1] +
+        # entry_uv, dir_step, hit, pool, slab_map, grid; H, W, X, Y, Z, n_slots,
+        # max_samples; out, alpha
+        cases[fmt] = Case(f"composite_march_pooled_{fmt}_launch", [P] * 6 + [I] * 7 + [P] * 3,
+                          [_ptrs(p.entry_uv, p.dir_step, p.hit, pool, smap, None) +
+                           [H, W, 256, 256, 256, int(pool.shape[0]), p.max_samples] +
                            _ptrs(o, a) for p, (o, a) in zip(plans, outs)],
                           [x for pair in outs for x in pair], [plans, pool, smap])
     return cases

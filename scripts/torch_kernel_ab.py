@@ -29,15 +29,14 @@ wraps, bound and unbound) and the shades' rgb, so that two trees' outputs
 can be held bit-equal.
 
 ``B1`` and ``B4`` are the marches on the byte volume (``quantize_u8`` of the
-turbulence, made once).  Where the package has the float32 route,
-``B1_fused`` is B1 as the main path launches it (the float32 volume, each
-tap quantized as read, the transfer in the epilogue), ``B4_fused`` B4 on the
-float32 volume and ``B6_rgb`` / ``B7_rgb`` the pooled marches with the
-transfer in their epilogue.  ``B5`` is the voxel-gradient march on the byte
-volume (its zero fill included); ``B5_quantize_u8`` the same after a
-``quantize_u8`` of the float32 volume on every launch (the fit's backward
-where B5 reads bytes) and, where the package has B5's float32 route,
-``B5f32`` B5 on the float32 volume itself, each tap quantized as read.
+turbulence, made once).  ``B1_fused`` is B1 as the main path launches it
+(the float32 volume, each tap quantized as read), ``B4_fused`` B4 on the
+float32 volume and ``B6_rgb`` / ``B7_rgb`` the pooled marches; every
+compositing march writes the displayed image in its epilogue.  ``B5`` is
+the voxel-gradient march on the byte volume (its zero fill included);
+``B5_quantize_u8`` the same after a ``quantize_u8`` of the float32 volume on
+every launch (the fit's backward where B5 reads bytes) and ``B5f32`` B5 on
+the float32 volume itself, each tap quantized as read.
 ``frame`` is ``CompositingPlan.render`` of the float32 volume, per frame
 (whatever the package runs for it: a quantize pass, B1 and the transfer, or
 one launch); ``pooled_frame_*`` ``render_pooled`` per frame;
@@ -52,10 +51,13 @@ included), and the whole ``render_{z,brick}sharded_kernel`` frame
 (``frame_*``).  Where the package builds entry tables, ``table_*`` is the
 table kernel's ms per launch.
 
-To compare two trees on one card, unpack the other tree into a git-ignored
-directory of the checkout and run both in turns within one command:
+The script calls the wrappers of a tree with one wrapper per march for both
+volume dtypes; an older tree is timed by its own copy of the script.  To
+compare two trees on one card, unpack the other tree into a git-ignored
+directory of the checkout and run each tree's script in turns within one
+command:
 
-    for r in build/base . . build/base; do python3 scripts/torch_kernel_ab.py $r $r; done
+    for r in build/base . . build/base; do python3 $r/scripts/torch_kernel_ab.py $r $r; done
 """
 import hashlib
 import inspect
@@ -141,7 +143,6 @@ for p in plans:
     rgb = ref.flip_sign * k[0][..., None] + ref.flip_bias
     g_rgb = (rgb - target) * (2.0 / rgb.numel())
     cots.append((*CF.cotangent_images(ref, g_rgb, None, k[1]), k[3]))
-fused = hasattr(RK, "composite_march_f32_cuda")
 has_bind = hasattr(IK.IsosurfacePlan, "bind")
 # the marches as render launches them: storing near where the tree has it
 near = {"with_near": True} if "with_near" in inspect.signature(IK.iso_march_cuda).parameters \
@@ -201,21 +202,16 @@ if near:
 ms["B5_quantize_u8"] = time_ms(lambda: [VK.voxel_grad_cuda(RK.quantize_u8(turb), p.entry_uv,
                                                           p.dir_step, p.hit, tf, *c)
                                        for p, c in zip(plans, cots)]) / 16
-if hasattr(VK.voxel_grad_cuda, "f32_launches"):
-    ms["B5f32"] = time_ms(lambda: [VK.voxel_grad_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf, *c)
-                                   for p, c in zip(plans, cots)]) / 16
-if fused:
-    ms["B1_fused"] = time_ms(lambda: [RK.composite_march_f32_cuda(
-        turb, p.entry_uv, p.dir_step, p.hit, transfer=True) for p in plans]) / 16
-    ms["B4_fused"] = time_ms(lambda: [TK.tf_march_f32_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf)
-                                      for p in plans]) / 16
+ms["B5f32"] = time_ms(lambda: [VK.voxel_grad_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf, *c)
+                               for p, c in zip(plans, cots)]) / 16
+ms["B1_fused"] = time_ms(lambda: [RK.composite_march_cuda(turb, p.entry_uv, p.dir_step, p.hit)
+                                  for p in plans]) / 16
+ms["B4_fused"] = time_ms(lambda: [TK.tf_march_cuda(turb, p.entry_uv, p.dir_step, p.hit, tf)
+                                  for p in plans]) / 16
 for fmt, b in (("narrow", "B6"), ("pair16", "B7")):
     pool, smap = pools[fmt]
-    ms[b] = time_ms(lambda: [pooled[fmt][0](pool, smap, p.entry_uv, p.dir_step, p.hit)
-                             for p in plans]) / 16
-    if fused:
-        ms[f"{b}_rgb"] = time_ms(lambda: [pooled[fmt][0](pool, smap, p.entry_uv, p.dir_step, p.hit,
-                                                         transfer=True) for p in plans]) / 16
+    ms[f"{b}_rgb"] = time_ms(lambda: [pooled[fmt][0](pool, smap, p.entry_uv, p.dir_step, p.hit)
+                                      for p in plans]) / 16
     ms[f"pooled_frame_{fmt}"] = time_ms(lambda: [p.render_pooled(pool, smap) for p in plans]) / 16
 for fmt, b in (("narrow", "B8"), ("pair16", "B9")):
     pool, smap = pools[fmt]
@@ -283,14 +279,14 @@ for fname, vol in fields.items():
         digests[f"{b}_rgb{sfx}"] = digest(*(x for p in plans for x in p.render_pooled(*pool)))
     if has_cbind:  # the bound kernels, launched as render launches them
         cb = plans[0].bind(vol)
-        marches = {"B1_fused": (RK.composite_march_f32_cuda, (vol,), cb),
+        marches = {"B1_fused": (RK.composite_march_cuda, (vol,), cb),
                    **{b: (pooled[fmt][0], fpools[b], plans[0].bind(pool=fpools[b]))
                       for fmt, b in (("narrow", "B6"), ("pair16", "B7"))}}
         for b, (march, data, bd) in marches.items():
             name = f"{b}_bound{sfx}" if b == "B1_fused" else f"{b}_rgb_bound{sfx}"
 
             def run(p, march=march, data=data, bd=bd):
-                return march(*data, p.entry_uv, p.dir_step, p.hit, transfer=True, bound=bd)
+                return march(*data, p.entry_uv, p.dir_step, p.hit, bound=bd)
 
             ms[name] = time_ms(lambda: [run(p) for p in plans]) / 16
             digests[name] = digest(*(x for p in plans for x in run(p)))

@@ -25,9 +25,9 @@ from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
 from volumerenderer_tpu_torch.codecs import kdtree as TK
 from volumerenderer_tpu_torch.io.synthetic import sphere_volume, turbulence_volume
 from volumerenderer_tpu_torch.models import CompressedRenderer
+from volumerenderer_tpu_torch.ops.blockgrid import BlockBound
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
-from volumerenderer_tpu_torch.ops.raycast import (CompositeBound, composite_march_steps,
-                                                  empty_blocks)
+from volumerenderer_tpu_torch.ops.raycast import composite_march_steps, empty_blocks
 from volumerenderer_tpu_torch.ops.sampling import sample_trilinear, slab_pool_sampler
 
 CAMERAS = {
@@ -192,21 +192,40 @@ def test_bind_rejects_bad_arguments(kwargs, error, match):
         plan.bind(**kwargs)
 
 
+@pytest.mark.parametrize("mode", ["compositing", "isosurface"])
+def test_bind_refuses_an_inference_mode_volume(mode):
+    """An inference-mode tensor has no version counter, so a bound from it
+    could not see an in-place write: both plans' binds refuse it."""
+    from volumerenderer_tpu_torch.ops.cuda.isosurface_kernel import IsosurfacePlan
+
+    shape = (24, 32, 40)
+    plan = _plan(shape, "front", "clamp")
+    if mode == "isosurface":
+        plan = IsosurfacePlan(plan.entry_uv, plan.entry_uv, plan.hit, plan.dims)
+    with torch.inference_mode():
+        vol = _volume("sphere", shape)
+    args = (vol, 0.5) if mode == "isosurface" else (vol,)
+    with pytest.raises(ValueError, match="bind a normal tensor"):
+        plan.bind(*args)
+    assert plan.bind(vol.clone(), *args[1:]).source
+
+
 def test_wrappers_reject_a_bad_bound():
     shape = (24, 32, 40)
     vol = _volume("sphere", shape)
     plan = _plan(shape, "front", "clamp")
     bound = plan.bind(vol)
     args = (plan.entry_uv, plan.dir_step, plan.hit)
-    bad = CompositeBound(bound.dims, "clamp", bound.grid[:, :, :-1].contiguous())
+    bad = BlockBound(bound.dims, "clamp", bound.grid[:, :, :-1].contiguous())
     with pytest.raises(ValueError, match="grid"):
-        RK.composite_march_f32_cuda(vol, *args, bound=bad)
-    with pytest.raises(TypeError, match="CompositeBound"):
+        RK.composite_march_cuda(vol, *args, bound=bad)
+    with pytest.raises(TypeError, match="BlockBound"):
         RK.composite_march_cuda(RK.quantize_u8(vol), *args, bound=bound.grid)
     from volumerenderer_tpu_torch.ops.cuda.isosurface_kernel import IsosurfacePlan
 
+    # an isosurface plan's bound carries its isovalue: a compositing render refuses it
     iplan = IsosurfacePlan(plan.entry_uv, plan.entry_uv, plan.hit, plan.dims)
-    with pytest.raises(TypeError, match="CompositeBound"):
+    with pytest.raises(ValueError, match="iso 0.5, not None"):
         plan.render(vol, bound=iplan.bind(vol, 0.5))
 
 
@@ -276,27 +295,29 @@ def cuda_device():
 def test_bound_kernels_bit_equal_on_cuda(cuda_device, kind, camera, wrap):
     """B1 on the float32 volume and on its bytes, and (clamp) B6 and B7,
     each bound from its data and from the mip8: bit-equal to the unbound
-    kernel and to the bound plain march."""
+    kernel and to the bound plain march with the reference transfer."""
     shape = (64, 48, 96)
     vol = _volume(kind, shape).to(cuda_device)
     vol_u8 = RK.quantize_u8(vol)
     plan = _plan(shape, camera, wrap, max_samples=300, device=cuda_device, width=96, height=64)
     args = (plan.entry_uv, plan.dir_step, plan.hit, plan.max_samples, wrap)
     bound = plan.bind(vol)
-    plain = composite_march_steps(as_normalized_volume(vol_u8), plan.entry_uv, plan.dir_step,
-                                  plan.hit.bool(), plan.max_samples, wrap, bound=bound)
+    color, alpha = composite_march_steps(as_normalized_volume(vol_u8), plan.entry_uv,
+                                         plan.dir_step, plan.hit.bool(), plan.max_samples, wrap,
+                                         bound=bound)
+    plain = (RK.apply_reference_transfer(color, alpha), alpha)
     mip8 = RK.block_max8(vol)
-    for march, v in ((RK.composite_march_f32_cuda, vol), (RK.composite_march_cuda, vol_u8)):
+    march = RK.composite_march_cuda
+    for v in (vol, vol_u8):
         want = march(v, *args)
         assert _same(want, plain)
         for b in (bound, plan.bind(vol, mip8=mip8)):
-            before = march.launches
+            before = (march.launches, march.f32_launches)
             got = march(v, *args, bound=b)
             torch.cuda.synchronize()
-            assert march.launches == before + 1 and _same(got, want)
-            rgb, alpha = march(v, *args, transfer=True, bound=b)
-            assert torch.equal(rgb, RK.apply_reference_transfer(*want)) and torch.equal(alpha,
-                                                                                       want[1])
+            f32 = int(v.dtype == torch.float32)
+            assert (march.launches, march.f32_launches) == (before[0] + 1, before[1] + f32)
+            assert _same(got, want)
     if wrap != "clamp":
         return
     for build, march in ((RK.build_slab_pool, RK.composite_march_pooled_pair16_cuda),

@@ -23,9 +23,10 @@ import torch
 from volumerenderer_tpu_torch import Camera, as_normalized_volume, generate_rays
 from volumerenderer_tpu_torch.interop import rays_from_numpy
 from volumerenderer_tpu_torch.io.synthetic import sphere_volume, turbulence_volume
+from volumerenderer_tpu_torch.ops.blockgrid import BlockBound
 from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
-from volumerenderer_tpu_torch.ops.isosurface import (IsoBound, classify_blocks, iso_block_grid,
+from volumerenderer_tpu_torch.ops.isosurface import (classify_blocks, iso_block_grid,
                                                      iso_grid_from_mip8, iso_grid_from_pool,
                                                      iso_march_steps)
 
@@ -135,7 +136,7 @@ def test_classify_blocks_reads_the_anchor_block():
     # 16..23 (all 200); the anchor of z is floor(z * 24 - 0.5), clamped
     vol_u8 = np.zeros((24, 16, 16), np.uint8)
     vol_u8[9:] = 200
-    bound = IsoBound(0.5, (16, 16, 24), "clamp", iso_block_grid(torch.from_numpy(vol_u8)))
+    bound = BlockBound((16, 16, 24), "clamp", iso_block_grid(torch.from_numpy(vol_u8)), iso=0.5)
     z = torch.tensor([-0.3, 0.1, 0.3, 0.45, 0.7, 0.8, 1.5])
     uvw = torch.stack([torch.full_like(z, 0.5), torch.full_like(z, 0.5), z], dim=-1)
     below, above = classify_blocks(bound, uvw)
@@ -357,10 +358,10 @@ def test_wrapper_rejects_a_bad_grid():
     vol, plan = _scene("sphere", "front", "clamp")
     bound = plan.bind(vol, 0.5)
     vol_u8 = RK.quantize_u8(vol)
-    bad = IsoBound(0.5, bound.dims, "clamp", bound.grid[:, :, :-1].contiguous())
+    bad = BlockBound(bound.dims, "clamp", bound.grid[:, :, :-1].contiguous(), iso=0.5)
     with pytest.raises(ValueError, match="grid"):
         IK.iso_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, 0.5, bound=bad)
-    with pytest.raises(TypeError, match="IsoBound"):
+    with pytest.raises(TypeError, match="BlockBound"):
         IK.iso_march_cuda(vol_u8, plan.entry_uv, plan.dir_step, plan.hit, 0.5,
                           bound=bound.grid)
 

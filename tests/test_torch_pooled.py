@@ -14,7 +14,7 @@ from volumerenderer_tpu_torch.io.synthetic import sphere_volume, turbulence_volu
 from volumerenderer_tpu_torch.ops.cuda import isosurface_kernel as IK
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
 from volumerenderer_tpu_torch.ops.isosurface import iso_march_steps, shade_hits
-from volumerenderer_tpu_torch.ops.raycast import composite_march_steps
+from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, composite_march_steps
 
 VOL_SHAPE = (16, 16, 32)  # (Z, Y, X)
 CAMERAS = {
@@ -48,7 +48,8 @@ def test_pooled_compositing_plain_equals_dense(camera, fmt):
     march = (RK.composite_march_pooled_pair16_cuda if fmt == "pair16"
              else RK.composite_march_pooled_narrow_cuda)
     got = march(pool, smap, plan.entry_uv, plan.dir_step, plan.hit)
-    want = composite_march_steps(vol, plan.entry_uv, plan.dir_step, rays.hit)
+    color, alpha = composite_march_steps(vol, plan.entry_uv, plan.dir_step, rays.hit)
+    want = (apply_reference_transfer(color, alpha), alpha)
     assert float(want[1].sum()) > 10
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -69,15 +69,17 @@ def test_pooled_compositing_kernel_on_cuda(cuda_device, fmt, volume):
     pool, smap = POOLS[fmt](vol_u8)
     march = MARCHES[fmt][0]
     before = march.launches
-    c_k, a_k = march(pool, smap, rays.entry_uv, dir_step, hit)
+    rgb_k, a_k = march(pool, smap, rays.entry_uv, dir_step, hit)
     torch.cuda.synchronize()
     assert march.launches == before + 1
-    c_d, a_d = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit)
+    rgb_d, a_d = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit)
     assert float(a_d.max()) > 0.5
-    assert torch.equal(c_k, c_d) and torch.equal(a_k, a_d)
+    assert torch.equal(rgb_k, rgb_d) and torch.equal(a_k, a_d)
     c_p, a_p = composite_march_steps(slab_pool_sampler(pool, smap, (96, 48, 64)),
                                      rays.entry_uv, dir_step, rays.hit)
-    assert _within_bars(c_k, c_p) and _within_bars(a_k, a_p)
+    # r = g = 1 - c and b = 1: the r plane within the bars of the plain one
+    rgb_p = apply_reference_transfer(c_p, a_p)
+    assert _within_bars(rgb_k[..., 0], rgb_p[..., 0]) and _within_bars(a_k, a_p)
 
 
 @pytest.mark.cuda
@@ -168,31 +170,27 @@ def _anchors(rays, dir_step, dims):
 
 
 def _five(fmt, pool, smap, rays, dir_step, hit, iso):
-    """B6 or B7 (color and the rgb epilogue), B8 or B9 and the pooled shade on
+    """B6 or B7 (the rgb of its epilogue), B8 or B9 and the pooled shade on
     one pool, each launched once."""
     comp, march = MARCHES[fmt]
     before = (comp.launches, march.launches, IK.iso_shade_pooled_cuda.launches)
-    c, a = comp(pool, smap, rays.entry_uv, dir_step, hit)
-    rgb_e, a_e = comp(pool, smap, rays.entry_uv, dir_step, hit, transfer=True)
+    rgb_e, a_e = comp(pool, smap, rays.entry_uv, dir_step, hit)
     found, t_hit = march(pool, smap, rays.entry_uv, dir_step, hit, iso)
     rgb = IK.iso_shade_pooled_cuda(pool, smap, rays.entry_uv, dir_step, rays.direction, found,
                                    t_hit, iso)
     torch.cuda.synchronize()
     assert (comp.launches, march.launches, IK.iso_shade_pooled_cuda.launches) == \
-        (before[0] + 2, before[1] + 1, before[2] + 1)
-    return {"color": c, "alpha": a, "rgb_epilogue": rgb_e, "alpha_epilogue": a_e,
-            "found": found, "t_hit": t_hit, "shade": rgb}
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    return {"rgb": rgb_e, "alpha": a_e, "found": found, "t_hit": t_hit, "shade": rgb}
 
 
 def _dense(vol_u8, rays, dir_step, hit, iso, found, t_hit):
-    """B1 (color and rgb), B2 and B3 on the volume, the shade fed the pooled
-    march's hits."""
-    c, a = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit)
-    rgb_e, a_e = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit, transfer=True)
+    """B1 (rgb), B2 and B3 on the volume, the shade fed the pooled march's
+    hits."""
+    rgb_e, a_e = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit)
     f, t = IK.iso_march_cuda(vol_u8, rays.entry_uv, dir_step, hit, iso)
     rgb = IK.iso_shade_cuda(vol_u8, rays.entry_uv, dir_step, rays.direction, found, t_hit, iso)
-    return {"color": c, "alpha": a, "rgb_epilogue": rgb_e, "alpha_epilogue": a_e,
-            "found": f, "t_hit": t, "shade": rgb}
+    return {"rgb": rgb_e, "alpha": a_e, "found": f, "t_hit": t, "shade": rgb}
 
 
 def _plain(pool, smap, dims, rays, dir_step, iso, found, t_hit):
@@ -202,8 +200,8 @@ def _plain(pool, smap, dims, rays, dir_step, iso, found, t_hit):
     c, a = composite_march_steps(sampler, rays.entry_uv, dir_step, hit)
     f, t = iso_march_steps(sampler, rays.entry_uv, dir_step, hit, iso)
     rgb = shade_hits(sampler, rays.entry_uv, dir_step, rays.direction, found, t_hit, iso)
-    return {"color": c, "alpha": a, "rgb_epilogue": apply_reference_transfer(c, a),
-            "alpha_epilogue": a, "found": f, "t_hit": t, "shade": rgb}
+    return {"rgb": apply_reference_transfer(c, a), "alpha": a, "found": f, "t_hit": t,
+            "shade": rgb}
 
 
 def _assert_equal(got, want, what):

@@ -228,6 +228,30 @@ def test_render_refuses_other_dtypes(dtype):
         TK.render_tf_grads_kernel(TFParams.reference("cpu"), vol, plan)
 
 
+@pytest.mark.parametrize("dtype,suffix", [(torch.uint8, ""), (torch.float32, "_f32"),
+                                          (torch.float64, None), (torch.float16, None),
+                                          (torch.int32, None)])
+def test_dense_entry_of_each_volume_dtype(dtype, suffix):
+    """The one choice of a dense march's C entry: a uint8 volume's bytes,
+    a float32 volume's values quantized tap by tap; other dtypes raise.
+    ``count_launch`` counts the float32 route apart."""
+    from volumerenderer_tpu_torch.ops.cuda import _launch
+
+    vol = torch.zeros(VOL_SHAPE, dtype=dtype)
+    if suffix is None:
+        with pytest.raises(ValueError, match="float32 in \\[0, 1\\] or uint8"):
+            _launch.dense_entry("composite_march", vol)
+        return
+    assert _launch.dense_entry("composite_march", vol) == "composite_march" + suffix
+
+    def wrapper():
+        pass
+
+    wrapper.launches = wrapper.f32_launches = 0
+    _launch.count_launch(wrapper, vol)
+    assert (wrapper.launches, wrapper.f32_launches) == (1, int(dtype == torch.float32))
+
+
 def test_render_of_bytes_equals_render_of_floats():
     """A uint8 volume takes the byte route; its render equals the float32
     route's on ``as_normalized_volume`` of the same bytes, bit for bit."""
@@ -350,21 +374,19 @@ def test_fused_b1_equals_plain_on_cuda(cuda_device, wrap, volume):
     epilogue) vs the plain march on ``quantize_u8`` of the volume and
     ``apply_reference_transfer``, and vs the byte route: bit for bit."""
     vol, rays, dir_step, hit = _card_scene(cuda_device, volume)
-    before = RK.composite_march_f32_cuda.launches
-    rgb_k, a_k = RK.composite_march_f32_cuda(vol, rays.entry_uv, dir_step, hit, wrap=wrap,
-                                             transfer=True)
+    march = RK.composite_march_cuda
+    before = (march.launches, march.f32_launches)
+    rgb_k, a_k = march(vol, rays.entry_uv, dir_step, hit, wrap=wrap)
     torch.cuda.synchronize()
-    assert RK.composite_march_f32_cuda.launches == before + 1
+    assert (march.launches, march.f32_launches) == (before[0] + 1, before[1] + 1)
     vol_u8 = RK.quantize_u8(vol)
     c_p, a_p = composite_march_steps(as_normalized_volume(vol_u8), rays.entry_uv, dir_step,
                                      rays.hit, wrap=wrap)
     assert float(a_p.max()) > 0.5
     assert torch.equal(rgb_k, apply_reference_transfer(c_p, a_p)) and torch.equal(a_k, a_p)
-    rgb_b, a_b = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit, wrap=wrap,
-                                         transfer=True)
-    c_f, a_f = RK.composite_march_f32_cuda(vol, rays.entry_uv, dir_step, hit, wrap=wrap)
+    rgb_b, a_b = march(vol_u8, rays.entry_uv, dir_step, hit, wrap=wrap)
+    assert march.f32_launches == before[1] + 1
     assert torch.equal(rgb_k, rgb_b) and torch.equal(a_k, a_b)
-    assert torch.equal(c_f, c_p) and torch.equal(a_f, a_p)
 
 
 @pytest.mark.cuda
@@ -377,10 +399,10 @@ def test_fused_b4_equals_byte_route_on_cuda(cuda_device, kind, volume):
     params = (TFParams.reference(cuda_device) if kind == "reference"
               else tf_params_from_numpy(device=cuda_device, **NON_REFERENCE))
     tf = tf_scalars(params)
-    before = TK.tf_march_f32_cuda.launches
-    got = TK.tf_march_f32_cuda(vol, rays.entry_uv, dir_step, hit, tf)
+    before = TK.tf_march_cuda.f32_launches
+    got = TK.tf_march_cuda(vol, rays.entry_uv, dir_step, hit, tf)
     torch.cuda.synchronize()
-    assert TK.tf_march_f32_cuda.launches == before + 1
+    assert TK.tf_march_cuda.f32_launches == before + 1
     vol_u8 = RK.quantize_u8(vol)
     byte = TK.tf_march_cuda(vol_u8, rays.entry_uv, dir_step, hit, tf)
     assert all(torch.equal(a, b) for a, b in zip(got, byte))
@@ -394,18 +416,20 @@ def test_fused_b4_equals_byte_route_on_cuda(cuda_device, kind, volume):
 @pytest.mark.parametrize("fmt", ["narrow", "pair16"])
 def test_pooled_epilogue_equals_transfer_on_cuda(cuda_device, fmt):
     """B6 and B7 with the transfer in their epilogue vs
-    ``apply_reference_transfer`` of their color, and vs the dense fused
-    render of the float32 volume the pool was built from: bit for bit."""
+    ``apply_reference_transfer`` of the plain march's color on the bytes the
+    pool was built from, and vs the dense fused render of the float32
+    volume: bit for bit."""
     vol, rays, dir_step, hit = _card_scene(cuda_device, "turbulence")
     build = {"narrow": RK.build_slab_pool_narrow, "pair16": RK.build_slab_pool}[fmt]
     march = {"narrow": RK.composite_march_pooled_narrow_cuda,
              "pair16": RK.composite_march_pooled_pair16_cuda}[fmt]
     pool, smap = build(RK.quantize_u8(vol))
     before = march.launches
-    rgb_k, a_k = march(pool, smap, rays.entry_uv, dir_step, hit, transfer=True)
+    rgb_k, a_k = march(pool, smap, rays.entry_uv, dir_step, hit)
     torch.cuda.synchronize()
     assert march.launches == before + 1
-    c, a = march(pool, smap, rays.entry_uv, dir_step, hit)
+    c, a = composite_march_steps(as_normalized_volume(RK.quantize_u8(vol)), rays.entry_uv,
+                                 dir_step, rays.hit)
     assert float(a.max()) > 0.5
     assert torch.equal(rgb_k, apply_reference_transfer(c, a)) and torch.equal(a_k, a)
     Z, Y, X = vol.shape

@@ -17,7 +17,8 @@ import torch
 from volumerenderer_tpu_torch import as_normalized_volume
 from volumerenderer_tpu_torch.interop import rays_from_numpy
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
-from volumerenderer_tpu_torch.ops.raycast import composite_march_steps, step_sizes
+from volumerenderer_tpu_torch.ops.raycast import (apply_reference_transfer, composite_march_steps,
+                                                  step_sizes)
 
 VOL_SHAPE = (8, 16, 128)  # (Z, Y, X), the interpret-mode tests' volume
 
@@ -87,7 +88,7 @@ def _wrapper_inputs():
 
     rays = generate_rays(Camera(width=16, height=8), device="cpu")
     Z, Y, X = VOL_SHAPE
-    return dict(vol_u8=torch.from_numpy(_volume_u8()), entry_uv=rays.entry_uv,
+    return dict(volume=torch.from_numpy(_volume_u8()), entry_uv=rays.entry_uv,
                 dir_step=(rays.direction * step_sizes((X, Y, Z), "cpu")).contiguous(),
                 hit=rays.hit.to(torch.uint8))
 
@@ -95,17 +96,18 @@ def _wrapper_inputs():
 def test_wrapper_cpu_runs_plain_version():
     before = RK.composite_march_cuda.launches
     kw = _wrapper_inputs()
-    c, a = RK.composite_march_cuda(**kw, max_samples=16)
-    ref = composite_march_steps(as_normalized_volume(kw["vol_u8"]), kw["entry_uv"],
+    rgb, a = RK.composite_march_cuda(**kw, max_samples=16)
+    ref = composite_march_steps(as_normalized_volume(kw["volume"]), kw["entry_uv"],
                                 kw["dir_step"], kw["hit"].bool(), 16)
-    assert torch.equal(c, ref[0]) and torch.equal(a, ref[1])
+    assert torch.equal(rgb, apply_reference_transfer(*ref)) and torch.equal(a, ref[1])
     assert RK.composite_march_cuda.launches == before  # no kernel launched on CPU
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("vol_u8", lambda kw: kw["vol_u8"].float(), "uint8"),
-    ("vol_u8", lambda kw: kw["vol_u8"][0], "uint8"),
-    ("vol_u8", lambda kw: kw["vol_u8"].transpose(0, 2), "contiguous"),
+    pytest.param("volume", lambda kw: kw["volume"].double(), "uint8", id="vol_u8-<lambda>-uint8_0"),
+    pytest.param("volume", lambda kw: kw["volume"][0], "uint8", id="vol_u8-<lambda>-uint8_1"),
+    pytest.param("volume", lambda kw: kw["volume"].transpose(0, 2), "contiguous",
+                 id="vol_u8-<lambda>-contiguous"),
     ("entry_uv", lambda kw: kw["entry_uv"].double(), "float32"),
     ("entry_uv", lambda kw: kw["entry_uv"][:, :-1].contiguous(), "float32"),
     ("dir_step", lambda kw: kw["dir_step"].reshape(-1, 3), "float32"),
@@ -158,7 +160,7 @@ def test_kernel_matches_plain_on_cuda(cuda_device, wrap):
     dir_step = (rays.direction * step_sizes((X, Y, Z), cuda_device)).contiguous()
     hit = rays.hit.to(torch.uint8)
     before = RK.composite_march_cuda.launches
-    c_k, a_k = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit, wrap=wrap)
+    rgb_k, a_k = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit, wrap=wrap)
     torch.cuda.synchronize()
     assert RK.composite_march_cuda.launches == before + 1
     c_p, a_p = composite_march_steps(as_normalized_volume(vol_u8), rays.entry_uv, dir_step,
@@ -166,8 +168,8 @@ def test_kernel_matches_plain_on_cuda(cuda_device, wrap):
     assert float(a_p.max()) > 0.5
     # a 1-ulp difference at the 0.99 early-out costs one composite step
     # (pa <= 0.01); allow a handful of such pixels, none larger
-    for k, p in ((c_k, c_p), (a_k, a_p)):
-        d = (k - p).abs()
+    for k, p in ((rgb_k, apply_reference_transfer(c_p, a_p)), (a_k, a_p)):
+        d = (k - p).abs().reshape(*a_p.shape, -1).amax(-1)  # per pixel
         assert float(d.max()) <= 1.5e-2
         assert int((d > 1e-5).sum()) <= 4
 
@@ -181,9 +183,9 @@ def test_kernel_goldens_on_cuda(cuda_device):
 
     vol = as_normalized_volume(turbulence_volume((32, 32, 32), seed=99), device=cuda_device)
     rays = generate_rays(Camera(width=64, height=48), device=cuda_device)
-    before = RK.composite_march_f32_cuda.launches  # render: B1 on the float32 volume
+    before = RK.composite_march_cuda.f32_launches  # render: B1 on the float32 volume
     rgb, a = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (32, 32, 32)).render(vol)
-    assert RK.composite_march_f32_cuda.launches == before + 1
+    assert RK.composite_march_cuda.f32_launches == before + 1
     assert abs(float(rgb.sum()) - 3667.208252) < 0.02
     assert abs(float(a.sum()) - 3046.968750) < 0.02
 
@@ -191,7 +193,7 @@ def test_kernel_goldens_on_cuda(cuda_device):
 @pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices_on_cuda(cuda_device):
     kw = _wrapper_inputs()
-    kw["vol_u8"] = kw["vol_u8"].to(cuda_device)
+    kw["volume"] = kw["volume"].to(cuda_device)
     with pytest.raises(ValueError, match="is on cpu"):
         RK.composite_march_cuda(**kw)
 

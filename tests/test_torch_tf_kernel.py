@@ -24,7 +24,7 @@ from volumerenderer_tpu_torch.interop import rays_from_numpy, tf_params_from_num
 from volumerenderer_tpu_torch.io.synthetic import turbulence_volume
 from volumerenderer_tpu_torch.ops.cuda import raycast_kernel as RK
 from volumerenderer_tpu_torch.ops.cuda import tf_kernel as TK
-from volumerenderer_tpu_torch.ops.raycast import step_sizes
+from volumerenderer_tpu_torch.ops.raycast import apply_reference_transfer, step_sizes
 
 VOL_SHAPE = (8, 16, 128)  # (Z, Y, X), the interpret-mode tests' volume
 NON_REFERENCE = dict(alpha_scale=0.45, color_gain=0.9, color_bias=0.05,
@@ -125,7 +125,7 @@ def test_render_tf_kernel_on_cpu_matches_jax_render_tf_and_grad():
     g_ref = jax.grad(loss_ref)(_jax_params())
     rgb_ref, a_ref = render_tf_jax(_jax_params(), vol_j, e, d, h, max_samples=24)
 
-    before = (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches)
+    before = (TK.tf_march_cuda.launches, TK.tf_march_cuda.f32_launches)
     f = TK.make_render_tf_kernel(_plan((e, d, h)))
     params = TFParams(*(t.requires_grad_(True) for t in _params()))
     rgb, a = f(params, as_normalized_volume(vol_u8, device="cpu"))
@@ -139,7 +139,7 @@ def test_render_tf_kernel_on_cpu_matches_jax_render_tf_and_grad():
         np.testing.assert_allclose(g_t.numpy(), g_r, rtol=2e-4,
                                    atol=2e-4 * max(1.0, np.abs(g_r).max()), err_msg=name)
     # no kernel launched on CPU, on either route
-    assert (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches) == before
+    assert (TK.tf_march_cuda.launches, TK.tf_march_cuda.f32_launches) == before
 
 
 def test_tf_fit_step_fast_matches_jax_step():
@@ -208,29 +208,30 @@ def test_render_tf_grads_kernel_returns_rgb_and_partials():
 def _wrapper_inputs():
     rays = generate_rays(Camera(width=16, height=8), device="cpu")
     Z, Y, X = VOL_SHAPE
-    return dict(vol_u8=torch.from_numpy(_volume_u8()), entry_uv=rays.entry_uv,
+    return dict(volume=torch.from_numpy(_volume_u8()), entry_uv=rays.entry_uv,
                 dir_step=(rays.direction * step_sizes((X, Y, Z), "cpu")).contiguous(),
                 hit=rays.hit.to(torch.uint8), tf_scalars=tf_scalars(_params()))
 
 
 def test_wrapper_cpu_runs_plain_version():
-    before = (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches)
+    before = (TK.tf_march_cuda.launches, TK.tf_march_cuda.f32_launches)
     kw = _wrapper_inputs()
     got = TK.tf_march_cuda(**kw, max_samples=16)
-    ref = tf_march_steps(as_normalized_volume(kw["vol_u8"]), kw["entry_uv"], kw["dir_step"],
+    ref = tf_march_steps(as_normalized_volume(kw["volume"]), kw["entry_uv"], kw["dir_step"],
                          kw["hit"].bool(), kw["tf_scalars"], 16)
     assert len(got) == 7 and all(torch.equal(g, r) for g, r in zip(got, ref))
     assert float(got[2].max()) > 0
-    vol = as_normalized_volume(kw.pop("vol_u8"))
-    got_f32 = TK.tf_march_f32_cuda(vol, **kw, max_samples=16)
+    vol = as_normalized_volume(kw.pop("volume"))
+    got_f32 = TK.tf_march_cuda(vol, **kw, max_samples=16)
     assert all(torch.equal(g, r) for g, r in zip(got_f32, ref))
     # no kernel launched on CPU, on either route
-    assert (TK.tf_march_cuda.launches, TK.tf_march_f32_cuda.launches) == before
+    assert (TK.tf_march_cuda.launches, TK.tf_march_cuda.f32_launches) == before
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("vol_u8", lambda kw: kw["vol_u8"].float(), "uint8"),
-    ("vol_u8", lambda kw: kw["vol_u8"].transpose(0, 2), "contiguous"),
+    pytest.param("volume", lambda kw: kw["volume"].double(), "uint8", id="vol_u8-<lambda>-uint8"),
+    pytest.param("volume", lambda kw: kw["volume"].transpose(0, 2), "contiguous",
+                 id="vol_u8-<lambda>-contiguous"),
     ("entry_uv", lambda kw: kw["entry_uv"].double(), "float32"),
     ("dir_step", lambda kw: kw["dir_step"][:, :-1].contiguous(), "float32"),
     ("hit", lambda kw: kw["hit"].bool(), "uint8"),
@@ -328,11 +329,13 @@ def test_kernel_matches_plain_on_cuda(cuda_device, kind):
 @pytest.mark.cuda
 def test_kernel_at_reference_params_equals_compositing_march_on_cuda(cuda_device):
     """At TFParams.reference() (s*1 + 0 == s) color and alpha are the
-    compositing march kernel's, bit for bit."""
+    compositing march kernel's, bit for bit: its rgb is the reference
+    transfer of this color."""
     vol_u8, rays, dir_step = _card_scene(cuda_device)
     hit = rays.hit.to(torch.uint8)
     got = TK.tf_march_cuda(vol_u8, rays.entry_uv, dir_step, hit,
                            tf_scalars(TFParams.reference(cuda_device)))
-    c, a = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit)
+    rgb, a = RK.composite_march_cuda(vol_u8, rays.entry_uv, dir_step, hit)
     torch.cuda.synchronize()
-    assert torch.equal(got[0], c) and torch.equal(got[1], a)
+    assert torch.equal(apply_reference_transfer(got[0], got[1]), rgb)
+    assert torch.equal(got[1], a)

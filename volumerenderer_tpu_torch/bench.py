@@ -91,12 +91,12 @@ VOXEL_METRIC = "voxelgrad_step_frames_1024sq_256cube"
 HEADLINE = "rays_per_s_per_chip_1024sq_256cube"
 # the kernels the bench's paths launch, by the name chip_smoke.py's kernels
 # line gives them; their sources, built together before the first metric
-KERNELS = {"composite_march": RK.composite_march_f32_cuda,
+KERNELS = {"composite_march": RK.composite_march_cuda,
            "iso_march": IK.iso_march_cuda,
            "iso_shade": IK.iso_shade_cuda,
            "composite_march_pooled_narrow": RK.composite_march_pooled_narrow_cuda,
            "composite_march_pooled_pair16": RK.composite_march_pooled_pair16_cuda,
-           "tf_march": TK.tf_march_f32_cuda,
+           "tf_march": TK.tf_march_cuda,
            "voxel_grad": VK.voxel_grad_cuda}
 SOURCES = ("composite_march", "iso_march", "iso_shade", "tf_march", "voxel_grad")
 

@@ -290,8 +290,8 @@ int launch(const void* vol, void* cells, int X, int Y, int Z, long long sy, long
 // the least byte low, the largest high) of the (Z, Y, X) volume at vol, x
 // contiguous, rows sy and planes sz elements apart, on `stream`, and returns
 // cudaGetLastError() (0 on success).  repeat: 0 clamp, 1 wrap.
-extern "C" int block_grid_u8_launch(const void* vol, void* cells, int X, int Y, int Z, int repeat,
-                                    long long sy, long long sz, void* stream) {
+extern "C" int block_grid_launch(const void* vol, void* cells, int X, int Y, int Z, int repeat,
+                                 long long sy, long long sz, void* stream) {
   return repeat ? launch<uint8_t, true>(vol, cells, X, Y, Z, sy, sz, stream)
                 : launch<uint8_t, false>(vol, cells, X, Y, Z, sy, sz, stream);
 }

@@ -35,8 +35,8 @@
 // quantizes each tap as it reads it (trilinear.cuh, VolumeSampler<float>),
 // so a frame touches only the voxels its rays sample.  The f32 volume does
 // not fit the 50 MB L2, so a field whose rays run deep reads up to four
-// times the bytes of the u8 route.  With rgb != 0 the epilogue also writes
-// the displayed image (the reference transfer), so a frame is one launch.
+// times the bytes of the u8 route.  The epilogue writes the displayed image
+// (the reference transfer), so a frame is one launch.
 // The wrap and the width of the voxel offsets are compile-time choices of
 // the sampler, so the per-tap index math carries no wrap test and no 64-bit
 // sums where the volume has at most 2^32 voxels.
@@ -60,7 +60,7 @@
 // alternatives).  Clamp only, as the TPU pooled plans: with GL_REPEAT the
 // last slab's z + 1 tap would wrap into slab 0.
 //
-// With a block grid (a CompositeBound of ops/raycast.py, CompositingPlan.bind:
+// With a block grid (a BlockBound of ops/blockgrid.py, CompositingPlan.bind:
 // per 8^3 block of tap anchors the largest byte its taps read, block_grid.cuh,
 // the cells iso_march.cu reads) the march skips exactly, as the TPU plan's
 // bind does with its occupancy word tables: a sample whose anchor block reads
@@ -95,14 +95,13 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
-// kRgb: the epilogue writes the displayed image, rgb (H, W, 3) = (1 - c,
-// 1 - c, 1) (ops/raycast.py::apply_reference_transfer, bit for bit), into
-// `out`, with alpha; otherwise `out` is the (H, W) color c.  Grid: NoGrid
-// (every sample is taken; the grid argument is empty and last, so this
-// instantiation is the march without a bound) or a BlockGrid
-// (block_grid.cuh): a sample whose anchor block reads only zero bytes is 0
-// and composites as a no-op, so it is not taken.
-template <class Sampler, bool kRgb, class Grid>
+// The epilogue writes the displayed image (H, W, 3) = (1 - c, 1 - c, 1)
+// (ops/raycast.py::apply_reference_transfer, bit for bit) into `out`, with
+// alpha.  Grid: NoGrid (every sample is taken; the grid argument is empty
+// and last, so this instantiation is the march without a bound) or a
+// BlockGrid (block_grid.cuh): a sample whose anchor block reads only zero
+// bytes is 0 and composites as a no-op, so it is not taken.
+template <class Sampler, class Grid>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 composite_march_kernel(const float* __restrict__ entry_uv, const float* __restrict__ dir_step,
                        const uint8_t* __restrict__ hit, Sampler sample, int H, int W,
@@ -142,36 +141,23 @@ composite_march_kernel(const float* __restrict__ entry_uv, const float* __restri
       if (!(a <= 0.99f)) break;
     }
   }
-  if constexpr (kRgb) {
-    const float inv = 1.0f - c;
-    out[3 * ray + 0] = inv;
-    out[3 * ray + 1] = inv;
-    out[3 * ray + 2] = 1.0f;
-  } else {
-    out[ray] = c;
-  }
+  const float inv = 1.0f - c;
+  out[3 * ray + 0] = inv;
+  out[3 * ray + 1] = inv;
+  out[3 * ray + 2] = 1.0f;
   alpha[ray] = a;
 }
 
 template <class Sampler, class Grid>
 int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
-           Grid grid, int H, int W, int max_samples, int rgb, void* out, void* alpha,
-           void* stream) {
+           Grid grid, int H, int W, int max_samples, void* out, void* alpha, void* stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 blocks((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto e = static_cast<const float*>(entry_uv);
-  const auto d = static_cast<const float*>(dir_step);
-  const auto h = static_cast<const uint8_t*>(hit);
-  if (rgb) {
-    composite_march_kernel<Sampler, true, Grid><<<blocks, block, 0, s>>>(
-        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha),
-        grid);
-  } else {
-    composite_march_kernel<Sampler, false, Grid><<<blocks, block, 0, s>>>(
-        e, d, h, sample, H, W, max_samples, static_cast<float*>(out), static_cast<float*>(alpha),
-        grid);
-  }
+  composite_march_kernel<Sampler, Grid><<<blocks, block, 0, s>>>(
+      static_cast<const float*>(entry_uv), static_cast<const float*>(dir_step),
+      static_cast<const uint8_t*>(hit), sample, H, W, max_samples, static_cast<float*>(out),
+      static_cast<float*>(alpha), grid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,22 +165,22 @@ int launch(const void* entry_uv, const void* dir_step, const void* hit, Sampler 
 template <class Sampler>
 int launch_grid(const void* entry_uv, const void* dir_step, const void* hit, Sampler sample,
                 const void* grid, int X, int Y, int Z, bool repeat, int H, int W,
-                int max_samples, int rgb, void* out, void* alpha, void* stream) {
+                int max_samples, void* out, void* alpha, void* stream) {
   if (grid) {
     return launch(entry_uv, dir_step, hit, sample, vrt::block_grid(grid, X, Y, Z, repeat), H, W,
-                  max_samples, rgb, out, alpha, stream);
+                  max_samples, out, alpha, stream);
   }
-  return launch(entry_uv, dir_step, hit, sample, vrt::NoGrid{}, H, W, max_samples, rgb, out,
-                alpha, stream);
+  return launch(entry_uv, dir_step, hit, sample, vrt::NoGrid{}, H, W, max_samples, out, alpha,
+                stream);
 }
 
 template <vrt::PoolFormat F>
 int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, const void* pool,
                   const void* slab_map, const void* grid, int H, int W, int X, int Y, int Z,
-                  int n_slots, int max_samples, int rgb, void* out, void* alpha, void* stream) {
+                  int n_slots, int max_samples, void* out, void* alpha, void* stream) {
   return vrt::with_pool_sampler<F>(pool, slab_map, n_slots, X, Y, Z, [&](auto sample) {
     return launch_grid(entry_uv, dir_step, hit, sample, grid, X, Y, Z, false, H, W, max_samples,
-                       rgb, out, alpha, stream);
+                       out, alpha, stream);
   });
 }
 
@@ -203,10 +189,10 @@ int launch_pooled(const void* entry_uv, const void* dir_step, const void* hit, c
 template <class T>
 int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, const void* vol,
                  const void* grid, int H, int W, int X, int Y, int Z, int max_samples,
-                 int repeat, int rgb, void* out, void* alpha, void* stream) {
+                 int repeat, void* out, void* alpha, void* stream) {
   return vrt::with_volume_sampler<T>(vol, X, Y, Z, repeat != 0, [&](auto sample) {
     return launch_grid(entry_uv, dir_step, hit, sample, grid, X, Y, Z, repeat != 0, H, W,
-                       max_samples, rgb, out, alpha, stream);
+                       max_samples, out, alpha, stream);
   });
 }
 
@@ -214,18 +200,18 @@ int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, co
 
 // Each launch runs the march on `stream` for an H x W ray image and returns
 // cudaGetLastError() (0 on success).  Pointers are device pointers:
-// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), alpha (H*W f32), and out:
-// the color (H*W f32), or with rgb != 0 the displayed image (H*W*3 f32);
-// grid is null (every sample is taken) or the block grid of the volume for
-// this wrap, ceil(Z/8)*ceil(Y/8)*ceil(X/8) pairs of u8 (least, largest).
+// entry_uv and dir_step (H*W*3 f32), hit (H*W u8), alpha (H*W f32), and out,
+// the displayed image (H*W*3 f32); grid is null (every sample is taken) or
+// the block grid of the volume for this wrap, ceil(Z/8)*ceil(Y/8)*ceil(X/8)
+// pairs of u8 (least, largest).
 
 // B1: vol (Z*Y*X u8, x fastest); repeat != 0 selects GL_REPEAT wrapping.
 extern "C" int composite_march_launch(const void* entry_uv, const void* dir_step, const void* hit,
                                       const void* vol, const void* grid, int H, int W, int X,
-                                      int Y, int Z, int max_samples, int repeat, int rgb,
-                                      void* out, void* alpha, void* stream) {
+                                      int Y, int Z, int max_samples, int repeat, void* out,
+                                      void* alpha, void* stream) {
   return launch_dense<uint8_t>(entry_uv, dir_step, hit, vol, grid, H, W, X, Y, Z, max_samples,
-                               repeat, rgb, out, alpha, stream);
+                               repeat, out, alpha, stream);
 }
 
 // B1 on the float32 volume (Z*Y*X f32, x fastest), each tap quantized to 8
@@ -234,10 +220,9 @@ extern "C" int composite_march_launch(const void* entry_uv, const void* dir_step
 extern "C" int composite_march_f32_launch(const void* entry_uv, const void* dir_step,
                                           const void* hit, const void* vol, const void* grid,
                                           int H, int W, int X, int Y, int Z, int max_samples,
-                                          int repeat, int rgb, void* out, void* alpha,
-                                          void* stream) {
+                                          int repeat, void* out, void* alpha, void* stream) {
   return launch_dense<float>(entry_uv, dir_step, hit, vol, grid, H, W, X, Y, Z, max_samples,
-                             repeat, rgb, out, alpha, stream);
+                             repeat, out, alpha, stream);
 }
 
 // B6: pool (n_slots*16*Y*X f32 pair values), slab_map (Z/8 i32), clamp.
@@ -245,11 +230,11 @@ extern "C" int composite_march_pooled_narrow_launch(const void* entry_uv, const 
                                                     const void* hit, const void* pool,
                                                     const void* slab_map, const void* grid,
                                                     int H, int W, int X, int Y, int Z,
-                                                    int n_slots, int max_samples, int rgb,
-                                                    void* out, void* alpha, void* stream) {
+                                                    int n_slots, int max_samples, void* out,
+                                                    void* alpha, void* stream) {
   return launch_pooled<vrt::PoolFormat::kNarrowF32>(entry_uv, dir_step, hit, pool, slab_map,
                                                     grid, H, W, X, Y, Z, n_slots, max_samples,
-                                                    rgb, out, alpha, stream);
+                                                    out, alpha, stream);
 }
 
 // B7: pool (n_slots*16*Y*(X/2) i32 pair16 words), slab_map (Z/8 i32), clamp.
@@ -257,11 +242,11 @@ extern "C" int composite_march_pooled_pair16_launch(const void* entry_uv, const 
                                                     const void* hit, const void* pool,
                                                     const void* slab_map, const void* grid,
                                                     int H, int W, int X, int Y, int Z,
-                                                    int n_slots, int max_samples, int rgb,
-                                                    void* out, void* alpha, void* stream) {
+                                                    int n_slots, int max_samples, void* out,
+                                                    void* alpha, void* stream) {
   return launch_pooled<vrt::PoolFormat::kPair16>(entry_uv, dir_step, hit, pool, slab_map, grid,
-                                                 H, W, X, Y, Z, n_slots, max_samples, rgb, out,
-                                                 alpha, stream);
+                                                 H, W, X, Y, Z, n_slots, max_samples, out, alpha,
+                                                 stream);
 }
 
 extern "C" const char* composite_march_error_string(int code) {

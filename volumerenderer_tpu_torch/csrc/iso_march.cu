@@ -32,8 +32,8 @@
 // volume (trilinear.cuh's VolumeSampler: the wrap and 32-bit voxel offsets
 // fixed at compile time where the volume has at most 2^32 voxels), the
 // lookahead carried so each step gathers once, and a thread leaves as soon
-// as its ray hits or exits.  With a block grid (an IsoBound
-// of ops/isosurface.py: per 8^3 block of tap anchors the least and largest
+// as its ray hits or exits.  With a block grid (a BlockBound
+// of ops/blockgrid.py: per 8^3 block of tap anchors the least and largest
 // byte its taps read, block_grid.cuh, shared with composite_march.cu)
 // the march skips exactly, as the TPU plan's bind does with its word tables.
 // The crossing test needs only each sample's side of iso.  A sample whose

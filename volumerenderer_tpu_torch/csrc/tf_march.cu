@@ -123,7 +123,7 @@ template <class T>
 int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, const void* vol,
                  const void* tf, int H, int W, int X, int Y, int Z, int max_samples, void* out,
                  void* stream) {
-  return vrt::with_volume_sampler<T>(vol, X, Y, Z, false, [&](auto sample) {
+  return vrt::with_volume_sampler<T, false>(vol, X, Y, Z, [&](auto sample) {
     return launch(entry_uv, dir_step, hit, sample, tf, H, W, max_samples, out, stream);
   });
 }

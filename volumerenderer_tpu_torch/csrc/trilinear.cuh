@@ -164,18 +164,25 @@ struct VolumeSampler {
 };
 
 // Host side: returns launch(sampler) with the VolumeSampler of the dense
-// (Z, Y, X) volume of T at vol, its wrap and its offset type (uint32_t where
-// the volume has at most 2^32 voxels) chosen here from the run-time values.
-template <class T, class Launch>
-inline int with_volume_sampler(const void* vol, int X, int Y, int Z, bool repeat,
-                               Launch&& launch) {
+// (Z, Y, X) volume of T at vol and the wrap kRepeat, its offset type
+// (uint32_t where the volume has at most 2^32 voxels) chosen here from the
+// run-time extent.  A clamp-only march (B4, B5) calls this one alone, so it
+// builds no repeat instantiation.
+template <class T, bool kRepeat, class Launch>
+inline int with_volume_sampler(const void* vol, int X, int Y, int Z, Launch&& launch) {
   const auto v = static_cast<const T*>(vol);
   const bool small = static_cast<size_t>(X) * static_cast<size_t>(Y) * static_cast<size_t>(Z) <=
                      (size_t{1} << 32);
-  if (small && repeat) return launch(VolumeSampler<T, true, uint32_t>{v, X, Y, Z});
-  if (small) return launch(VolumeSampler<T, false, uint32_t>{v, X, Y, Z});
-  if (repeat) return launch(VolumeSampler<T, true, size_t>{v, X, Y, Z});
-  return launch(VolumeSampler<T, false, size_t>{v, X, Y, Z});
+  if (small) return launch(VolumeSampler<T, kRepeat, uint32_t>{v, X, Y, Z});
+  return launch(VolumeSampler<T, kRepeat, size_t>{v, X, Y, Z});
+}
+
+// As above, the wrap too chosen from the run-time flag.
+template <class T, class Launch>
+inline int with_volume_sampler(const void* vol, int X, int Y, int Z, bool repeat,
+                               Launch&& launch) {
+  if (repeat) return with_volume_sampler<T, true>(vol, X, Y, Z, launch);
+  return with_volume_sampler<T, false>(vol, X, Y, Z, launch);
 }
 
 // The two slab-pool layouts of volumerenderer_tpu_torch/ops/cuda/

@@ -288,7 +288,7 @@ int launch_dense(const void* entry_uv, const void* dir_step, const void* hit, co
                  const void* tf, const void* gc, const void* gaT_term, const void* P_tot, int H,
                  int W, int X, int Y, int Z, int max_samples, void* g_vol, void* stats,
                  void* stream) {
-  return vrt::with_volume_sampler<T>(vol, X, Y, Z, false, [&](auto sample) {
+  return vrt::with_volume_sampler<T, false>(vol, X, Y, Z, [&](auto sample) {
     return launch(entry_uv, dir_step, hit, sample, tf, gc, gaT_term, P_tot, H, W, X, Y, Z,
                   max_samples, g_vol, stats, stream);
   });

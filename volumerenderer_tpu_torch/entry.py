@@ -24,7 +24,7 @@ from .camera import Camera, generate_rays
 from .diff.transfer import TFParams
 from .io.synthetic import sphere_volume
 from .models import plan_compositing
-from .ops.cuda.raycast_kernel import composite_march_f32_cuda
+from .ops.cuda.raycast_kernel import composite_march_cuda
 from .ops.raycast import render_compositing
 from .ops.sampling import as_normalized_volume
 from .parallel.bricks import make_brick_mesh, render_bricksharded, shard_volume
@@ -49,8 +49,8 @@ def _entry(size: tuple[int, int], dims: tuple[int, int, int], device):
         plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit, (X, Y, Z))
 
         def fn(volume, entry_uv, dir_step, hit):
-            rgb, _ = composite_march_f32_cuda(volume, entry_uv, dir_step, hit,
-                                              plan.max_samples, plan.wrap, transfer=True)
+            rgb, _ = composite_march_cuda(volume, entry_uv, dir_step, hit, plan.max_samples,
+                                          plan.wrap)
             return rgb
 
         return fn, (vol, plan.entry_uv, plan.dir_step, plan.hit)
@@ -69,8 +69,8 @@ def entry(device="cuda"):
 
     On the card (the default) the arguments are the volume and a
     ``plan_compositing`` plan's ``entry_uv``, ``dir_step`` and ``hit``, and
-    ``fn`` is one launch of B1 (``composite_march_f32_cuda`` with the
-    transfer in its epilogue), what ``CompositingPlan.render`` launches.  With
+    ``fn`` is one launch of B1 (``composite_march_cuda`` on the float32
+    volume, the transfer in its epilogue), what ``CompositingPlan.render`` launches.  With
     ``device="cpu"`` the arguments are the volume and the rays, and ``fn`` is
     the plain ``render_compositing``.  Without a card, and without
     ``device="cpu"``, it raises torch's own "no CUDA" error, as every entry

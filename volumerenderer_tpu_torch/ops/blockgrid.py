@@ -1,6 +1,7 @@
-"""The 8^3 block grid of a volume or a slab pool, shared by the exact skips of
-the isosurface marches (``ops/isosurface.py::IsoBound``) and of the
-compositing marches (``ops/raycast.py::CompositeBound``).
+"""The 8^3 block grid of a volume or a slab pool and the bound that carries
+it (:class:`BlockBound`), shared by the exact skips of the isosurface
+marches (``ops/isosurface.py::classify_blocks``) and of the compositing
+marches (``ops/raycast.py::empty_blocks``).
 
 Per 8^3 block of trilinear tap anchors a grid cell holds the least and the
 largest byte the taps of those anchors can read: over the texels [8b, 8b + 8]
@@ -10,11 +11,12 @@ sampler's own texel math) and skips the sample where the cell decides it:
 the isosurface where the block lies wholly on one side of the isovalue, the
 compositing where its largest byte is 0 (a zero sample composites as a
 no-op).  A bound records the data it was made from (:func:`data_source`), so
-a render with other data raises (:func:`check_source`).  Every grid build
+a render with other data raises (:func:`check_bound`).  Every grid build
 is one ``vr.grid`` span (``utils/timer.py::span``).
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 
 import torch
@@ -22,38 +24,81 @@ import torch
 from ..utils.timer import span
 from .sampling import WRAP_MODES, texel_coords
 
-__all__ = ["ISO_BLOCK", "data_source", "check_source", "check_made_for", "anchor_cells",
+__all__ = ["ISO_BLOCK", "BlockBound", "data_source", "check_bound", "anchor_cells",
            "check_grid", "iso_block_grid", "iso_grid_from_pool", "iso_grid_from_mip8"]
 
 ISO_BLOCK = 8           # voxels per side of a bound grid's block
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockBound:
+    """The exact skip of one plan's marches (``CompositingPlan.bind``,
+    ``IsosurfacePlan.bind``): the (X, Y, Z) dims and wrap mode of a volume,
+    its block grid and the data it was made from, kept together so that a
+    march can refuse a grid made for another volume shape, wrap or volume
+    (:func:`check_bound`).
+
+    ``grid`` is the (ceil(Z/8), ceil(Y/8), ceil(X/8), 2) uint8 grid (least,
+    largest byte per block of tap anchors; a grid from a max-only mip has
+    least 0).  ``source`` (:func:`data_source`) names the tensors the grid
+    describes: the volume, or a slab pool and its map; empty for a bound
+    built by hand, which only the low-level marches take.  ``has_empty``:
+    the grid holds a block to skip (``CompositingPlan.render`` marches
+    without a grid that skips nothing); an isosurface bind leaves it True.
+    ``iso``: the isovalue of an isosurface bind, None for a compositing
+    one; a march refuses a bound made for another isovalue, so the two
+    plans' bounds cannot be crossed."""
+
+    dims: tuple
+    wrap: str
+    grid: torch.Tensor
+    source: tuple = ()
+    has_empty: bool = True
+    iso: float | None = None
+
+
 def data_source(*tensors) -> tuple:
     """Who the tensors are: a weak reference to each and its version counter
-    (which every in-place change bumps), for :func:`check_source`."""
-    return tuple((weakref.ref(t), None if t.is_inference() else t._version) for t in tensors)
+    (which every in-place change bumps), for :func:`check_bound`.  An
+    inference-mode tensor has no version counter, so a bound could not see
+    it written in place: it raises."""
+    for t in tensors:
+        if t.is_inference():
+            raise ValueError("an inference-mode tensor has no version counter, so a bound "
+                             "cannot tell when it is written in place: bind a normal tensor")
+    return tuple((weakref.ref(t), t._version) for t in tensors)
 
 
-def check_source(source: tuple, *tensors) -> None:
-    """Raise ValueError unless ``tensors`` are the very tensors ``source``
-    (:func:`data_source`) names, unchanged since (no in-place write)."""
-    same = len(tensors) == len(source) and all(
-        ref() is t and v == (None if t.is_inference() else t._version)
-        for (ref, v), t in zip(source, tensors))
-    if not same:
-        raise ValueError("the bound was made from other data than this render's (another "
-                         "volume or pool, or one changed since): bind it from this one")
-
-
-def check_made_for(bound, dims, wrap: str) -> None:
-    """Raise ValueError unless ``bound`` (its ``dims`` and ``wrap``) was made
-    for a volume of ``dims`` (X, Y, Z; ``None`` skips that check) and
-    ``wrap``."""
+def check_bound(bound, dims, wrap: str, iso=None, device=None, data=None):
+    """The block grid of ``bound`` after checking that it is a
+    :class:`BlockBound` made for this march: the isovalue ``iso`` (None for
+    the compositing marches), the volume's (X, Y, Z) ``dims`` (``None``
+    skips that check and the grid's), ``wrap``, and, given ``data``, from
+    those very tensors, unchanged since (no in-place write); given
+    ``device``, the grid lies there.  None for no bound; any mismatch
+    raises."""
+    if bound is None:
+        return None
+    if not isinstance(bound, BlockBound):
+        raise TypeError(f"bound must be a BlockBound (a plan's bind), got "
+                        f"{type(bound).__name__}")
+    want = None if iso is None else float(iso)
+    if want != bound.iso:
+        raise ValueError(f"the bound was made for iso {bound.iso!r}, not {want!r}")
     if dims is not None and tuple(int(d) for d in dims) != bound.dims:
         raise ValueError(f"the bound was made for a volume of (X, Y, Z) = {bound.dims}, "
                          f"not {tuple(dims)}")
     if wrap != bound.wrap:
         raise ValueError(f"the bound was made for wrap={bound.wrap!r}, not {wrap!r}")
+    if data is not None:
+        same = len(data) == len(bound.source) and all(
+            ref() is t and v == t._version for (ref, v), t in zip(bound.source, data))
+        if not same:
+            raise ValueError("the bound was made from other data than this render's (another "
+                             "volume or pool, or one changed since): bind it from this one")
+    if dims is not None:
+        check_grid(bound.grid, dims, device)
+    return bound.grid
 
 
 def _block_counts(dims):

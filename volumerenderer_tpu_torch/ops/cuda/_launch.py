@@ -11,6 +11,7 @@ from ..sampling import WRAP_MODES
 from . import _build
 
 INT32_MAX = 2**31 - 1
+SLAB_H = 16  # pool slab height: the slot of z-block b holds z rows [8b, 8b + 16)
 
 
 def bind(name: str, n_pointers_before: int, n_ints: int, tail, entry: str | None = None):
@@ -59,12 +60,40 @@ def check_tensors(tensors: dict, ref: str):
             raise ValueError(f"{name} is on {t.device} but {ref} is on {device}")
 
 
+def dense_entry(name: str, volume) -> str:
+    """The C entry of kernel ``name`` for ``volume``'s dtype: ``name`` reads
+    a uint8 volume's bytes, ``<name>_f32`` a float32 volume's values, each
+    tap quantized to 8 bits as it is read.  Any other dtype raises."""
+    if volume.dtype == torch.uint8:
+        return name
+    if volume.dtype == torch.float32:
+        return f"{name}_f32"
+    raise ValueError(f"the volume must be float32 in [0, 1] or uint8, got {volume.dtype}")
+
+
+def count_launch(wrapper, volume) -> None:
+    """One launch of a dense-volume wrapper: one more in ``wrapper.launches``
+    and, for a float32 volume (the ``_f32`` entry), in its ``f32_launches``."""
+    wrapper.launches += 1
+    if volume.dtype == torch.float32:
+        wrapper.f32_launches += 1
+
+
 def check_volume(vol, dtype=torch.uint8, name: str = "vol_u8"):
     if vol.dtype != dtype or vol.dim() != 3 or min(vol.shape) < 1:
         raise ValueError(f"{name} must be a non-empty (Z, Y, X) {str(dtype)[6:]} tensor, got "
                          f"{tuple(vol.shape)} {vol.dtype}")
     if max(vol.shape) > INT32_MAX:
         raise ValueError(f"volume extent {tuple(vol.shape)} exceeds int32")
+
+
+def check_shape(volume, dims) -> None:
+    """Raise ValueError unless ``volume`` has the (Z, Y, X) shape of ``dims``
+    = (X, Y, Z)."""
+    X, Y, Z = dims
+    if tuple(volume.shape) != (Z, Y, X):
+        raise ValueError(f"volume shape {tuple(volume.shape)} does not match the "
+                         f"plan's (Z, Y, X) = {(Z, Y, X)}")
 
 
 def _check_index(name: str, value) -> int:
@@ -137,3 +166,28 @@ def check_clamp(wrap: str, what: str) -> None:
         raise ValueError(f"unknown wrap mode: {wrap}")
     if wrap != "clamp":
         raise ValueError(f"{what} are clamp-only, got wrap={wrap!r}")
+
+
+POOL_DTYPES = {"pair16": torch.int32, "narrow": torch.float32}
+
+
+def pool_dims(pool: torch.Tensor, slab_map: torch.Tensor, fmt: str | None = None):
+    """(X, Y, Z) of the volume a pool holds, after checking the pool's and
+    the map's types and shapes: int32 pair16 words (n_slots, 16, Y, X // 2)
+    or float32 pair values (n_slots, 16, Y, X), and a (1, Z // 8) int32 map.
+    ``fmt`` ("pair16" or "narrow") requires that pool format."""
+    if pool.dtype not in POOL_DTYPES.values() or pool.dim() != 4 \
+            or pool.shape[1] != SLAB_H or min(pool.shape) < 1:
+        raise ValueError(f"pool must be an (n_slots, {SLAB_H}, Y, W) int32 or float32 tensor, "
+                         f"got {tuple(pool.shape)} {pool.dtype}")
+    if fmt is not None and pool.dtype != POOL_DTYPES[fmt]:
+        raise ValueError(f"the {fmt} kernels need a {POOL_DTYPES[fmt]} pool, got {pool.dtype}")
+    if slab_map.dtype != torch.int32 or slab_map.dim() != 2 or slab_map.shape[0] != 1 \
+            or slab_map.shape[1] < 1:
+        raise ValueError(f"slab_map must be a (1, Z // 8) int32 tensor, got "
+                         f"{tuple(slab_map.shape)} {slab_map.dtype}")
+    W = int(pool.shape[3])
+    X = 2 * W if pool.dtype == torch.int32 else W
+    if max(X, pool.shape[2], pool.shape[0] * SLAB_H) > INT32_MAX:
+        raise ValueError(f"pool extent {tuple(pool.shape)} exceeds int32")
+    return X, int(pool.shape[2]), 8 * int(slab_map.shape[1])

@@ -1,8 +1,10 @@
 """The 8^3 block grid of a CUDA volume in one pass: the launch wrapper of
-``csrc/block_grid.cu``, the grid the bound marches read.
+``csrc/block_grid.cu``, the grid the bound marches read, and
+:func:`bind_grid`, the one bind of both plans.
 
-``IsosurfacePlan.bind`` and ``CompositingPlan.bind`` build a volume's grid
-through :func:`volume_block_grid`: this kernel for a CUDA volume,
+``IsosurfacePlan.bind`` and ``CompositingPlan.bind`` both call
+:func:`bind_grid`, which builds a volume's grid through
+:func:`volume_block_grid`: this kernel for a CUDA volume,
 ``ops/blockgrid.py::iso_block_grid``, its plain version, for a CPU one; the
 two are equal bit for bit.  The JAX package builds its bind tables in jnp,
 so the kernel replaces no Pallas kernel.
@@ -15,12 +17,14 @@ import functools
 import torch
 
 from ...utils.timer import span
-from ..blockgrid import ISO_BLOCK, iso_block_grid
+from ..blockgrid import (ISO_BLOCK, BlockBound, data_source, iso_block_grid, iso_grid_from_mip8,
+                         iso_grid_from_pool)
 from ..sampling import WRAP_MODES
 from . import _build
-from ._launch import bind, check_volume, launch
+from ._launch import (bind, check_clamp, check_shape, check_volume, count_launch, dense_entry,
+                      launch, pool_dims)
 
-__all__ = ["iso_block_grid_cuda", "volume_block_grid", "load_kernel"]
+__all__ = ["iso_block_grid_cuda", "volume_block_grid", "bind_grid", "load_kernel"]
 
 
 @functools.cache
@@ -32,7 +36,7 @@ def _launcher(entry: str):
 
 def load_kernel() -> _build.BuiltLibrary:
     """Build (at first use) and load the grid kernel's library."""
-    return _launcher("block_grid_u8")[1]
+    return _launcher("block_grid")[1]
 
 
 def iso_block_grid_cuda(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
@@ -46,7 +50,8 @@ def iso_block_grid_cuda(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tens
     whose x stride is 1 are read in place; others are copied contiguous
     first.  A CPU tensor raises: ``iso_block_grid`` is its version.  The
     call is one ``vr.grid`` span and adds one to
-    ``iso_block_grid_cuda.launches``."""
+    ``iso_block_grid_cuda.launches`` (and, for the float32 route, to its
+    ``f32_launches``)."""
     if wrap not in WRAP_MODES:
         raise ValueError(f"unknown wrap mode: {wrap}")
     if volume.dim() != 3 or min(volume.shape) < 1:
@@ -63,15 +68,16 @@ def iso_block_grid_cuda(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tens
         Z, Y, X = volume.shape
         grid = torch.empty([-(-n // ISO_BLOCK) for n in (Z, Y, X)] + [2], dtype=torch.uint8,
                            device=volume.device)
-        entry = "block_grid_u8" if volume.dtype == torch.uint8 else "block_grid_f32"
+        entry = dense_entry("block_grid", volume)
         launch(lambda: _launcher(entry), "block_grid", volume.device, volume.data_ptr(),
                grid.data_ptr(), X, Y, Z, int(wrap == "repeat"), volume.stride(1),
                volume.stride(0))
-        iso_block_grid_cuda.launches += 1
+        count_launch(iso_block_grid_cuda, volume)
         return grid
 
 
 iso_block_grid_cuda.launches = 0
+iso_block_grid_cuda.f32_launches = 0
 
 
 def volume_block_grid(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor:
@@ -81,3 +87,40 @@ def volume_block_grid(volume: torch.Tensor, wrap: str = "clamp") -> torch.Tensor
     if volume.device.type == "cpu":
         return iso_block_grid(volume, wrap)
     return iso_block_grid_cuda(volume, wrap)
+
+
+def bind_grid(dims, wrap: str, device, volume: torch.Tensor | None = None, pool=None,
+              mip8: torch.Tensor | None = None, iso: float | None = None) -> BlockBound:
+    """The bound of a plan's marches over exactly one of ``volume`` ((Z, Y,
+    X) of ``dims`` = (X, Y, Z), float32 in [0, 1] or uint8) and ``pool`` (a
+    ``(pool, slab_map)`` pair holding such a volume; clamp only), for
+    ``wrap``: its block grid from that data's bytes, or, given ``mip8``
+    (per-8^3-block maxima of the same data), from the mip, with no pass over
+    the data; the grid put on ``device``; the data's identity
+    (``data_source``).  ``iso`` is the isovalue of an isosurface bind (None
+    for a compositing one): a compositing bound records whether its grid
+    holds a block to skip (``has_empty``)."""
+    if wrap not in WRAP_MODES:
+        raise ValueError(f"unknown wrap mode: {wrap}")
+    if (volume is None) == (pool is None):
+        raise ValueError("bind takes a volume or a (pool, slab_map) pair, exactly one of the two")
+    if volume is not None:
+        check_shape(volume, dims)
+        data = (volume,)
+    else:
+        check_clamp(wrap, "pooled binds")
+        data = tuple(pool)
+        if len(data) != 2 or pool_dims(*data) != dims:
+            raise ValueError(f"pool must be a (pool, slab_map) pair holding a volume of "
+                             f"(X, Y, Z) = {dims}")
+    source = data_source(*data)
+    if mip8 is not None:
+        grid = iso_grid_from_mip8(mip8, dims, wrap)
+    elif volume is not None:
+        grid = volume_block_grid(volume, wrap)
+    else:
+        grid = iso_grid_from_pool(*data, dims)
+    grid = grid.to(device)
+    has_empty = iso is not None or bool((grid[..., 1] == 0).any())
+    return BlockBound(dims, wrap, grid, source, has_empty,
+                      None if iso is None else float(iso))

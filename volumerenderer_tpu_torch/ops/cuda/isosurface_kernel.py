@@ -11,11 +11,12 @@ increment; ``render`` quantizes a float32 volume to 8 bits once (a uint8
 volume is its own bytes) and runs the march
 and then the shade pass on it, the march handing each hit's bracket (its
 position at the crossing, ``near``) to the shade.  ``bind`` is the exact
-empty-space skip: one ``IsoBound`` (isovalue, dims, wrap, the min/max block
-grid of a volume or a slab pool, in place of the TPU plan's word tables, and
-that data's identity) that ``render`` and ``render_pooled`` take and check against
-their isovalue and data.  The grid depends only on the data and the wrap,
-so one bound serves every plan of the same dims and wrap.
+empty-space skip: one ``BlockBound`` (isovalue, dims, wrap, the min/max
+block grid of a volume or a slab pool, in place of the TPU plan's word
+tables, and that data's identity; ``blockgrid_kernel.bind_grid``, the
+compositing plan's bind too) that ``render`` and ``render_pooled`` take and
+check against their isovalue and data.  The grid depends only on the data
+and the wrap, so one bound serves every plan of the same dims and wrap.
 
 The pooled render (``IsosurfacePlan.render_pooled``) marches a slab pool
 (``raycast_kernel.py::build_slab_pool_narrow`` for B8,
@@ -40,20 +41,18 @@ import numbers
 import torch
 
 from ...utils.timer import span
-from ..blockgrid import check_grid, data_source
-from ..isosurface import (MAX_SAMPLES, IsoBound, iso_grid_from_mip8, iso_grid_from_pool,
-                          iso_march_steps, shade_hits)
-from ..raycast import step_sizes
+from ..blockgrid import BlockBound, check_bound
+from ..isosurface import MAX_SAMPLES, iso_march_steps, shade_hits
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
 from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
-                      check_tensors, check_volume, launch, ptr)
-from .blockgrid_kernel import volume_block_grid
-from .raycast_kernel import pool_dims, quantize_u8
+                      check_shape, check_tensors, check_volume, launch, pool_dims, ptr)
+from .blockgrid_kernel import bind_grid
+from .raycast_kernel import init_plan, quantize_u8
 
 __all__ = ["iso_march_cuda", "iso_shade_cuda", "iso_march_pooled_narrow_cuda",
            "iso_march_pooled_pair16_cuda", "iso_shade_pooled_cuda", "IsosurfacePlan",
-           "render_isosurface_kernel", "volume_median", "load_kernels", "IsoBound"]
+           "render_isosurface_kernel", "volume_median", "load_kernels"]
 
 
 @functools.cache
@@ -100,22 +99,6 @@ def _check_scalars(iso, wrap):
         raise ValueError(f"unknown wrap mode: {wrap}")
 
 
-def _grid(bound, iso, dims, wrap, device=None, data=None):
-    """The block grid of ``bound`` after checking that it was made for this
-    march (iso, (X, Y, Z) dims, wrap, and, given ``data``, from those
-    tensors) and, given ``device``, lies there; None for no bound."""
-    if bound is None:
-        return None
-    if not isinstance(bound, IsoBound):
-        raise TypeError(f"bound must be an IsoBound (IsosurfacePlan.bind), got "
-                        f"{type(bound).__name__}")
-    bound.check(iso, dims, wrap)
-    if data is not None:
-        bound.check_source(*data)
-    check_grid(bound.grid, dims, device)
-    return bound.grid
-
-
 def _march_outputs(H, W, device, with_near):
     """The march's found, t_hit and, with ``with_near``, near (else None),
     allocated on ``device``."""
@@ -153,7 +136,7 @@ def _check_shade_inputs(tensors: dict, found, t_hit, near):
 
 def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                    hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                   wrap: str = "clamp", bound: IsoBound | None = None,
+                   wrap: str = "clamp", bound: BlockBound | None = None,
                    with_near: bool = False):
     """March an (H, W) ray image through the 8-bit volume to the first upward
     crossing of ``iso`` (on the normalized [0, 1] scale).
@@ -164,7 +147,7 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
       dir_step: (H, W, 3) float32 per-step increment (direction / dims).
       hit: (H, W) uint8, nonzero where the ray enters the cube.
       wrap: "clamp" (clamp-to-edge) or "repeat" (GL_REPEAT).
-      bound: None, or an :class:`IsoBound` of this volume made for ``iso``
+      bound: None, or a ``BlockBound`` of this volume made for ``iso``
         and ``wrap`` (``IsosurfacePlan.bind``): samples in blocks wholly
         below or above iso are skipped, the result is the same bit for bit.
         A bound for another isovalue, dims or wrap raises ValueError; that
@@ -188,7 +171,7 @@ def iso_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch
     check_max_samples(max_samples)
     _check_scalars(iso, wrap)
     Z, Y, X = vol_u8.shape
-    grid = _grid(bound, iso, (X, Y, Z), wrap, vol_u8.device)
+    grid = check_bound(bound, (X, Y, Z), wrap, iso, vol_u8.device)
     if vol_u8.device.type == "cpu":
         return iso_march_steps(as_normalized_volume(vol_u8), entry_uv, dir_step,
                                hit.to(torch.bool), iso, max_samples, wrap, bound, with_near)
@@ -262,7 +245,7 @@ def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso
     check_max_samples(max_samples)
     _check_scalars(iso, wrap)
     check_clamp(wrap, "the pooled marches")
-    grid = _grid(bound, iso, dims, wrap, pool.device)
+    grid = check_bound(bound, dims, wrap, iso, pool.device)
     if pool.device.type == "cpu":
         return iso_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv, dir_step,
                                hit.to(torch.bool), iso, max_samples, bound=bound,
@@ -284,7 +267,7 @@ def _iso_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit, iso
 def iso_march_pooled_narrow_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                  entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                  hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                                 wrap: str = "clamp", bound: IsoBound | None = None,
+                                 wrap: str = "clamp", bound: BlockBound | None = None,
                                  with_near: bool = False):
     """B8: :func:`iso_march_cuda`'s march, sampling the narrow f32 slab pool
     (``build_slab_pool_narrow``) through its slab map.  Equal bit for bit to
@@ -305,7 +288,7 @@ iso_march_pooled_narrow_cuda.launches = 0
 def iso_march_pooled_pair16_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                  entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                  hit: torch.Tensor, iso: float, max_samples: int = MAX_SAMPLES,
-                                 wrap: str = "clamp", bound: IsoBound | None = None,
+                                 wrap: str = "clamp", bound: BlockBound | None = None,
                                  with_near: bool = False):
     """B9: as :func:`iso_march_pooled_narrow_cuda`, on the pair16 pool
     (``build_slab_pool``); adds one to ``iso_march_pooled_pair16_cuda.launches``
@@ -379,31 +362,16 @@ class IsosurfacePlan:
 
     def __init__(self, entry_uv: torch.Tensor, direction: torch.Tensor, hit: torch.Tensor,
                  dims, max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
-        self.dims = tuple(int(d) for d in dims)
-        if len(self.dims) != 3:
-            raise ValueError(f"dims must be (X, Y, Z), got {dims!r}")
-        self.max_samples = int(max_samples)
-        self.wrap = wrap
-        H, W, _ = entry_uv.shape
-        self.shape = (H, W)
-        self.entry_uv = entry_uv.to(torch.float32).contiguous()
-        self.direction = direction.to(torch.float32).contiguous()
-        self.dir_step = (self.direction * step_sizes(self.dims, direction.device)).contiguous()
-        self.hit = hit.to(torch.uint8).contiguous()
-
-    def _check_volume(self, volume):
-        X, Y, Z = self.dims
-        if tuple(volume.shape) != (Z, Y, X):
-            raise ValueError(f"volume shape {tuple(volume.shape)} does not match the "
-                             f"plan's (Z, Y, X) = {(Z, Y, X)}")
+        self.direction = init_plan(self, entry_uv, direction, hit, dims, max_samples, wrap)
 
     def bind(self, volume: torch.Tensor | None = None, iso_value: float = 40.0 / 255.0,
-             mip8: torch.Tensor | None = None, pool=None) -> IsoBound:
+             mip8: torch.Tensor | None = None, pool=None) -> BlockBound:
         """The exact empty-space skip of this plan's marches at ``iso_value``
-        (the port of the JAX plan's ``bind``): an :class:`IsoBound` holding
-        the isovalue, the dims, the wrap, the block grid and the identity of
-        the data it describes, exactly one of ``volume`` ((Z, Y, X) float32
-        in [0, 1] or uint8, the tensor later passed to :meth:`render`) and
+        (the port of the JAX plan's ``bind``, through
+        ``blockgrid_kernel.bind_grid``): a ``BlockBound`` holding the
+        isovalue, the dims, the wrap, the block grid and the identity of the
+        data it describes, exactly one of ``volume`` ((Z, Y, X) float32 in
+        [0, 1] or uint8, the tensor later passed to :meth:`render`) and
         ``pool`` (a ``(pool, slab_map)`` pair, later passed to
         :meth:`render_pooled`; clamp only).  The grid comes from that data's
         bytes, or, given ``mip8`` (per-8^3-block maxima of the same data,
@@ -413,37 +381,20 @@ class IsosurfacePlan:
         Pass the bound with the same isovalue and data: a bound made for
         another isovalue, dims or wrap, or from another tensor (or one
         written in place since), raises ValueError there, so two binds
-        cannot be crossed.  The grid depends only on the data and the wrap:
-        one bound serves every plan of the same dims and wrap, and a bind
-        (one pass over the data: ``iso_block_grid_cuda`` on the card, the
-        plain ``iso_block_grid`` on the CPU) pays only where a (data,
-        isovalue) pair is rendered more than once.  The call is one
-        ``vr.iso.bind`` span, its grid build a ``vr.grid`` span inside it."""
+        cannot be crossed; an inference-mode tensor (no version counter)
+        raises here.  The grid depends only on the data and the wrap: one
+        bound serves every plan of the same dims and wrap, and a bind (one
+        pass over the data: ``iso_block_grid_cuda`` on the card, the plain
+        ``iso_block_grid`` on the CPU) pays only where a (data, isovalue)
+        pair is rendered more than once.  The call is one ``vr.iso.bind``
+        span, its grid build a ``vr.grid`` span inside it."""
         with span("vr.iso.bind"):
             _check_scalars(iso_value, self.wrap)
-            if (volume is None) == (pool is None):
-                raise ValueError("bind takes a volume or a (pool, slab_map) pair, exactly one "
-                                 "of the two")
-            if volume is not None:
-                self._check_volume(volume)
-                data = (volume,)
-            else:
-                check_clamp(self.wrap, "pooled binds")
-                data = tuple(pool)
-                if len(data) != 2 or pool_dims(*data) != self.dims:
-                    raise ValueError(f"pool must be a (pool, slab_map) pair holding a volume "
-                                     f"of (X, Y, Z) = {self.dims}")
-            if mip8 is not None:
-                grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
-            elif volume is not None:
-                grid = volume_block_grid(volume, self.wrap)
-            else:
-                grid = iso_grid_from_pool(*data, self.dims)
-            return IsoBound(float(iso_value), self.dims, self.wrap, grid.to(self.hit.device),
-                            data_source(*data))
+            return bind_grid(self.dims, self.wrap, self.hit.device, volume, pool, mip8,
+                             iso_value)
 
     def render(self, volume: torch.Tensor, iso_value: float = 40.0 / 255.0,
-               bound: IsoBound | None = None):
+               bound: BlockBound | None = None):
         """volume: (Z, Y, X) on the plan's device, float32 in [0, 1] or
         uint8.  A float32 volume is quantized to 8 bits (``quantize_u8``), a
         uint8 volume's bytes are read as they are (the image is the float
@@ -454,8 +405,8 @@ class IsosurfacePlan:
         Returns (rgb (H, W, 3), found (H, W) bool); pixels without a hit are
         white.  The call is one ``vr.iso.render`` span."""
         with span("vr.iso.render"):
-            self._check_volume(volume)
-            _grid(bound, iso_value, self.dims, self.wrap, data=(volume,))
+            check_shape(volume, self.dims)
+            check_bound(bound, self.dims, self.wrap, iso_value, data=(volume,))
             vol_u8 = quantize_u8(volume)
             found, t_hit, near = iso_march_cuda(vol_u8, self.entry_uv, self.dir_step, self.hit,
                                                 iso_value, self.max_samples, self.wrap, bound,
@@ -465,7 +416,7 @@ class IsosurfacePlan:
             return rgb, found
 
     def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
-                      iso_value: float = 40.0 / 255.0, bound: IsoBound | None = None):
+                      iso_value: float = 40.0 / 255.0, bound: BlockBound | None = None):
         """Compressed-domain isosurface render from a slab pool on the
         plan's device: B8 marches a float32 narrow pool
         (``build_slab_pool_narrow``), B9 an int32 pair16 pool
@@ -479,7 +430,7 @@ class IsosurfacePlan:
         if dims != self.dims:
             raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's is "
                              f"{self.dims}")
-        _grid(bound, iso_value, dims, self.wrap, data=(pool, slab_map))
+        check_bound(bound, dims, self.wrap, iso_value, data=(pool, slab_map))
         march = (iso_march_pooled_pair16_cuda if pool.dtype == torch.int32
                  else iso_march_pooled_narrow_cuda)
         found, t_hit, near = march(pool, slab_map, self.entry_uv, self.dir_step, self.hit,

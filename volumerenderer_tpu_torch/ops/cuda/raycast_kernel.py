@@ -7,16 +7,16 @@ prepasses (footprint scan, DMA word tables, ray packing into lane tiles, the
 window-height cost model) only feed the TPU kernel's DMA windows; the CUDA
 kernel reads the volume straight from device memory, so a plan here is the
 ray tensors on the device plus the per-step increment.  ``render`` is one
-launch, as the TPU launch is: B1 reads the float32 volume, quantizing each
-tap to 8 bits as it reads it (``composite_march_f32_cuda``), and writes the
-displayed image in its epilogue; ``composite_march_cuda`` is B1 on a byte
-volume.
+launch, as the TPU launch is: B1 (``composite_march_cuda``) reads the
+float32 volume, quantizing each tap to 8 bits as it reads it (or a uint8
+volume's bytes), and writes the displayed image in its epilogue.
 
 ``CompositingPlan.bind`` is the exact empty-space skip of B1, B6 and B7 (a
-``CompositeBound``: the block grid of ``ops/blockgrid.py``, shared with the
-isosurface bind, in place of the TPU plan's occupancy word tables); the
-TPU grids ``expand_mip`` and ``occupancy_mip`` are ported as plain torch
-functions, and no kernel reads them.
+``BlockBound``: the block grid of ``ops/blockgrid.py``, shared with the
+isosurface bind through ``blockgrid_kernel.bind_grid``, in place of the TPU
+plan's occupancy word tables); the TPU grids ``expand_mip`` and
+``occupancy_mip`` are ported as plain torch functions, and no kernel reads
+them.
 
 The compressed-domain render state lives here too: ``build_slab_pool``
 (pair16 words) and ``build_slab_pool_narrow`` (f32 pair values) keep only the
@@ -27,8 +27,9 @@ pool, through the slab map (``CompositingPlan.render_pooled``).
 Every wrapper dispatches on where its tensors lie: CUDA tensors launch the
 kernel, CPU tensors run the plain PyTorch version
 (``ops/raycast.py::composite_march_steps``, with
-``ops/sampling.py::slab_pool_sampler`` for the pooled marches).  There is no
-fallback from one to the other: a CUDA input the kernel cannot take raises.
+``ops/sampling.py::slab_pool_sampler`` for the pooled marches, and the
+reference transfer).  There is no fallback from one to the other: a CUDA
+input the kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -40,23 +41,20 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.timer import span
-from ..blockgrid import check_grid, data_source, iso_grid_from_mip8, iso_grid_from_pool
-from ..raycast import (MAX_SAMPLES, CompositeBound, apply_reference_transfer,
-                       composite_march_steps, step_sizes)
+from ..blockgrid import BlockBound, check_bound
+from ..raycast import MAX_SAMPLES, apply_reference_transfer, composite_march_steps, step_sizes
 from ..sampling import WRAP_MODES, as_normalized_volume, slab_pool_sampler
 from . import _build
-from ._launch import (bind, check_clamp, check_hit, check_image, check_max_samples,
-                      check_tensors, check_volume, launch, ptr)
-from .blockgrid_kernel import volume_block_grid
+from ._launch import (SLAB_H, bind, check_clamp, check_hit, check_image, check_max_samples,
+                      check_shape, check_tensors, check_volume, count_launch, dense_entry, launch,
+                      pool_dims, ptr)
+from .blockgrid_kernel import bind_grid
 
-__all__ = ["composite_march_cuda", "composite_march_f32_cuda",
-           "composite_march_pooled_narrow_cuda", "composite_march_pooled_pair16_cuda",
-           "quantize_u8", "CompositingPlan", "CompositeBound",
+__all__ = ["composite_march_cuda", "composite_march_pooled_narrow_cuda",
+           "composite_march_pooled_pair16_cuda", "quantize_u8", "CompositingPlan",
            "render_compositing_kernel", "load_kernel", "block_max8", "expand_mip",
            "occupancy_mip", "pack_pairs", "pack_pairs16", "build_slab_pool",
            "build_slab_pool_narrow", "pool_dims", "SLAB_H"]
-
-_INT32_MAX = 2**31 - 1
 
 
 def load_kernel() -> _build.BuiltLibrary:
@@ -66,25 +64,9 @@ def load_kernel() -> _build.BuiltLibrary:
 
 @functools.cache
 def _dense_launcher(entry: str):
-    # entry_uv, dir_step, hit, vol, grid; H, W, X, Y, Z, max_samples, repeat,
-    # rgb; out, alpha, stream
-    return bind("composite_march", 5, 8, [ctypes.c_void_p] * 3, entry=entry)
-
-
-def _grid(bound, dims, wrap, device=None, data=None):
-    """The block grid of ``bound`` after checking that it was made for this
-    march ((X, Y, Z) dims, wrap, and, given ``data``, from those tensors)
-    and, given ``device``, lies there; None for no bound."""
-    if bound is None:
-        return None
-    if not isinstance(bound, CompositeBound):
-        raise TypeError(f"bound must be a CompositeBound (CompositingPlan.bind), got "
-                        f"{type(bound).__name__}")
-    bound.check(dims, wrap)
-    if data is not None:
-        bound.check_source(*data)
-    check_grid(bound.grid, dims, device)
-    return bound.grid
+    # entry_uv, dir_step, hit, vol, grid; H, W, X, Y, Z, max_samples, repeat;
+    # out, alpha, stream
+    return bind("composite_march", 5, 7, [ctypes.c_void_p] * 3, entry=entry)
 
 
 def _skipping(bound):
@@ -93,86 +75,66 @@ def _skipping(bound):
     return bound if bound is not None and bound.has_empty else None
 
 
-def _march_dense(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, max_samples, wrap,
-                 transfer: bool, bound):
-    name = "vol_u8" if dtype == torch.uint8 else "volume"
-    tensors = {name: volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit}
-    check_tensors(tensors, name)
-    check_volume(volume, dtype, name)
-    check_hit(hit)
-    check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
-    check_max_samples(max_samples)
-    if wrap not in WRAP_MODES:
-        raise ValueError(f"unknown wrap mode: {wrap}")
-    Z, Y, X = volume.shape
-    grid = _grid(bound, (X, Y, Z), wrap, volume.device)
-    if volume.device.type == "cpu":
-        color, alpha = composite_march_steps(as_normalized_volume(quantize_u8(volume)), entry_uv,
-                                             dir_step, hit.to(torch.bool), max_samples, wrap,
-                                             early_exit=True, bound=bound)
-        return (apply_reference_transfer(color, alpha) if transfer else color), alpha
-    H, W = hit.shape
-    out = torch.empty((H, W, 3) if transfer else (H, W), dtype=torch.float32,
-                      device=volume.device)
-    alpha = torch.empty((H, W), dtype=torch.float32, device=volume.device)
-    if H * W == 0:
-        return out, alpha
-    launch(lambda: _dense_launcher(entry), "composite_march", volume.device,
-           entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), volume.data_ptr(),
-           ptr(grid), H, W, X, Y, Z, max_samples, int(wrap == "repeat"), int(transfer),
-           out.data_ptr(), alpha.data_ptr())
-    wrapper.launches += 1
-    return out, alpha
-
-
-def composite_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
+def composite_march_cuda(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                          hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                         wrap: str = "clamp", transfer: bool = False,
-                         bound: CompositeBound | None = None):
-    """March an (H, W) ray image through the 8-bit volume (B1).
+                         wrap: str = "clamp", bound: BlockBound | None = None):
+    """March an (H, W) ray image through the volume's 8-bit grid (B1) and
+    write the displayed image in the kernel's epilogue.
 
     Args:
-      vol_u8: (Z, Y, X) uint8 volume, x fastest.
+      volume: (Z, Y, X) volume, x fastest: uint8, read as its bytes, or
+        float32, whose taps the kernel quantizes to 8 bits as it reads them
+        (the result is the byte route's on ``quantize_u8(volume)``, bit for
+        bit, with no quantize pass and no byte copy); any other dtype
+        raises ValueError.
       entry_uv: (H, W, 3) float32 cube entry points in texture space.
       dir_step: (H, W, 3) float32 per-step increment (direction / dims).
       hit: (H, W) uint8, nonzero where the ray enters the cube.
       wrap: "clamp" (clamp-to-edge) or "repeat" (GL_REPEAT).
-      transfer: write the displayed image in the kernel's epilogue.
-      bound: None, or a :class:`CompositeBound` of this volume made for
+      bound: None, or a compositing ``BlockBound`` of this volume made for
         ``wrap`` (``CompositingPlan.bind``): samples in blocks that read
         only zero bytes are skipped, the result is the same bit for bit.  A
         bound for other dims or another wrap raises ValueError; that it
         describes this volume, the caller answers for
         (``CompositingPlan.render`` checks it).
 
-    Returns (color, alpha), each (H, W) float32; with ``transfer`` (rgb
-    (H, W, 3), alpha), rgb bit for bit ``apply_reference_transfer(color,
-    alpha)``.  CUDA tensors run the kernel and add one to
-    ``composite_march_cuda.launches``; CPU tensors run the plain version.
+    Returns (rgb (H, W, 3), alpha (H, W)) float32, rgb bit for bit
+    ``apply_reference_transfer(color, alpha)``.  CUDA tensors run the kernel
+    and add one to ``composite_march_cuda.launches`` (and, for a float32
+    volume, to its ``f32_launches``); CPU tensors run the plain version on
+    ``quantize_u8(volume)``.
     """
-    return _march_dense(composite_march_cuda, "composite_march", torch.uint8, vol_u8, entry_uv,
-                        dir_step, hit, max_samples, wrap, transfer, bound)
+    tensors = {"volume": volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit}
+    check_tensors(tensors, "volume")
+    entry = dense_entry("composite_march", volume)
+    check_volume(volume, volume.dtype, "volume")
+    check_hit(hit)
+    check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
+    check_max_samples(max_samples)
+    if wrap not in WRAP_MODES:
+        raise ValueError(f"unknown wrap mode: {wrap}")
+    Z, Y, X = volume.shape
+    grid = check_bound(bound, (X, Y, Z), wrap, device=volume.device)
+    if volume.device.type == "cpu":
+        color, alpha = composite_march_steps(as_normalized_volume(quantize_u8(volume)), entry_uv,
+                                             dir_step, hit.to(torch.bool), max_samples, wrap,
+                                             early_exit=True, bound=bound)
+        return apply_reference_transfer(color, alpha), alpha
+    H, W = hit.shape
+    rgb = torch.empty((H, W, 3), dtype=torch.float32, device=volume.device)
+    alpha = torch.empty((H, W), dtype=torch.float32, device=volume.device)
+    if H * W == 0:
+        return rgb, alpha
+    launch(lambda: _dense_launcher(entry), "composite_march", volume.device,
+           entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), volume.data_ptr(),
+           ptr(grid), H, W, X, Y, Z, max_samples, int(wrap == "repeat"), rgb.data_ptr(),
+           alpha.data_ptr())
+    count_launch(composite_march_cuda, volume)
+    return rgb, alpha
 
 
 composite_march_cuda.launches = 0
-
-
-def composite_march_f32_cuda(volume: torch.Tensor, entry_uv: torch.Tensor,
-                             dir_step: torch.Tensor, hit: torch.Tensor,
-                             max_samples: int = MAX_SAMPLES, wrap: str = "clamp",
-                             transfer: bool = False, bound: CompositeBound | None = None):
-    """B1 on the (Z, Y, X) float32 volume: the kernel quantizes each tap to 8
-    bits as it reads it, so the result is :func:`composite_march_cuda`'s on
-    ``quantize_u8(volume)``, bit for bit, with no quantize pass and no byte
-    copy.  The other arguments (``bound`` from this volume or its bytes)
-    and the returns are :func:`composite_march_cuda`'s.  CUDA tensors run
-    the kernel and add one to ``composite_march_f32_cuda.launches``; CPU
-    tensors run the plain version on ``quantize_u8(volume)``."""
-    return _march_dense(composite_march_f32_cuda, "composite_march_f32", torch.float32, volume,
-                        entry_uv, dir_step, hit, max_samples, wrap, transfer, bound)
-
-
-composite_march_f32_cuda.launches = 0
+composite_march_cuda.f32_launches = 0
 
 
 def quantize_u8(volume: torch.Tensor) -> torch.Tensor:
@@ -187,47 +149,45 @@ def quantize_u8(volume: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(volume, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
-def _dense_march_for(volume: torch.Tensor):
-    """The dense march wrapper for ``volume``'s dtype: float32 ->
-    :func:`composite_march_f32_cuda` (taps quantized as they are read),
-    uint8 -> :func:`composite_march_cuda`; any other dtype raises."""
-    marches = {torch.float32: composite_march_f32_cuda, torch.uint8: composite_march_cuda}
-    if volume.dtype not in marches:
-        raise ValueError(f"the volume must be float32 in [0, 1] or uint8, got {volume.dtype}")
-    return marches[volume.dtype]
+def init_plan(plan, entry_uv: torch.Tensor, direction: torch.Tensor, hit: torch.Tensor, dims,
+              max_samples: int, wrap: str) -> torch.Tensor:
+    """Set what both plans keep of a ray bundle: ``dims`` (X, Y, Z),
+    ``max_samples``, ``wrap``, ``shape`` (H, W) and, on the rays' device,
+    ``entry_uv`` float32, ``dir_step = direction * (1/X, 1/Y, 1/Z)`` and
+    ``hit`` as uint8.  Returns the float32 direction."""
+    plan.dims = tuple(int(d) for d in dims)
+    if len(plan.dims) != 3:
+        raise ValueError(f"dims must be (X, Y, Z), got {dims!r}")
+    plan.max_samples = int(max_samples)
+    plan.wrap = wrap
+    H, W, _ = entry_uv.shape
+    plan.shape = (H, W)
+    plan.entry_uv = entry_uv.to(torch.float32).contiguous()
+    direction = direction.to(torch.float32).contiguous()
+    plan.dir_step = (direction * step_sizes(plan.dims, direction.device)).contiguous()
+    plan.hit = hit.to(torch.uint8).contiguous()
+    return direction
 
 
 class CompositingPlan:
     """Plan-once / render-many compositing for a fixed ray bundle.
 
-    Keeps the rays on their device: ``entry_uv`` float32, ``dir_step =
-    direction * (1/X, 1/Y, 1/Z)`` and ``hit`` as uint8.  ``dims`` is
-    (X, Y, Z).  ``render`` runs the CUDA kernel when the rays lie on a CUDA
-    device and the plain PyTorch march when they lie on the CPU.
-    ``bind`` is the exact empty-space skip: one ``CompositeBound`` (the
-    dims, the wrap, the block grid of a volume or a slab pool, in place of
-    the TPU plan's occupancy word tables, and that data's identity) that
-    ``render`` and ``render_pooled`` take and check against their data.
-    ``seg_starts`` keeps the segment marches' entry tables of these rays by
-    (owned box, max_samples, device), built at first use by the
-    volume-sharded renders (``parallel/kernel_sharded.py``): 16 bytes per ray
-    and shard, more than the 25 the rays take, so ``seg_starts.clear()``
-    frees them where a camera will not be seen again.
+    Keeps the rays on their device (``init_plan``).  ``render`` runs the
+    CUDA kernel when the rays lie on a CUDA device and the plain PyTorch
+    march when they lie on the CPU.  ``bind`` is the exact empty-space skip:
+    one ``BlockBound`` (the dims, the wrap, the block grid of a volume or a
+    slab pool, in place of the TPU plan's occupancy word tables, and that
+    data's identity) that ``render`` and ``render_pooled`` take and check
+    against their data.  ``seg_starts`` keeps the segment marches' entry
+    tables of these rays by (owned box, max_samples, device), built at first
+    use by the volume-sharded renders (``parallel/kernel_sharded.py``): 16
+    bytes per ray and shard, more than the 25 the rays take, so
+    ``seg_starts.clear()`` frees them where a camera will not be seen again.
     """
 
     def __init__(self, entry_uv: torch.Tensor, direction: torch.Tensor, hit: torch.Tensor,
                  dims, max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
-        self.dims = tuple(int(d) for d in dims)
-        if len(self.dims) != 3:
-            raise ValueError(f"dims must be (X, Y, Z), got {dims!r}")
-        self.max_samples = int(max_samples)
-        self.wrap = wrap
-        H, W, _ = entry_uv.shape
-        self.shape = (H, W)
-        self.entry_uv = entry_uv.to(torch.float32).contiguous()
-        self.dir_step = (direction.to(torch.float32)
-                         * step_sizes(self.dims, direction.device)).contiguous()
-        self.hit = hit.to(torch.uint8).contiguous()
+        init_plan(self, entry_uv, direction, hit, dims, max_samples, wrap)
         self.seg_starts = {}
 
     def rows(self, start: int, stop: int, device=None) -> "CompositingPlan":
@@ -246,61 +206,37 @@ class CompositingPlan:
 
     def check_volume(self, volume: torch.Tensor) -> None:
         """Raise ValueError unless ``volume`` has the plan's (Z, Y, X) shape."""
-        X, Y, Z = self.dims
-        if tuple(volume.shape) != (Z, Y, X):
-            raise ValueError(f"volume shape {tuple(volume.shape)} does not match the "
-                             f"plan's (Z, Y, X) = {(Z, Y, X)}")
+        check_shape(volume, self.dims)
 
     def bind(self, volume: torch.Tensor | None = None, mip8: torch.Tensor | None = None,
-             pool=None) -> CompositeBound:
+             pool=None) -> BlockBound:
         """The exact empty-space skip of this plan's marches (the port of the
-        JAX plan's ``bind``): a :class:`CompositeBound` holding the dims, the
-        wrap, the block grid and the identity of the data it describes,
-        exactly one of ``volume`` ((Z, Y, X) float32 in [0, 1] or uint8, the
-        tensor later passed to :meth:`render`) and ``pool`` (a ``(pool,
-        slab_map)`` pair, later passed to :meth:`render_pooled`; clamp
-        only).  The grid comes from that data's bytes, or, given ``mip8``
-        (per-8^3-block maxima of the same data, e.g.
-        ``codecs/device.tree_occupancy_mip8``), from the mip, with no pass
-        over the data: the compositing skip needs only each block's largest
-        byte, and the mip's grid (a block's maximum with its upper
-        neighbours', which covers the footprint) skips a subset of the
-        samples the exact grid skips.
+        JAX plan's ``bind``, through ``blockgrid_kernel.bind_grid``): a
+        ``BlockBound`` holding the dims, the wrap, the block grid and the
+        identity of the data it describes, exactly one of ``volume`` ((Z,
+        Y, X) float32 in [0, 1] or uint8, the tensor later passed to
+        :meth:`render`) and ``pool`` (a ``(pool, slab_map)`` pair, later
+        passed to :meth:`render_pooled`; clamp only).  The grid comes from
+        that data's bytes, or, given ``mip8`` (per-8^3-block maxima of the
+        same data, e.g. ``codecs/device.tree_occupancy_mip8``), from the
+        mip, with no pass over the data: the compositing skip needs only
+        each block's largest byte, and the mip's grid (a block's maximum
+        with its upper neighbours', which covers the footprint) skips a
+        subset of the samples the exact grid skips.
 
         A zero sample composites as a no-op, so the bound render equals the
         unbound one bit for bit.  Pass the bound with the same data: a bound
         made for other dims or another wrap, or from another tensor (or one
-        written in place since), raises ValueError there.  The grid depends
-        only on the data and the wrap: one bound serves every plan of the
-        same dims and wrap.  Where the grid holds no empty block (a field
-        with data everywhere) the bound has nothing to skip, and
+        written in place since), raises ValueError there, and an
+        inference-mode tensor (no version counter) raises here.  The grid
+        depends only on the data and the wrap: one bound serves every plan
+        of the same dims and wrap.  Where the grid holds no empty block (a
+        field with data everywhere) the bound has nothing to skip, and
         :meth:`render` marches without it: the skip test would cost every
         sample (``has_empty``)."""
-        if self.wrap not in WRAP_MODES:
-            raise ValueError(f"unknown wrap mode: {self.wrap}")
-        if (volume is None) == (pool is None):
-            raise ValueError("bind takes a volume or a (pool, slab_map) pair, exactly one of "
-                             "the two")
-        if volume is not None:
-            self.check_volume(volume)
-            data = (volume,)
-        else:
-            check_clamp(self.wrap, "pooled binds")
-            data = tuple(pool)
-            if len(data) != 2 or pool_dims(*data) != self.dims:
-                raise ValueError(f"pool must be a (pool, slab_map) pair holding a volume of "
-                                 f"(X, Y, Z) = {self.dims}")
-        if mip8 is not None:
-            grid = iso_grid_from_mip8(mip8, self.dims, self.wrap)
-        elif volume is not None:
-            grid = volume_block_grid(volume, self.wrap)
-        else:
-            grid = iso_grid_from_pool(*data, self.dims)
-        grid = grid.to(self.hit.device)
-        return CompositeBound(self.dims, self.wrap, grid, data_source(*data),
-                              has_empty=bool((grid[..., 1] == 0).any()))
+        return bind_grid(self.dims, self.wrap, self.hit.device, volume, pool, mip8)
 
-    def render(self, volume: torch.Tensor, bound: CompositeBound | None = None):
+    def render(self, volume: torch.Tensor, bound: BlockBound | None = None):
         """volume: (Z, Y, X) on the plan's device, float32 in [0, 1] or
         uint8.  One launch of B1 marches it and writes the displayed image
         (the reference transfer in its epilogue): it quantizes a float32
@@ -314,14 +250,13 @@ class CompositingPlan:
         span."""
         with span("vr.composite.render"):
             self.check_volume(volume)
-            _grid(bound, self.dims, self.wrap, data=(volume,))
+            check_bound(bound, self.dims, self.wrap, data=(volume,))
             volume = volume.contiguous()
-            return _dense_march_for(volume)(volume, self.entry_uv, self.dir_step, self.hit,
-                                            self.max_samples, self.wrap, transfer=True,
-                                            bound=_skipping(bound))
+            return composite_march_cuda(volume, self.entry_uv, self.dir_step, self.hit,
+                                        self.max_samples, self.wrap, _skipping(bound))
 
     def render_pooled(self, pool: torch.Tensor, slab_map: torch.Tensor,
-                      bound: CompositeBound | None = None):
+                      bound: BlockBound | None = None):
         """Compressed-domain render from a slab pool on the plan's device:
         the pool's dtype picks the kernel, B7 for an int32 pair16 pool
         (``build_slab_pool``), B6 for a float32 narrow pool
@@ -337,11 +272,11 @@ class CompositingPlan:
             if dims != self.dims:
                 raise ValueError(f"the pool holds a volume of (X, Y, Z) = {dims}, the plan's "
                                  f"is {self.dims}")
-            _grid(bound, dims, self.wrap, data=(pool, slab_map))
+            check_bound(bound, dims, self.wrap, data=(pool, slab_map))
             march = (composite_march_pooled_pair16_cuda if pool.dtype == torch.int32
                      else composite_march_pooled_narrow_cuda)
             return march(pool, slab_map, self.entry_uv, self.dir_step, self.hit,
-                         self.max_samples, self.wrap, transfer=True, bound=_skipping(bound))
+                         self.max_samples, self.wrap, _skipping(bound))
 
 
 def _byte_values(volume: torch.Tensor) -> torch.Tensor:
@@ -433,8 +368,6 @@ def pack_pairs16(volume: torch.Tensor) -> torch.Tensor:
     return out
 
 
-SLAB_H = 16  # pool slab height: the slot of z-block b holds z rows [8b, 8b + 16)
-
 
 def _occupied_slabs(volume: torch.Tensor, mip8) -> np.ndarray:
     """Which z-slabs the pool keeps: slab b spans z-blocks b and b + 1, so it
@@ -523,41 +456,16 @@ def build_slab_pool_narrow(volume: torch.Tensor, mip8=None):
         return _slab_pool(pack_pairs(volume), _occupied_slabs(volume, mip8))
 
 
-POOL_DTYPES = {"pair16": torch.int32, "narrow": torch.float32}
-
-
-def pool_dims(pool: torch.Tensor, slab_map: torch.Tensor, fmt: str | None = None):
-    """(X, Y, Z) of the volume a pool holds, after checking the pool's and
-    the map's types and shapes: int32 pair16 words (n_slots, 16, Y, X // 2)
-    or float32 pair values (n_slots, 16, Y, X), and a (1, Z // 8) int32 map.
-    ``fmt`` ("pair16" or "narrow") requires that pool format."""
-    if pool.dtype not in POOL_DTYPES.values() or pool.dim() != 4 \
-            or pool.shape[1] != SLAB_H or min(pool.shape) < 1:
-        raise ValueError(f"pool must be an (n_slots, {SLAB_H}, Y, W) int32 or float32 tensor, "
-                         f"got {tuple(pool.shape)} {pool.dtype}")
-    if fmt is not None and pool.dtype != POOL_DTYPES[fmt]:
-        raise ValueError(f"the {fmt} kernels need a {POOL_DTYPES[fmt]} pool, got {pool.dtype}")
-    if slab_map.dtype != torch.int32 or slab_map.dim() != 2 or slab_map.shape[0] != 1 \
-            or slab_map.shape[1] < 1:
-        raise ValueError(f"slab_map must be a (1, Z // 8) int32 tensor, got "
-                         f"{tuple(slab_map.shape)} {slab_map.dtype}")
-    W = int(pool.shape[3])
-    X = 2 * W if pool.dtype == torch.int32 else W
-    if max(X, pool.shape[2], pool.shape[0] * SLAB_H) > _INT32_MAX:
-        raise ValueError(f"pool extent {tuple(pool.shape)} exceeds int32")
-    return X, int(pool.shape[2]), 8 * int(slab_map.shape[1])
-
-
 @functools.cache
 def _pooled_launcher(fmt: str):
     # entry_uv, dir_step, hit, pool, slab_map, grid; H, W, X, Y, Z, n_slots,
-    # max_samples, rgb; out, alpha, stream
-    return bind("composite_march", 6, 8, [ctypes.c_void_p] * 3,
+    # max_samples; out, alpha, stream
+    return bind("composite_march", 6, 7, [ctypes.c_void_p] * 3,
                 entry=f"composite_march_pooled_{fmt}")
 
 
 def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hit,
-                            max_samples, wrap, transfer, bound):
+                            max_samples, wrap, bound):
     tensors = {"pool": pool, "slab_map": slab_map, "entry_uv": entry_uv,
                "dir_step": dir_step, "hit": hit}
     check_tensors(tensors, "pool")
@@ -566,45 +474,42 @@ def _composite_march_pooled(wrapper, fmt, pool, slab_map, entry_uv, dir_step, hi
     check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
     check_max_samples(max_samples)
     check_clamp(wrap, "the pooled marches")
-    grid = _grid(bound, dims, wrap, pool.device)
+    grid = check_bound(bound, dims, wrap, device=pool.device)
     if pool.device.type == "cpu":
         color, alpha = composite_march_steps(slab_pool_sampler(pool, slab_map, dims), entry_uv,
                                              dir_step, hit.to(torch.bool), max_samples,
                                              early_exit=True, bound=bound)
-        return (apply_reference_transfer(color, alpha) if transfer else color), alpha
+        return apply_reference_transfer(color, alpha), alpha
     H, W = hit.shape
     X, Y, Z = dims
-    out = torch.empty((H, W, 3) if transfer else (H, W), dtype=torch.float32, device=pool.device)
+    rgb = torch.empty((H, W, 3), dtype=torch.float32, device=pool.device)
     alpha = torch.empty((H, W), dtype=torch.float32, device=pool.device)
     if H * W == 0:
-        return out, alpha
+        return rgb, alpha
     launch(lambda: _pooled_launcher(fmt), "composite_march", pool.device,
            entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), pool.data_ptr(),
            slab_map.data_ptr(), ptr(grid), H, W, X, Y, Z, int(pool.shape[0]), max_samples,
-           int(transfer), out.data_ptr(), alpha.data_ptr())
+           rgb.data_ptr(), alpha.data_ptr())
     wrapper.launches += 1
-    return out, alpha
+    return rgb, alpha
 
 
 def composite_march_pooled_narrow_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                        entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                        hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                                       wrap: str = "clamp", transfer: bool = False,
-                                       bound: CompositeBound | None = None):
+                                       wrap: str = "clamp", bound: BlockBound | None = None):
     """B6: :func:`composite_march_cuda`'s march, sampling the narrow f32
     slab pool (``build_slab_pool_narrow``) through its slab map.  Equal bit
     for bit to the dense march on the volume the pool was built from.
     ``wrap`` must be "clamp"; ``bound``, as for
     :func:`composite_march_cuda`, describes this pool
     (``CompositingPlan.render_pooled`` checks that it was bound from it).
-    Returns (color, alpha), each (H, W) float32,
-    or with ``transfer`` (rgb (H, W, 3), alpha) as the dense march does.
-    CUDA tensors run the kernel and add one to
+    Returns (rgb (H, W, 3), alpha (H, W)) as the dense march does.  CUDA
+    tensors run the kernel and add one to
     ``composite_march_pooled_narrow_cuda.launches``; CPU tensors run the
     plain version."""
     return _composite_march_pooled(composite_march_pooled_narrow_cuda, "narrow", pool,
-                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap,
-                                   transfer, bound)
+                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap, bound)
 
 
 composite_march_pooled_narrow_cuda.launches = 0
@@ -613,14 +518,12 @@ composite_march_pooled_narrow_cuda.launches = 0
 def composite_march_pooled_pair16_cuda(pool: torch.Tensor, slab_map: torch.Tensor,
                                        entry_uv: torch.Tensor, dir_step: torch.Tensor,
                                        hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
-                                       wrap: str = "clamp", transfer: bool = False,
-                                       bound: CompositeBound | None = None):
+                                       wrap: str = "clamp", bound: BlockBound | None = None):
     """B7: as :func:`composite_march_pooled_narrow_cuda`, on the pair16 pool
     (``build_slab_pool``); adds one to
     ``composite_march_pooled_pair16_cuda.launches`` per kernel launch."""
     return _composite_march_pooled(composite_march_pooled_pair16_cuda, "pair16", pool,
-                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap,
-                                   transfer, bound)
+                                   slab_map, entry_uv, dir_step, hit, max_samples, wrap, bound)
 
 
 composite_march_pooled_pair16_cuda.launches = 0

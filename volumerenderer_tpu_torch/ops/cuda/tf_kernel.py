@@ -8,11 +8,12 @@ One kernel pass gives the TF render AND every TF-parameter gradient sum
 port has no word tables: the kernel reads the volume straight from device
 memory, and the plan is the port's ``CompositingPlan``.
 
-``tf_march_cuda`` dispatches on where its tensors lie: CUDA tensors launch
-the kernel, CPU tensors run the plain PyTorch version
-(``diff/closed_form.py::tf_march_steps``).  There is no fallback from one to
-the other: a CUDA input the kernel cannot take raises.  The march is
-clamp-only, as the TPU kernel (its plan admits only clamp wrapping).
+``tf_march_cuda`` takes a uint8 or a float32 volume and dispatches on where
+its tensors lie: CUDA tensors launch the kernel, CPU tensors run the plain
+PyTorch version (``diff/closed_form.py::tf_march_steps``).  There is no
+fallback from one to the other: a CUDA input the kernel cannot take raises.
+The march is clamp-only, as the TPU kernel (its plan admits only clamp
+wrapping).
 """
 from __future__ import annotations
 
@@ -29,11 +30,11 @@ from ..raycast import MAX_SAMPLES
 from ..sampling import as_normalized_volume
 from . import _build, _launch
 from ._launch import (bind, check_hit, check_image, check_max_samples, check_tensors,
-                      check_volume, launch)
+                      check_volume, count_launch, dense_entry, launch)
 from .raycast_kernel import CompositingPlan, quantize_u8
 
-__all__ = ["tf_march_cuda", "tf_march_f32_cuda", "render_tf_grads_kernel",
-           "make_render_tf_kernel", "tf_fit_step_fast", "load_kernel"]
+__all__ = ["tf_march_cuda", "render_tf_grads_kernel", "make_render_tf_kernel",
+           "tf_fit_step_fast", "load_kernel"]
 
 
 @functools.cache
@@ -52,28 +53,35 @@ def check_clamp(wrap: str) -> None:
     _launch.check_clamp(wrap, "the TF and voxel-gradient marches")
 
 
-def check_march_inputs(tensors: dict, max_samples, wrap, dtype=torch.uint8,
-                       vol_name: str = "vol_u8") -> None:
+def check_march_inputs(tensors: dict, max_samples, wrap, kernel: str) -> str:
     """The checks shared by both gradient kernels' wrappers: ``tensors``
-    holds the volume (``vol_name``, of ``dtype``), entry_uv, dir_step, hit
-    and tf_scalars (and may hold more)."""
-    check_tensors(tensors, vol_name)
-    check_volume(tensors[vol_name], dtype, vol_name)
+    holds the volume (uint8 or float32), entry_uv, dir_step, hit and
+    tf_scalars (and may hold more).  Returns the C entry of ``kernel`` for
+    the volume's dtype."""
+    check_tensors(tensors, "volume")
+    volume = tensors["volume"]
+    entry = dense_entry(kernel, volume)
+    check_volume(volume, volume.dtype, "volume")
     hit = tensors["hit"]
     check_hit(hit)
     check_image(tensors, hit.shape, torch.float32, ("entry_uv", "dir_step"), (3,))
     check_image(tensors, (), torch.float32, ("tf_scalars",), (3,))
     check_max_samples(max_samples)
     check_clamp(wrap)
+    return entry
 
 
-def tf_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
+def tf_march_cuda(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                   hit: torch.Tensor, tf_scalars: torch.Tensor, max_samples: int = MAX_SAMPLES,
                   wrap: str = "clamp"):
-    """The TF compositing march with its gradient sums, one pass.
+    """The TF compositing march with its gradient sums, one pass (B4).
 
     Args:
-      vol_u8: (Z, Y, X) uint8 volume, x fastest.
+      volume: (Z, Y, X) volume, x fastest: uint8, read as its bytes, or
+        float32, whose taps the kernel quantizes to 8 bits as it reads them
+        (the images are the byte route's on ``quantize_u8(volume)``, bit for
+        bit, with no quantize pass and no byte copy); any other dtype
+        raises ValueError.
       entry_uv: (H, W, 3) float32 cube entry points in texture space.
       dir_step: (H, W, 3) float32 per-step increment (direction / dims).
       hit: (H, W) uint8, nonzero where the ray enters the cube.
@@ -83,37 +91,13 @@ def tf_march_cuda(vol_u8: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.
 
     Returns the seven (H, W) float32 images (color_T, alpha_T, R, P_total,
     QP, SG, SB).  CUDA tensors run the kernel and add one to
-    ``tf_march_cuda.launches``; CPU tensors run the plain version.
+    ``tf_march_cuda.launches`` (and, for a float32 volume, to its
+    ``f32_launches``); CPU tensors run the plain version on
+    ``quantize_u8(volume)``.
     """
-    return _tf_march(tf_march_cuda, "tf_march", torch.uint8, vol_u8, entry_uv, dir_step, hit,
-                     tf_scalars, max_samples, wrap)
-
-
-tf_march_cuda.launches = 0
-
-
-def tf_march_f32_cuda(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
-                      hit: torch.Tensor, tf_scalars: torch.Tensor,
-                      max_samples: int = MAX_SAMPLES, wrap: str = "clamp"):
-    """B4 on the (Z, Y, X) float32 volume: the kernel quantizes each tap to 8
-    bits as it reads it, so the seven images are :func:`tf_march_cuda`'s on
-    ``quantize_u8(volume)``, bit for bit, with no quantize pass and no byte
-    copy.  The other arguments and the returns are :func:`tf_march_cuda`'s.
-    CUDA tensors run the kernel and add one to ``tf_march_f32_cuda.launches``;
-    CPU tensors run the plain version on ``quantize_u8(volume)``."""
-    return _tf_march(tf_march_f32_cuda, "tf_march_f32", torch.float32, volume, entry_uv,
-                     dir_step, hit, tf_scalars, max_samples, wrap)
-
-
-tf_march_f32_cuda.launches = 0
-
-
-def _tf_march(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, tf_scalars,
-              max_samples, wrap):
-    name = "vol_u8" if dtype == torch.uint8 else "volume"
-    tensors = {name: volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit,
+    tensors = {"volume": volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit,
                "tf_scalars": tf_scalars}
-    check_march_inputs(tensors, max_samples, wrap, dtype, name)
+    entry = check_march_inputs(tensors, max_samples, wrap, "tf_march")
     if volume.device.type == "cpu":
         return tf_march_steps(as_normalized_volume(quantize_u8(volume)), entry_uv, dir_step,
                               hit.to(torch.bool), tf_scalars, max_samples)
@@ -124,18 +108,12 @@ def _tf_march(wrapper, entry: str, dtype, volume, entry_uv, dir_step, hit, tf_sc
         launch(lambda: _launcher(entry), "tf_march", volume.device,
                entry_uv.data_ptr(), dir_step.data_ptr(), hit.data_ptr(), volume.data_ptr(),
                tf_scalars.data_ptr(), H, W, X, Y, Z, max_samples, out.data_ptr())
-        wrapper.launches += 1
+        count_launch(tf_march_cuda, volume)
     return tuple(out.unbind(0))
 
 
-def _tf_march_for(volume: torch.Tensor):
-    """The TF march wrapper for ``volume``'s dtype: float32 ->
-    :func:`tf_march_f32_cuda` (taps quantized as they are read), uint8 ->
-    :func:`tf_march_cuda`; any other dtype raises."""
-    marches = {torch.float32: tf_march_f32_cuda, torch.uint8: tf_march_cuda}
-    if volume.dtype not in marches:
-        raise ValueError(f"the volume must be float32 in [0, 1] or uint8, got {volume.dtype}")
-    return marches[volume.dtype]
+tf_march_cuda.launches = 0
+tf_march_cuda.f32_launches = 0
 
 
 def check_plan(plan: CompositingPlan) -> None:
@@ -150,8 +128,8 @@ def _march(params: TFParams, volume: torch.Tensor, plan: CompositingPlan):
         # the kernel reads the volume in place: a view (a slice of a larger
         # volume) is copied, a contiguous volume is not
         volume = volume.contiguous()
-        partials = _tf_march_for(volume)(volume, plan.entry_uv, plan.dir_step, plan.hit,
-                                         _tf_scalars(params), plan.max_samples, plan.wrap)
+        partials = tf_march_cuda(volume, plan.entry_uv, plan.dir_step, plan.hit,
+                                 _tf_scalars(params), plan.max_samples, plan.wrap)
         rgb = params.flip_sign * partials[0][..., None] + params.flip_bias
         return rgb, partials[1], partials
 

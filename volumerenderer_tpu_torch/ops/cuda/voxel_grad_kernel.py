@@ -32,7 +32,7 @@ from ...utils.timer import span
 from ..raycast import MAX_SAMPLES
 from ..sampling import as_normalized_volume
 from . import _build
-from ._launch import bind, check_image, launch
+from ._launch import bind, check_image, count_launch, dense_entry, launch
 from .raycast_kernel import CompositingPlan, quantize_u8
 from .tf_kernel import bind_render_tf, check_march_inputs, check_plan
 
@@ -45,10 +45,6 @@ def _launcher(entry: str = "voxel_grad"):
     # entry_uv, dir_step, hit, vol, tf, gc, gaT_term, P_tot; H, W, X, Y, Z, max_samples;
     # g_vol, stats, stream
     return bind("voxel_grad", 8, 6, [ctypes.c_void_p] * 3, entry=entry)
-
-
-# the C entry point of each volume dtype B5 reads
-_ENTRIES = {torch.uint8: "voxel_grad", torch.float32: "voxel_grad_f32"}
 
 
 def load_kernel() -> _build.BuiltLibrary:
@@ -97,13 +93,11 @@ voxel_grad_cuda.f32_launches = 0
 
 def _checked_inputs(volume, entry_uv, dir_step, hit, tf_scalars, gc, gaT_term, P_tot,
                     max_samples, wrap) -> dict:
-    """The wrapper's inputs by name, checked; the volume's dtype picks the
-    route (uint8 or float32), any other raises."""
-    if volume.dtype not in _ENTRIES:
-        raise ValueError(f"the volume must be float32 or uint8, got {volume.dtype}")
+    """The wrapper's inputs by name, checked: the volume uint8 or float32,
+    any other dtype raises."""
     tensors = {"volume": volume, "entry_uv": entry_uv, "dir_step": dir_step, "hit": hit,
                "tf_scalars": tf_scalars, "gc": gc, "gaT_term": gaT_term, "P_tot": P_tot}
-    check_march_inputs(tensors, max_samples, wrap, volume.dtype, "volume")
+    check_march_inputs(tensors, max_samples, wrap, "voxel_grad")
     check_image(tensors, hit.shape, torch.float32, ("gc", "gaT_term", "P_tot"))
     return tensors
 
@@ -113,15 +107,13 @@ def _launch_vg(tensors: dict, max_samples: int, g_vol: torch.Tensor,
     H, W = tensors["hit"].shape
     volume = tensors["volume"]
     Z, Y, X = volume.shape
-    entry = _ENTRIES[volume.dtype]
+    entry = dense_entry("voxel_grad", volume)
     launch(lambda: _launcher(entry), "voxel_grad", g_vol.device,
            *(tensors[n].data_ptr() for n in ("entry_uv", "dir_step", "hit", "volume",
                                               "tf_scalars", "gc", "gaT_term", "P_tot")),
            H, W, X, Y, Z, max_samples, g_vol.data_ptr(),
            None if stats is None else stats.data_ptr())
-    voxel_grad_cuda.launches += 1
-    if volume.dtype == torch.float32:
-        voxel_grad_cuda.f32_launches += 1
+    count_launch(voxel_grad_cuda, volume)
 
 
 def voxel_grad_block_stats(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,

@@ -17,11 +17,12 @@ Counterpart of ``volumerenderer_tpu/ops/isosurface.py`` (the reference's
   (specular power 250, diffuse (0.39, 0.58, 0.93)), clipped to [0, 1];
   missed rays are white.
 
-An :class:`IsoBound` (``iso_block_grid``, ``iso_grid_from_pool``,
-``iso_grid_from_mip8``, in ``ops/blockgrid.py``) lets the march skip exactly:
-per 8^3 block of tap anchors the least and largest byte its trilinear taps
-can read, so a lookahead whose block lies wholly below or above the
-isovalue is not sampled (``iso_march_steps(..., bound=)``).
+A ``BlockBound`` made for an isovalue (``iso_block_grid``,
+``iso_grid_from_pool``, ``iso_grid_from_mip8``, in ``ops/blockgrid.py``)
+lets the march skip exactly: per 8^3 block of tap anchors the least and
+largest byte its trilinear taps can read, so a lookahead whose block lies
+wholly below or above the isovalue is not sampled
+(``iso_march_steps(..., bound=)``).
 
 ``render_isosurface`` is exactly the two composed.  As in ``ops/raycast.py``
 each product and sum is its own tensor operation, the three-term dot products
@@ -31,17 +32,15 @@ follow XLA's rounding of ``jnp.linalg.norm`` (see ``_norm``).
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
-from .blockgrid import (ISO_BLOCK, anchor_cells, check_made_for, check_source, data_source,
+from .blockgrid import (ISO_BLOCK, BlockBound, anchor_cells, check_bound, data_source,
                         iso_block_grid, iso_grid_from_mip8, iso_grid_from_pool)
 from .raycast import step_sizes
 from .sampling import as_sampler
 
 __all__ = ["render_isosurface", "iso_march_steps", "shade_hits", "bisection_refine",
-           "gradient_normal", "phong", "IsoBound", "iso_block_grid", "iso_grid_from_pool",
+           "gradient_normal", "phong", "iso_block_grid", "iso_grid_from_pool",
            "iso_grid_from_mip8", "classify_blocks", "data_source", "MAX_SAMPLES", "DELTA", "SPEC_POWER", "DIFFUSE", "ISO_BLOCK"]
 
 MAX_SAMPLES = 300       # isosurface.frag:15
@@ -111,41 +110,7 @@ def phong(L, N, V, spec_power: float = SPEC_POWER, diffuse_color=DIFFUSE):
     return diffuse[..., None] * color + spec[..., None]
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class IsoBound:
-    """An isovalue, the (X, Y, Z) dims and wrap mode of a volume, the
-    volume's block grid and the data it was made from, kept together
-    (``IsosurfacePlan.bind`` returns one) so that a march can refuse a grid
-    made for another isovalue, volume shape or volume.
-
-    ``grid`` is (ceil(Z/8), ceil(Y/8), ceil(X/8), 2) uint8: for the tap
-    anchors of block b, [8b, 8b + 8) on each axis, the least and the largest
-    byte its taps can read, over the texels [8b, 8b + 8] (clamped to the
-    edge, or wrapped for "repeat").  A grid from a max-only mip has least 0.
-    ``source`` (:func:`data_source`) names the tensors the grid describes:
-    the volume, or a slab pool and its map; empty for a bound built by hand,
-    which only the low-level marches take."""
-
-    iso: float
-    dims: tuple
-    wrap: str
-    grid: torch.Tensor
-    source: tuple = ()
-
-    def check_source(self, *tensors) -> None:
-        """Raise ValueError unless ``tensors`` are the very tensors this
-        bound was made from, unchanged since (no in-place write)."""
-        check_source(self.source, *tensors)
-
-    def check(self, iso, dims, wrap: str) -> None:
-        """Raise ValueError unless this bound was made for ``iso``, ``dims``
-        (X, Y, Z; ``None`` skips that check) and ``wrap``."""
-        if float(iso) != self.iso:
-            raise ValueError(f"the bound was made for iso {self.iso!r}, not {float(iso)!r}")
-        check_made_for(self, dims, wrap)
-
-
-def classify_blocks(bound: IsoBound, uvw: torch.Tensor):
+def classify_blocks(bound: BlockBound, uvw: torch.Tensor):
     """(below, above) masks of the samples at ``uvw`` (..., 3): the block of
     each sample's lower tap anchor (the sampler's own texel math, the
     anchor clamped or wrapped onto the volume) lies wholly below the
@@ -161,7 +126,7 @@ def classify_blocks(bound: IsoBound, uvw: torch.Tensor):
 
 def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                     hit: torch.Tensor, iso, max_samples: int = MAX_SAMPLES,
-                    wrap: str = "clamp", bound: IsoBound | None = None,
+                    wrap: str = "clamp", bound: BlockBound | None = None,
                     with_near: bool = False):
     """March rays through ``volume`` (Z, Y, X float32 in [0,1]) to the first
     upward crossing of ``iso``.  ``volume`` may also be a sampler
@@ -171,7 +136,7 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
       entry_uv: (..., 3) cube entry points in texture space.
       dir_step: (..., 3) per-step position increment (direction / dims).
       hit: (...) bool mask of rays that intersect the cube.
-      bound: an :class:`IsoBound` of this volume for ``iso`` and ``wrap``,
+      bound: a ``BlockBound`` of this volume for ``iso`` and ``wrap``,
         or None.  With a bound, a sample whose block is wholly below or
         above iso is not taken (:func:`classify_blocks`), and only its side
         of iso is carried: the result is the same bit for bit.
@@ -186,7 +151,7 @@ def iso_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torc
     """
     if bound is not None:
         Z, Y, X = volume.shape if isinstance(volume, torch.Tensor) else (None,) * 3
-        bound.check(iso, None if X is None else (X, Y, Z), wrap)
+        check_bound(bound, None if X is None else (X, Y, Z), wrap, iso)
     iso = _f32(iso, entry_uv.device)
     shape = entry_uv.shape[:-1]
     found = torch.zeros(shape, dtype=torch.bool, device=entry_uv.device)

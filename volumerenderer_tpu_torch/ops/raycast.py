@@ -12,7 +12,7 @@ the CUDA march kernel (``csrc/composite_march.cu``):
 * early termination at ``a > 0.99``, checked after compositing;
 * final fixed transfer: ``r = g = 1 - c``, ``b = 1``.
 
-A :class:`CompositeBound` (the block grid of ``ops/blockgrid.py``, bound by
+A ``BlockBound`` (the block grid of ``ops/blockgrid.py``, bound by
 ``CompositingPlan.bind``) lets the march skip exactly: a sample whose block
 of tap anchors reads only zero bytes is 0, and a zero sample composites as a
 no-op (``pa = s - s*a = 0``), so it is not taken
@@ -30,14 +30,12 @@ matches the JAX functions (no fused multiply-add).
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
-from .blockgrid import anchor_cells, check_made_for, check_source
+from .blockgrid import BlockBound, anchor_cells, check_bound
 from .sampling import as_sampler
 
-__all__ = ["CompositeBound", "empty_blocks", "composite_march", "composite_march_early_exit",
+__all__ = ["empty_blocks", "composite_march", "composite_march_early_exit",
            "composite_march_steps",
            "seg_march_steps", "seg_steps", "seg_entry_table", "shard_owned",
            "apply_reference_transfer", "render_compositing", "step_sizes", "MAX_SAMPLES",
@@ -56,40 +54,7 @@ def step_sizes(dims, device: torch.device | str) -> torch.Tensor:
     return torch.tensor([1.0 / X, 1.0 / Y, 1.0 / Z], dtype=torch.float32, device=device)
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class CompositeBound:
-    """The (X, Y, Z) dims and wrap mode of a volume, its block grid and the
-    data it was made from, kept together (``CompositingPlan.bind`` returns
-    one) so that a march can refuse a grid made for another volume shape,
-    wrap or volume.  It carries no threshold: the compositing skip needs
-    only each block's largest byte (0: every tap there reads 0).
-
-    ``grid`` is the (ceil(Z/8), ceil(Y/8), ceil(X/8), 2) uint8 grid of
-    ``ops/blockgrid.py`` (least, largest byte per block of tap anchors).
-    ``source`` (``blockgrid.data_source``) names the tensors the grid
-    describes: the volume, or a slab pool and its map; empty for a bound
-    built by hand, which only the low-level marches take.  ``has_empty``:
-    the grid holds a block to skip (``CompositingPlan.render`` marches
-    without a grid that skips nothing)."""
-
-    dims: tuple
-    wrap: str
-    grid: torch.Tensor
-    source: tuple = ()
-    has_empty: bool = True
-
-    def check_source(self, *tensors) -> None:
-        """Raise ValueError unless ``tensors`` are the very tensors this
-        bound was made from, unchanged since (no in-place write)."""
-        check_source(self.source, *tensors)
-
-    def check(self, dims, wrap: str) -> None:
-        """Raise ValueError unless this bound was made for ``dims`` (X, Y, Z;
-        ``None`` skips that check) and ``wrap``."""
-        check_made_for(self, dims, wrap)
-
-
-def empty_blocks(bound: CompositeBound, uvw: torch.Tensor) -> torch.Tensor:
+def empty_blocks(bound: BlockBound, uvw: torch.Tensor) -> torch.Tensor:
     """Where the samples at ``uvw`` (..., 3) are 0 by the bound's grid: the
     block of each sample's lower tap anchor reads no byte above 0."""
     return anchor_cells(bound.grid, bound.dims, bound.wrap, uvw)[..., 1] == 0
@@ -98,7 +63,7 @@ def empty_blocks(bound: CompositeBound, uvw: torch.Tensor) -> torch.Tensor:
 def composite_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step: torch.Tensor,
                           hit: torch.Tensor, max_samples: int = MAX_SAMPLES,
                           wrap: str = "clamp", early_exit: bool = True,
-                          bound: CompositeBound | None = None):
+                          bound: BlockBound | None = None):
     """March rays through ``volume`` (Z, Y, X float32 in [0,1]) by ``dir_step``.
 
     ``volume`` may also be a sampler (``ops/sampling.py::as_sampler``), e.g.
@@ -111,7 +76,7 @@ def composite_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step
       hit: (...) bool mask of rays that intersect the cube.
       early_exit: stop once every ray has terminated.  The result is the
         same either way, because a terminated ray never changes again.
-      bound: a :class:`CompositeBound` of this volume for ``wrap``, or None.
+      bound: a compositing ``BlockBound`` of this volume for ``wrap``, or None.
         With a bound, a sample whose block reads only zero bytes is not
         taken (:func:`empty_blocks`): it is 0 and composites as a no-op, so
         the result is the same bit for bit.
@@ -121,7 +86,7 @@ def composite_march_steps(volume: torch.Tensor, entry_uv: torch.Tensor, dir_step
     """
     if bound is not None:
         Z, Y, X = volume.shape if isinstance(volume, torch.Tensor) else (None,) * 3
-        bound.check(None if X is None else (X, Y, Z), wrap)
+        check_bound(bound, None if X is None else (X, Y, Z), wrap)
     shape = entry_uv.shape[:-1]
     pos = entry_uv
     color = torch.zeros(shape, dtype=torch.float32, device=entry_uv.device)

@@ -102,7 +102,7 @@ def render_planned_sharded(mesh: DeviceMesh, plan: CompositingPlan, volume: torc
     vol_u8 = quantize_u8(volume)
     entries, shards = _row_shards(mesh, plan, axis)
     local = [composite_march_cuda(vol_u8.to(dev), sub.entry_uv, sub.dir_step, sub.hit,
-                                  sub.max_samples, sub.wrap, transfer=True)
+                                  sub.max_samples, sub.wrap)
              for dev, _, sub in shards]
     parts = multihost.gather(mesh, local, entries)
     return torch.cat([rgb for rgb, _ in parts]), torch.cat([a for _, a in parts])
