@@ -14,9 +14,10 @@ calls:
   isovalue, shared by the 16 plans) -> ``IsosurfacePlan.render(..., bound=)``
   (kernels ``csrc/iso_march.cu``, skipping exactly and handing each hit's
   near bracket on, and ``csrc/iso_shade.cu`` from that bracket), with the
-  bind inside the sweep and outside it, and the same unbound; the bind's
-  block grid alone (``csrc/block_grid.cu``) against its plain version, at
-  256^3 and at the RM run's 2048x2048x768 bytes;
+  bind inside the sweep and outside it (a bind of the unchanged volume
+  reuses its grid), and the same unbound, and a bind of new data (a clone)
+  timed; the bind's block grid alone (``csrc/block_grid.cu``) against its
+  plain version, at 256^3 and at the RM run's 2048x2048x768 bytes;
 * gradients, on orbit frame 0: the config-4 TF fit, ``plan_compositing`` ->
   ``make_render_tf_kernel`` -> ``tf_fit_step_fast`` x 5, and a voxel-grad
   step, ``make_render_tf_voxel`` -> MSE loss -> ``torch.autograd.grad`` of
@@ -733,12 +734,15 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
     # isovalue), with the bind inside it (a new pair each orbit), and
     # unbound; and one frame that pays its own bind (a new pair each frame).
     # The launch counts cover exactly this run: each render one march and
-    # one shade, each bind one grid kernel (the float32 volume on the card).
+    # one shade; every bind here is of the volume bound above, unchanged, so
+    # it reuses that grid (``bind_grid``): no build, no grid kernel.  A bind
+    # of new data (a clone) is timed apart, the grid kernel in it.
     plans = [IK.IsosurfacePlan(r.entry_uv, r.direction, r.hit, VOLUME[::-1]) for r in bundles]
     iso_bound = plans[0].bind(turb, iso_med)
     IK.iso_march_cuda.launches = 0
     IK.iso_shade_cuda.launches = 0
     GK.iso_block_grid_cuda.launches = 0
+    builds, hits = GK.bind_grid.builds, GK.bind_grid.hits
     renders = binds = 0
     last = {}
 
@@ -775,7 +779,11 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
     kernel_sweep_s = sweep_seconds(lambda: kernel_sweep("bound"))
     launches = {"iso_march": IK.iso_march_cuda.launches, "iso_shade": IK.iso_shade_cuda.launches}
     grid_launches = GK.iso_block_grid_cuda.launches
+    grid_builds, grid_hits = GK.bind_grid.builds - builds, GK.bind_grid.hits - hits
     plain_sweep_s = sweep_seconds(plain_sweep)
+    fresh = iter([turb.clone() for _ in range(REPS + 1)])
+    bind_new_data_ms = time_ms(lambda: plans[0].bind(next(fresh), iso_med), reps=REPS)
+    del fresh
     rgb, found = last["rgb"], last["found"]
     if not torch.equal(rgb, rgb_unbound):
         raise AssertionError("iso main path: the bound frame differs from the unbound one")
@@ -793,7 +801,8 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
           "frame_with_own_bind_ms": 1e3 * own_bind_s,
           "unbound_ms_per_frame": 1e3 * unbound_sweep_s / N_FRAMES,
           "plain_ms_per_frame": 1e3 * plain_sweep_s / N_FRAMES,
-          "bind_ms": time_ms(lambda: plans[0].bind(turb, iso_med)), "bound_frame_equal": True,
+          "bind_ms": time_ms(lambda: plans[0].bind(turb, iso_med)),
+          "bind_new_data_ms": bind_new_data_ms, "bound_frame_equal": True,
           "hits_last_frame": int(found.sum()), "frames": N_FRAMES, "reps": REPS, "gpu": smi})
 
     # per-launch times of each kernel as render launches it (the march with
@@ -845,6 +854,7 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
                                                   VOLUME[::-1])),
         "quantize_u8": time_ms(lambda: quantize_u8(turb)),
         "bind": time_ms(lambda: plan0.bind(turb, iso_med)),
+        "bind_new_data": bind_new_data_ms,
         "march_kernel": time_ms(lambda: IK.iso_march_cuda(turb_u8, plan0.entry_uv,
                                                           plan0.dir_step, plan0.hit, iso_med,
                                                           bound=iso_bound, with_near=True)),
@@ -855,14 +865,17 @@ def run_isosurface(dev, smi: str, turb, sphere, cameras, bundles, adversarial) -
         "hits_frame0": int(f0.sum()), "gpu": smi})
 
     # the main path went through both kernels, once per render each, and
-    # every bind through the grid kernel, never the plain reductions
+    # every bind of its unchanged volume reused the grid: no build, no grid
+    # kernel, never the plain reductions
     if renders == 0 or any(n != renders for n in launches.values()):
         raise AssertionError(f"isosurface kernels launched {launches} times for {renders} "
                              f"renders")
-    if binds == 0 or grid_launches != binds:
-        raise AssertionError(f"the grid kernel launched {grid_launches} times for {binds} binds")
+    if binds == 0 or grid_launches != grid_builds or grid_builds != 0 or grid_hits != binds:
+        raise AssertionError(f"{binds} binds of an unchanged volume built {grid_builds} grids "
+                             f"({grid_launches} grid kernels) and reused {grid_hits}")
     emit({"phase": "iso_launch_count", **launches, "renders": renders,
-          "block_grid": grid_launches, "binds": binds})
+          "block_grid": grid_launches, "binds": binds, "grid_builds": grid_builds,
+          "grid_hits": grid_hits})
 
     # the bounds, per launch over the orbit: a hit samples at steps 0..t_hit
     # and once before, a miss once per step inside the cube and once before;
@@ -931,8 +944,9 @@ def run_grid(dev, smi: str, turb, main_path_launches: int) -> dict:
     warm call (the 256^3 volumes lie in L2 from the call before).  The
     bound: the volume read and the grid written once over the card's memory
     rate.  Returns the kernels line's entry, at the RM size, with the
-    launches of the iso main path's binds (``main_path_launches``); this
-    phase's own calls are counted apart."""
+    launches of the iso main path's binds (``main_path_launches``: 0, as
+    they bind a volume bound before and reuse its grid; a build is 1 per
+    bind of new data); this phase's own calls are counted apart."""
     from volumerenderer_tpu_torch.ops.blockgrid import iso_block_grid
     from volumerenderer_tpu_torch.ops.cuda import blockgrid_kernel as GK
     from volumerenderer_tpu_torch.ops.cuda.raycast_kernel import quantize_u8

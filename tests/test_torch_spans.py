@@ -1,7 +1,8 @@
 """The port's spans (``utils/timer.py::span``) on the paths the benchmark's
 cells run.  Under ``torch.profiler.profile`` on the CPU each call gives
 exactly its ``vr.`` spans, once each, nested as its work is: the iso bind
-(``vr.iso.bind``, its grid build ``vr.grid`` inside), the iso render, the
+(``vr.iso.bind``, its grid build ``vr.grid`` inside, and no ``vr.grid``
+where the bind reuses the grid of data bound before), the iso render, the
 compositing bind and render, and a fit step through ``make_render_tf_voxel``
 (``vr.tf.march``; ``vr.voxel_grad`` with ``vr.voxel_grad.quantize``
 inside), the slab pool's build (``vr.pool.build``), the pooled compositing
@@ -10,7 +11,8 @@ render (``vr.composite.render_pooled``) and a kd-tree's cut decode
 reaches ``record_function``.  Images, grids, losses and gradients are bit
 for bit the same with the profiler on and off.  The benchmark's four
 readers of the spans (``benchmark/metrics/``) read a traced window of iso
-frames and fit steps, and read nothing from a program without spans."""
+frames (binding new data each frame, or one volume each frame) and fit
+steps, and read nothing from a program without spans."""
 import types
 from pathlib import Path
 
@@ -60,8 +62,10 @@ def _fit_step(s):
 
 # each call, and its spans: name -> the span it lies inside (None: no vr. span)
 CALLS = {
-    "iso_bind": (lambda s: s.iso.bind(s.vol, ISO).grid,
+    "iso_bind": (lambda s: s.iso.bind(s.vol.clone(), ISO).grid,
                  {"vr.iso.bind": None, "vr.grid": "vr.iso.bind"}),
+    # the volume the scene bound, unchanged since: its grid reused, not built
+    "iso_bind_reused": (lambda s: s.iso.bind(s.vol, ISO).grid, {"vr.iso.bind": None}),
     "iso_bind_mip8": (lambda s: s.iso.bind(s.vol, ISO, mip8=RK.block_max8(s.vol)).grid,
                       {"vr.iso.bind": None, "vr.grid": "vr.iso.bind"}),
     "iso_bind_pool": (lambda s: s.iso.bind(pool=RK.build_slab_pool(RK.quantize_u8(s.vol)),
@@ -70,7 +74,7 @@ CALLS = {
                        "vr.grid": "vr.iso.bind"}),
     "iso_render": (lambda s: s.iso.render(s.vol, ISO, bound=s.bound),
                    {"vr.iso.render": None}),
-    "composite_bind": (lambda s: s.comp.bind(s.vol).grid, {"vr.grid": None}),
+    "composite_bind": (lambda s: s.comp.bind(s.vol.clone()).grid, {"vr.grid": None}),
     "composite_render": (lambda s: s.comp.render(s.vol), {"vr.composite.render": None}),
     "pool_build": (lambda s: RK.build_slab_pool(RK.quantize_u8(s.vol)),
                    {"vr.pool.build": None}),
@@ -162,14 +166,23 @@ def test_benchmark_readers_read_the_spans(scene, tmp_path, monkeypatch, spans_on
     if not spans_on:  # the program as it was before its spans
         monkeypatch.setattr(TT, "_profiler_enabled", lambda: False)
     read = _readers()
-    iso = _traced_window(tmp_path, lambda: scene.iso.render(
-        scene.vol, ISO, bound=scene.iso.bind(scene.vol, ISO)), 3)
+
+    def iso_frame(vol):
+        return scene.iso.render(vol, ISO, bound=scene.iso.bind(vol, ISO))
+
+    # new data each frame (a clone: a build a frame), then the one volume
+    # the scene bound (the grid reused: no build)
+    iso = _traced_window(tmp_path, lambda: iso_frame(scene.vol.clone()), 3)
+    reused = _traced_window(tmp_path, lambda: iso_frame(scene.vol), 3)
     fit = _traced_window(tmp_path, lambda: _fit_step(scene), 2)
     got = {n: read[n](fit if n.endswith(".fit") else iso) for n in read}
+    got_reused = {n: read[n](reused) for n in read if n.endswith(".iso")}
     if not spans_on:
-        assert got == dict.fromkeys(read)
+        assert got == dict.fromkeys(read) and got_reused == dict.fromkeys(got_reused)
         return
     assert got["grid_builds.iso"] == 1.0
+    assert got_reused["grid_builds.iso"] == 0.0 and got_reused["grid_ms.iso"] == 0.0
+    assert got_reused["program_host_ms.iso"] > 0.0
     assert got["program_host_ms.iso"] > 0.0
     # no device here: the card's time inside the spans is 0
     assert got["grid_ms.iso"] == 0.0 and got["quantize_ms.fit"] == 0.0

@@ -40,7 +40,8 @@ class BlockBound:
 
     ``grid`` is the (ceil(Z/8), ceil(Y/8), ceil(X/8), 2) uint8 grid (least,
     largest byte per block of tap anchors; a grid from a max-only mip has
-    least 0).  ``source`` (:func:`data_source`) names the tensors the grid
+    least 0), shared by every bind of the same unchanged data
+    (``blockgrid_kernel.bind_grid``): treat it as read-only.  ``source`` (:func:`data_source`) names the tensors the grid
     describes: the volume, or a slab pool and its map; empty for a bound
     built by hand, which only the low-level marches take.  ``has_empty``:
     the grid holds a block to skip (``CompositingPlan.render`` marches

@@ -16,7 +16,8 @@ block grid of a volume or a slab pool, in place of the TPU plan's word
 tables, and that data's identity; ``blockgrid_kernel.bind_grid``, the
 compositing plan's bind too) that ``render`` and ``render_pooled`` take and
 check against their isovalue and data.  The grid depends only on the data
-and the wrap, so one bound serves every plan of the same dims and wrap.
+and the wrap, so one bound serves every plan of the same dims and wrap, and
+a bind of data bound before, unchanged since, reuses its grid.
 
 The pooled render (``IsosurfacePlan.render_pooled``) marches a slab pool
 (``raycast_kernel.py::build_slab_pool_narrow`` for B8,
@@ -383,11 +384,16 @@ class IsosurfacePlan:
         written in place since), raises ValueError there, so two binds
         cannot be crossed; an inference-mode tensor (no version counter)
         raises here.  The grid depends only on the data and the wrap: one
-        bound serves every plan of the same dims and wrap, and a bind (one
-        pass over the data: ``iso_block_grid_cuda`` on the card, the plain
-        ``iso_block_grid`` on the CPU) pays only where a (data, isovalue)
-        pair is rendered more than once.  The call is one ``vr.iso.bind``
-        span, its grid build a ``vr.grid`` span inside it."""
+        bound serves every plan of the same dims and wrap, and ``bind_grid``
+        keeps it while the data lives, so a bind of the same tensor,
+        unwritten since, at another isovalue builds nothing (a lookup of a
+        few microseconds).  A bind of new data, or of data written in place
+        since, builds the grid (one pass over the data:
+        ``iso_block_grid_cuda`` on the card, the plain ``iso_block_grid`` on
+        the CPU).  Writes that torch's version counter does not see
+        (``.data``, numpy or DLPack views, raw pointers) are not seen here
+        either: bind a new tensor after one.  The call is one
+        ``vr.iso.bind`` span, a grid build a ``vr.grid`` span inside it."""
         with span("vr.iso.bind"):
             _check_scalars(iso_value, self.wrap)
             return bind_grid(self.dims, self.wrap, self.hit.device, volume, pool, mip8,
@@ -448,12 +454,14 @@ def render_isosurface_kernel(volume, entry_uv, direction, hit, iso_value=40.0 / 
     uint8) is sampled on its 8-bit grid.  ``skip_empty`` binds the volume
     for this one render (``IsosurfacePlan.bind``) and marches bound, as the
     JAX function does by default; the image is the same either way.  Here
-    it is off by default: a bind costs about what one bound frame saves,
-    and on an H100 a one-shot bind plus the bound render took 0.93-1.13x
-    the unbound render (1024^2 rays, the 256^3 turbulence at its median;
-    ``chip_smoke.py``'s skip_empty phase; 1.4-1.9x while the grid was
-    built by torch reductions).  Bind once with ``IsosurfacePlan.bind``
-    where a (volume, isovalue) pair is rendered more than once."""
+    it is off by default: the bind of a volume not bound before costs about
+    what one bound frame saves, and on an H100 such a one-shot bind plus
+    the bound render took 0.93-1.13x the unbound render (1024^2 rays, the
+    256^3 turbulence at its median; ``chip_smoke.py``'s skip_empty phase;
+    1.4-1.9x while the grid was built by torch reductions).  A volume bound
+    before and unchanged since reuses its grid (``bind_grid``), so there
+    the bind is a lookup.  Bind with ``IsosurfacePlan.bind`` where a volume
+    is rendered more than once."""
     Z, Y, X = volume.shape
     plan = IsosurfacePlan(entry_uv, direction, hit, (X, Y, Z), max_samples, wrap)
     bound = plan.bind(volume, iso_value) if skip_empty else None

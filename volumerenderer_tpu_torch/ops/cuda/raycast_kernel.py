@@ -230,7 +230,11 @@ class CompositingPlan:
         written in place since), raises ValueError there, and an
         inference-mode tensor (no version counter) raises here.  The grid
         depends only on the data and the wrap: one bound serves every plan
-        of the same dims and wrap.  Where the grid holds no empty block (a
+        of the same dims and wrap, and ``bind_grid`` keeps the grid and
+        ``has_empty`` while the data lives, so a bind of the same tensor,
+        unwritten since, builds nothing (writes torch's version counter does
+        not see, through ``.data``, numpy or DLPack views or raw pointers,
+        are not seen here either).  Where the grid holds no empty block (a
         field with data everywhere) the bound has nothing to skip, and
         :meth:`render` marches without it: the skip test would cost every
         sample (``has_empty``)."""
